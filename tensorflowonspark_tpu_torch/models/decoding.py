@@ -1,0 +1,174 @@
+"""Autoregressive decoding (port of ``models/decoding.py``).
+
+The SOLO path: one batch of prompts, a private contiguous KV cache, a
+batched prefill (one forward writes the whole prompt's K/V) and then one
+token per step. It is the baseline the continuous-batching engine
+(:mod:`tensorflowonspark_tpu_torch.serving`) is held against: greedy
+engine streams equal this module's ``generate`` bitwise.
+
+Sampling: greedy (``temperature=0``), temperature, top-k and top-p with
+the JAX package's filter semantics; ``eos_token`` freezes finished rows at
+``pad_token``. Random draws come from a ``torch.Generator``; they are not
+``jax.random``'s bits, so sampled streams match the JAX package only in
+distribution.
+"""
+
+import torch
+
+from tensorflowonspark_tpu_torch.models.transformer import _NEG_INF
+
+
+def _gumbel(shape, rng, device):
+    u = torch.rand(shape, generator=rng, device=device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _sample(logits, rng, temperature, top_k, top_p, noise=None):
+    """One token per batch row from ``(b, vocab)`` logits. ``noise``
+    (Gumbel, ``(b, vocab)``) replaces the draw from ``rng`` — the tests
+    feed both frameworks the same noise."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits.float() / float(temperature)
+    nucleus = bool(top_p) and top_p < 1.0
+    if top_k or nucleus:
+        # One descending sort serves both filters.
+        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        if top_k:
+            kth = sorted_desc[:, int(top_k) - 1][:, None]
+            logits = torch.where(logits < kth, _NEG_INF, logits)
+            pos = torch.arange(sorted_desc.shape[-1],
+                               device=logits.device)[None, :]
+            sorted_desc = torch.where(pos < int(top_k), sorted_desc,
+                                      _NEG_INF)
+        if nucleus:
+            # Keep the smallest prefix of descending-probability tokens
+            # whose mass reaches top_p (the first token always stays).
+            probs = torch.softmax(sorted_desc, dim=-1)
+            cum_before = torch.cumsum(probs, dim=-1) - probs
+            keep_sorted = cum_before < float(top_p)
+            thresh = torch.where(keep_sorted, sorted_desc,
+                                 torch.inf).amin(dim=-1, keepdim=True)
+            logits = torch.where(logits < thresh, _NEG_INF, logits)
+    if noise is None:
+        noise = _gumbel(logits.shape, rng, logits.device)
+    return torch.argmax(logits + noise, dim=-1).to(torch.int32)
+
+
+def init_cache(model, batch_size, cache_len=None):
+    """An empty (index-0, zeroed) contiguous KV cache for ``batch_size``
+    rows on the model's device. ``cache_len`` defaults to the model's
+    ``decode_cache_len`` or ``max_seq_len``."""
+    cfg = model.cfg
+    cache_len = int(cache_len or cfg.decode_cache_len or cfg.max_seq_len)
+    shape = (int(batch_size), cache_len, cfg.kv_heads, cfg.head_dim)
+    cache = {"position": 0}
+    for i in range(cfg.num_layers):
+        cache["block_{}".format(i)] = {
+            "cached_key": torch.zeros(shape, dtype=cfg.dtype,
+                                      device=model.device),
+            "cached_value": torch.zeros(shape, dtype=cfg.dtype,
+                                        device=model.device),
+            "cache_index": 0,
+        }
+    return cache
+
+
+def serving_variables(variables, dtype=torch.bfloat16):
+    """Cast the floating-point tensors of a ``state_dict`` to the serving
+    dtype ONCE (the model casts per call otherwise); other tensors pass
+    through. Load the result with :func:`load_variables`."""
+    return {
+        name: t.to(dtype) if t.is_floating_point() else t
+        for name, t in variables.items()
+    }
+
+
+def load_variables(model, variables):
+    """Adopt ``variables`` (a ``state_dict``, e.g. from
+    ``convert.params_from_flax`` or :func:`serving_variables`) as the
+    model's parameters, on the model's device and in the dtypes given.
+    ``None`` keeps the model's own parameters."""
+    if variables is None:
+        return model
+    dev = model.device
+    model.load_state_dict(
+        {name: torch.as_tensor(t).to(dev) for name, t in variables.items()},
+        assign=True)
+    return model
+
+
+def _bucketed_cache_len(needed, max_seq_len):
+    """Power-of-two cache bucket covering ``needed`` slots (floor 128),
+    capped at ``max_seq_len``."""
+    bucket = 128
+    while bucket < needed:
+        bucket *= 2
+    return min(bucket, max_seq_len)
+
+
+@torch.no_grad()
+def generate(model, variables, prompt, max_new_tokens, rng=None,
+             temperature=0.0, top_k=0, top_p=0.0, eos_token=None,
+             pad_token=None, prefill="batched", auto_cache=False):
+    """Generate ``max_new_tokens`` continuations of ``prompt`` (int
+    ``(batch, prompt_len)``, any array-like). Returns int32 ``(batch,
+    prompt_len + max_new_tokens)`` on the model's device.
+
+    ``variables``: a ``state_dict`` to adopt first (see
+    :func:`load_variables`), or None for the model's own weights.
+    ``rng``: a ``torch.Generator`` on the model's device (default: seeded
+    0). ``auto_cache=True`` allocates the cache at the power-of-two bucket
+    (floor 128) covering ``prompt + max_new_tokens`` — the allocation the
+    engine's prefill uses, which keeps the two bitwise comparable.
+    ``prefill="batched"`` is the only prefill of this slice.
+    """
+    load_variables(model, variables)
+    cfg = model.cfg
+    dev = model.device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int64)
+    b, p = prompt.shape
+    if max_new_tokens < 0:
+        raise ValueError("max_new_tokens must be >= 0")
+    if p == 0:
+        raise ValueError("prompt must contain at least one token")
+    cache_len = cfg.decode_cache_len or cfg.max_seq_len
+    if auto_cache and p + max_new_tokens <= cfg.max_seq_len:
+        cache_len = _bucketed_cache_len(p + max_new_tokens, cfg.max_seq_len)
+    if p + max_new_tokens > cache_len:
+        raise ValueError(
+            "prompt ({}) + max_new_tokens ({}) exceeds the decode cache "
+            "length ({})".format(p, max_new_tokens, cache_len))
+    if prefill != "batched":
+        raise NotImplementedError(
+            "prefill={!r} is not ported yet; the port runs 'batched'".format(
+                prefill))
+    if top_k:
+        top_k = int(min(int(top_k), cfg.vocab_size))
+        if top_k == cfg.vocab_size:
+            top_k = 0
+    if top_p and not 0.0 < top_p <= 1.0:
+        raise ValueError("top_p must be in (0, 1]")
+    prompt = prompt.to(torch.int32)
+    if max_new_tokens == 0:
+        return prompt
+    if rng is None:
+        rng = torch.Generator(device=dev).manual_seed(0)
+    eos = -1 if eos_token is None else int(eos_token)
+    pad = eos if pad_token is None else int(pad_token)
+
+    cache = init_cache(model, b, cache_len)
+    logits = model(prompt, decode=True, cache=cache)
+    tok = _sample(logits[:, -1], rng, temperature, top_k, top_p)
+    done = tok == eos if eos >= 0 else None
+    out = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits = model(tok[:, None], decode=True, cache=cache)
+        nxt = _sample(logits[:, 0], rng, temperature, top_k, top_p)
+        if done is not None:
+            nxt = torch.where(done, pad, nxt).to(torch.int32)
+            done = done | (nxt == eos)
+        out.append(nxt)
+        tok = nxt
+    return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
