@@ -7,16 +7,25 @@ calls and fails (non-zero exit) if any phase fails:
 2. kernels  — builds every CUDA kernel from ``tensorflowonspark_tpu_torch/
                csrc`` and holds each against its plain PyTorch version on
                the card, at the repo's bench shapes and the main path's
-               shapes, timing kernel, plain version and a PyTorch yardstick;
-3. main     — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
+               shapes, timing kernel, plain version and a PyTorch yardstick:
+               the paged decode step (B4), and the flash-attention forward,
+               dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
+               GQA and f32;
+3. serve    — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
                weights, page_size 128, decode_horizon 1) serves mixed
                requests, once with a bf16 pool and once with an int8 pool;
-               every decode step of every layer must launch the kernel;
-               then a profiler window over steady decode steps says where
-               a step's time goes;
-4. greedy   — engine streams equal solo ``generate`` bitwise at the toy
+               every decode step of every layer must launch B4; then a
+               profiler window over steady decode steps says where a step's
+               time goes;
+4. train    — ``Trainer.train_step`` at GPT-2-small width (``bench.py``'s
+               ``_lm_trainer``: b8 x s1024, bf16 compute, f32 weights,
+               ``attention_impl="pallas"``, AdamW 3e-4) takes 4 steps with
+               the loss falling and B1, B2 and B3 each launched 12 times a
+               step; a remat step (24 B1 launches), a packed step, step 1
+               against the dense attention route, and a profiled window;
+5. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry, and teacher-forced at full width in fp32;
-5. http     — ``POST /v1/generate`` from a separate process over TCP.
+6. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +45,24 @@ TOY = dict(vocab_size=64, num_layers=2, num_heads=4, embed_dim=32, mlp_dim=64,
            max_seq_len=128, remat=False)
 # Kernel tolerances: those of the JAX package's kernel tests.
 TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 1e-4, "int8_bf16": 2e-2}
+# Flash kernels (B1-B3) against their plain versions, by output. Largest
+# readings over two runs (NVIDIA H100 80GB HBM3, 700 W): bf16 out and dq
+# 7.8e-3 (one bf16 rounding flipped where the f32 sums' order differs, at
+# values up to 4; 0.07-0.14% of the values differ at all), dk and dv (f32
+# sums of bf16 products, where such a flipped P or dS enters) 3.5e-3, lse
+# 9.5e-7; f32 cases 4.8e-7 for out, 9.5e-7 for lse, the backward bitwise.
+# Limits: about twice the largest reading of each kind.
+FLASH_TOL = {
+    "bf16": {"out": 1.6e-2, "lse": 2e-6, "dq": 1.6e-2, "dk": 8e-3,
+             "dv": 8e-3},
+    "f32": {"out": 1e-6, "lse": 2e-6, "dq": 1e-6, "dk": 1e-6, "dv": 1e-6},
+}
+# Step 1 of the flash route against the dense route on the same weights
+# and batch, relative differences. Readings (same card): loss 1.7e-6,
+# gradient norms of GRAD_NORM_PARAMS at most 9.3e-5 — dense rounds its
+# scores to bf16 before the softmax, flash keeps them in f32.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_NORM_RTOL = 4e-4
 # A bf16 output is also held bit for bit: the kernel rounds where the plain
 # version rounds (scores, p, each page's PV partial), so only the order of
 # its f32 sums may flip an output's last bit. At most this share of the
@@ -222,6 +249,179 @@ def kernel_phase(torch, pa, device_info):
     return max(err for *_, err in cases), timings
 
 
+# -- flash-attention kernels (B1-B3) -------------------------------------------
+
+
+def lm_segments(batch, seq):
+    """``bench.py``'s packed layout: two documents per row and a padded
+    last eighth."""
+    seg = np.ones((batch, seq), np.int32)
+    seg[:, seq // 2:] = 2
+    seg[:, -seq // 8:] = 0
+    return seg
+
+
+def flash_case(torch, seed, b, s, h, h_kv, dtype, packed):
+    """Head-major operands of one attention call on the card."""
+    g = torch.Generator().manual_seed(seed)
+    dev = lambda t: t.to(dtype).cuda()  # noqa: E731
+    c = dict(q=dev(torch.randn(b, h, s, 64, generator=g)),
+             k=dev(torch.randn(b, h_kv, s, 64, generator=g)),
+             v=dev(torch.randn(b, h_kv, s, 64, generator=g)),
+             do=dev(torch.randn(b, h, s, 64, generator=g)))
+    seg = lm_segments(b, s) if packed else np.ones((b, s), np.int32)
+    c["seg"] = torch.as_tensor(seg).cuda()
+    return c
+
+
+def flash_calls(fa, c, kernel):
+    """The three calls on ``c``: the kernels, or their plain versions. Both
+    backward calls take the plain forward's lse and delta, so each kernel
+    is held against its plain version on the same inputs."""
+    fwd = fa.flash_forward if kernel else fa.flash_forward_reference
+    dq = fa.flash_bwd_dq if kernel else fa.flash_bwd_dq_reference
+    dkv = fa.flash_bwd_dkv if kernel else fa.flash_bwd_dkv_reference
+    args = (c["q"], c["k"], c["v"])
+    lse, delta = c["lse"], c["delta"]
+    return {
+        "flash_fwd": lambda: fwd(*args, c["seg"], c["seg"]),
+        "flash_bwd_dq": lambda: dq(*args, c["do"], lse, delta, c["seg"],
+                                   c["seg"]),
+        "flash_bwd_dkv": lambda: dkv(*args, c["do"], lse, delta, c["seg"],
+                                     c["seg"]),
+    }
+
+
+def flash_bound_ms(torch, c, name, peak_bw, peak_ops):
+    """Least time of one kernel call on this run's data: its matmul FLOPs
+    over the visible (query, key) pairs (2 d per pair per product: QK^T
+    and PV forward; QK^T, dO V^T and dS K for dQ; those and P^T dO, dS^T Q
+    for dK/dV without dS K) at the bf16 peak, or the bytes it must move
+    (inputs read once, outputs written once) at the memory rate, the
+    larger."""
+    b, h, s, d = c["q"].shape
+    seg = c["seg"].long()
+    pos = torch.arange(s, device="cuda")
+    visible = ((seg[:, :, None] == seg[:, None, :]) & (seg != 0)[:, :, None]
+               & (pos[:, None] >= pos[None, :]))
+    pairs = int(visible.sum()) * h
+    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
+    flops = 2 * d * pairs * products
+    el = c["q"].element_size()
+    qkv = (c["q"].numel() + c["k"].numel() + c["v"].numel()) * el
+    rows = b * h * s * 4                      # one f32 per query row
+    seg_bytes = 2 * c["seg"].numel() * 4
+    io = {
+        "flash_fwd": qkv + c["q"].numel() * el + rows,
+        "flash_bwd_dq": qkv + 2 * c["q"].numel() * el + 2 * rows,
+        "flash_bwd_dkv": (qkv + c["do"].numel() * el + 2 * rows
+                          + 2 * c["k"].numel() * 4),
+    }[name] + seg_bytes
+    kind = "bf16" if c["q"].dtype == torch.bfloat16 else "f32"
+    t_ops, t_bytes = flops / peak_ops(kind), io / peak_bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sdpa_yardsticks(torch, c):
+    """``F.scaled_dot_product_attention`` (causal) on the same head-major
+    q, k, v: forward, and forward plus backward with ``dO`` — timing
+    yardsticks only; the port never calls it."""
+    import torch.nn.functional as F
+
+    q, k, v = (c[n].detach().requires_grad_() for n in ("q", "k", "v"))
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return torch.autograd.grad(out, (q, k, v), c["do"])
+    return fwd, fwd_bwd
+
+
+def flash_phase(torch, fa, device_info):
+    cases = [
+        ("main", "bf16", dict(b=8, s=1024, h=12, h_kv=12,
+                              dtype=torch.bfloat16, packed=False)),
+        ("packed", "bf16", dict(b=8, s=1024, h=12, h_kv=12,
+                                dtype=torch.bfloat16, packed=True)),
+        ("gqa", "bf16", dict(b=8, s=1024, h=12, h_kv=4,
+                             dtype=torch.bfloat16, packed=True)),
+        ("f32", "f32", dict(b=4, s=1024, h=12, h_kv=12, dtype=torch.float32,
+                            packed=True)),
+    ]
+    errs = {name: 0.0 for name in fa.launches}
+    main = None
+    for i, (case, kind, kw) in enumerate(cases):
+        c = flash_case(torch, 100 + i, **kw)
+        ref_out, ref_lse = fa.flash_forward_reference(
+            c["q"], c["k"], c["v"], c["seg"], c["seg"])
+        c["lse"] = ref_lse
+        c["delta"] = (ref_out.float() * c["do"].float()).sum(dim=-1)
+        got = {n: fn() for n, fn in flash_calls(fa, c, True).items()}
+        torch.cuda.synchronize()
+        ref = {n: fn() for n, fn in flash_calls(fa, c, False).items()}
+        pairs = {
+            "flash_fwd": (("out", got["flash_fwd"][0], ref_out),
+                          ("lse", got["flash_fwd"][1], ref_lse)),
+            "flash_bwd_dq": (("dq", got["flash_bwd_dq"],
+                              ref["flash_bwd_dq"]),),
+            "flash_bwd_dkv": (("dk", got["flash_bwd_dkv"][0],
+                               ref["flash_bwd_dkv"][0]),
+                              ("dv", got["flash_bwd_dkv"][1],
+                               ref["flash_bwd_dkv"][1])),
+        }
+        parts = []
+        for name, outs in pairs.items():
+            for label, a, r in outs:
+                err = float((a.float() - r.float()).abs().max())
+                tol = FLASH_TOL[kind][label]
+                differing = float((a != r).float().mean())
+                parts.append("{} {:.3e} ({:.4f} differ)".format(
+                    label, err, differing))
+                if not err <= tol:
+                    raise AssertionError(
+                        "{} {} {}: {} disagrees with its plain version: "
+                        "{} > {}".format(name, case, kind, label, err, tol))
+                if a.dtype == torch.bfloat16 and not (
+                        differing <= BF16_MAX_DIFFERING):
+                    raise AssertionError(
+                        "{} {}: {:.4f} of the bf16 {} values differ from "
+                        "the plain version (limit {})".format(
+                            name, case, differing, label,
+                            BF16_MAX_DIFFERING))
+                errs[name] = max(errs[name], err)
+        log("kernel flash {:6s} {:4s} b{} s{} h{}/{}: {}".format(
+            case, kind, kw["b"], kw["s"], kw["h"], kw["h_kv"],
+            ", ".join(parts)))
+        if case == "main":
+            main = c
+    peak_bw = device_info.peak_bandwidth()
+    timings = {}
+    sdpa_fwd, sdpa_fwd_bwd = sdpa_yardsticks(torch, main)
+    lib = {"flash_fwd": time_cold(torch, sdpa_fwd)}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_cold(torch,
+                                                            sdpa_fwd_bwd)
+    kernels = flash_calls(fa, main, True)
+    plains = flash_calls(fa, main, False)
+    for name in fa.launches:
+        ms = time_cold(torch, kernels[name])
+        plain_ms = time_cold(torch, plains[name], reps=5)
+        bound_ms, bound_by = flash_bound_ms(torch, main, name, peak_bw,
+                                            device_info.peak_ops)
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib[name],
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=errs[name])
+        log("time   {:13s} main bf16 kernel {:.4f} ms  plain {:.4f} ms  "
+            "sdpa {} {:.4f} ms  bound {:.4f} ms ({})".format(
+                name, ms, plain_ms,
+                "fwd" if name == "flash_fwd" else "fwd+bwd", lib[name],
+                bound_ms, bound_by))
+    return timings
+
+
 # -- main path -----------------------------------------------------------------
 
 
@@ -289,6 +489,21 @@ def main_phase(torch, pa):
     return launches
 
 
+def device_kernels(prof):
+    """``({name: device ms}, count)`` of the device activities in a
+    profiler window, leaving out user annotations (the optimizer's
+    ``Optimizer.step`` range is one), which span kernels already counted."""
+    by_name = {}
+    count = 0
+    for ev in prof.events():
+        if (str(getattr(ev, "device_type", "")).endswith("CUDA")
+                and not getattr(ev, "is_user_annotation", False)):
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (
+                ev.self_device_time_total / 1e3)
+            count += 1
+    return by_name, count
+
+
 def profile_decode(torch, model, variables, steps=10):
     """Where a steady decode step's time goes: 8 resident rows. Host time
     per step unprofiled, then one ``torch.profiler`` window whose wall
@@ -322,13 +537,7 @@ def profile_decode(torch, model, variables, steps=10):
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) / steps * 1e3
     engine.close()
-    by_name = {}
-    count = 0
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + (
-                ev.self_device_time_total / 1e3)
-            count += 1
+    by_name, count = device_kernels(prof)
     busy_ms = sum(by_name.values()) / steps
     log("profile decode step (8 rows, bf16 pool): host {:.3f} ms/step "
         "unprofiled; profiled window {:.3f} ms/step, device busy {:.3f} "
@@ -337,6 +546,157 @@ def profile_decode(torch, model, variables, steps=10):
             count / steps))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log("profile   {:7.4f} ms/step {:5.1%}  {}".format(
+            ms / steps, ms / steps / busy_ms, name[:90]))
+
+
+# -- training ------------------------------------------------------------------
+
+GRAD_NORM_PARAMS = ("embed.embedding", "block_0.attn.qkv.kernel",
+                    "block_5.mlp.up.kernel", "block_11.attn.out.kernel",
+                    "ln_f.scale")
+
+
+def lm_batch(batch, seq, vocab, packed=False):
+    """``bench.py``'s ``_lm_trainer`` batch: seeded tokens as inputs and
+    labels, optionally with its packed segment layout."""
+    tokens = np.random.RandomState(0).randint(
+        1, vocab, size=(batch, seq)).astype(np.int32)
+    b = {"x": tokens, "y": tokens}
+    if packed:
+        b["segment_ids"] = lm_segments(batch, seq)
+    return b
+
+
+def grad_norms(state):
+    return {n: float(state.params[n].grad.float().norm())
+            for n in GRAD_NORM_PARAMS}
+
+
+def train_step_counted(torch, fa, tr, state, batch):
+    """One step; returns (state, loss, launches of each flash kernel in
+    it, host seconds to the loss on the host)."""
+    before = dict(fa.launches)
+    t0 = time.perf_counter()
+    state, m = tr.train_step(state, batch)
+    loss = float(m["loss"])
+    sec = time.perf_counter() - t0
+    return state, loss, {n: fa.launches[n] - before[n]
+                         for n in fa.launches}, sec
+
+
+def training_phase(torch, fa, pa, card):
+    """The main training path: returns the flash kernels' launches over its
+    four steps."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    kw = dict(GPT2_SMALL, attention_impl="pallas")
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0, **kw)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tr = Trainer(model, optimizer=trainer.adamw(3e-4), device="cuda")
+    state = tr.init()
+    batch = lm_batch(8, 1024, GPT2_SMALL["vocab_size"])
+    per_layer = dict.fromkeys(fa.launches, GPT2_SMALL["num_layers"])
+    losses, secs = [], []
+    fa.reset_launches()
+    pa.reset_launches()
+    for i in range(4):
+        state, loss, counts, sec = train_step_counted(torch, fa, tr, state,
+                                                      batch)
+        if i == 0:
+            norms = grad_norms(state)
+        losses.append(loss)
+        secs.append(sec)
+        if counts != per_layer:
+            raise AssertionError("train step {} launched {}; want {} per "
+                                 "step".format(i, counts, per_layer))
+    launches = dict(fa.launches)
+    if pa.launches:
+        raise AssertionError("a train step launched paged_decode")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("losses not finite and falling: {}".format(
+            losses))
+    step_ms = float(np.median(secs[1:])) * 1e3
+    log("train  GPT-2-small b8 s1024 bf16 pallas adamw(3e-4): losses {} "
+        "launches/step {}; step {:.2f} ms median of steps 2-4, {:.0f} "
+        "tokens/s on {}".format(["{:.4f}".format(x) for x in losses],
+                                per_layer, step_ms,
+                                8 * 1024 / step_ms * 1e3, card))
+
+    state, loss, counts, _ = train_step_counted(
+        torch, fa, tr, state,
+        lm_batch(8, 1024, GPT2_SMALL["vocab_size"], packed=True))
+    if counts != per_layer or not np.isfinite(loss):
+        raise AssertionError("packed step: loss {} launches {}".format(
+            loss, counts))
+    log("train  packed step (2 documents/row, padded last eighth): loss "
+        "{:.4f} launches {}".format(loss, counts))
+
+    profile_train_step(torch, tr, state, batch)
+
+    # Step 1 again through the dense route on the same weights and batch.
+    dense = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0,
+                              **dict(kw, attention_impl="dense"))
+    dense.load_state_dict(initial)
+    dtr = Trainer(dense, optimizer=trainer.adamw(3e-4), device="cuda")
+    dstate, dloss, dcounts, _ = train_step_counted(torch, fa, dtr,
+                                                   dtr.init(), batch)
+    dnorms = grad_norms(dstate)
+    if any(dcounts.values()):
+        raise AssertionError("the dense route launched {}".format(dcounts))
+    rel = abs(losses[0] - dloss) / abs(dloss)
+    norm_rel = {n: abs(norms[n] - dnorms[n]) / dnorms[n] for n in norms}
+    log("train  step 1 flash vs dense: loss {:.6f} vs {:.6f} (rel {:.2e}, "
+        "limit {:g}); grad-norm rel diffs {} (limit {:g})".format(
+            losses[0], dloss, rel, TRAIN_LOSS_RTOL,
+            {n: "{:.2e}".format(v) for n, v in norm_rel.items()},
+            TRAIN_GRAD_NORM_RTOL))
+    if not rel <= TRAIN_LOSS_RTOL or not all(
+            v <= TRAIN_GRAD_NORM_RTOL for v in norm_rel.values()):
+        raise AssertionError("flash and dense step 1 disagree")
+    del dense, dtr, dstate
+
+    # Full-block remat: each block's forward runs again in the backward.
+    rtr = Trainer(model, optimizer=trainer.adamw(3e-4), remat=True,
+                  device="cuda")
+    _, loss, counts, _ = train_step_counted(torch, fa, rtr, rtr.init(),
+                                            batch)
+    want = dict(per_layer, flash_fwd=2 * GPT2_SMALL["num_layers"])
+    if counts != want or not np.isfinite(loss):
+        raise AssertionError("remat step: loss {} launches {}, want "
+                             "{}".format(loss, counts, want))
+    log("train  remat step: loss {:.4f} launches {}".format(loss, counts))
+    del model, tr, rtr, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_step(torch, tr, state, batch, steps=2):
+    """Where a training step's time goes: one ``torch.profiler`` window
+    over ``steps`` steps; device busy time against the window's wall time,
+    and the largest device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = tr.train_step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) / steps * 1e3
+    by_name, count = device_kernels(prof)
+    busy_ms = sum(by_name.values()) / steps
+    log("profile train step (b8 s1024 bf16): profiled window {:.3f} "
+        "ms/step, device busy {:.3f} ms/step, idle share {:.3f}, {:.0f} "
+        "device kernels/step".format(window_ms, busy_ms,
+                                     1.0 - busy_ms / window_ms,
+                                     count / steps))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log("profile   {:8.4f} ms/step {:5.1%}  {}".format(
             ms / steps, ms / steps / busy_ms, name[:90]))
 
 
@@ -494,6 +854,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tensorflowonspark_tpu_torch import device_info
     from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -509,25 +870,34 @@ def main():
         len(libs), "y" if len(libs) == 1 else "ies",
         time.perf_counter() - t0))
     max_err, timings = kernel_phase(torch, pa, device_info)
+    flash_timings = flash_phase(torch, fa, device_info)
+    fa.reset_launches()
     launches = main_phase(torch, pa)
+    if any(fa.launches.values()):
+        raise AssertionError("serving launched flash kernels: {}".format(
+            fa.launches))
+    flash_launches = training_phase(torch, fa, pa, card)
     toy_model = toy_greedy_phase(torch)
     full_width_teacher_forced(torch)
     http_phase(torch, toy_model)
 
     t = timings[("main", "bf16")]
-    kernels = {"kernels": [{
-        "name": "paged_decode",
-        "route": "cuda",
-        "source": "tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "tensorflowonspark_tpu/ops/paged_attention.py:65",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-    }]}
+    rows = [dict(name="paged_decode",
+                 source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
+                 replaces="tensorflowonspark_tpu/ops/paged_attention.py:65",
+                 launches=launches, max_abs_err=max_err, **t)]
+    replaces = {"flash_fwd": 127, "flash_bwd_dq": 195, "flash_bwd_dkv": 256}
+    for name, line in replaces.items():
+        rows.append(dict(
+            name=name,
+            source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
+            replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
+                line),
+            launches=flash_launches[name], **flash_timings[name]))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = {"kernels": [{k: dict(row, route="cuda")[k] for k in keys}
+                           for row in rows]}
     log("total {:.1f} s".format(time.perf_counter() - t_start))
     log("card:", card)
     log(json.dumps(kernels))

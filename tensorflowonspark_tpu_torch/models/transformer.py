@@ -1,9 +1,10 @@
 """Decoder-only Transformer LM (port of ``models/transformer.py``).
 
-Eval and decode modes of the JAX ``TransformerLM``: the same parameter
-tree (``state_dict`` keys mirror the flax paths, kernels keep the flax
-``(in, ..., out)`` layout, so :mod:`tensorflowonspark_tpu_torch.convert`
-is a renaming) and the same rounding points — projections and scores in
+Train, eval and decode modes of the JAX ``TransformerLM``: the same
+parameter tree (``state_dict`` keys mirror the flax paths, kernels keep
+the flax ``(in, ..., out)`` layout, so
+:mod:`tensorflowonspark_tpu_torch.convert` is a renaming) and the same
+rounding points — projections and scores in
 the model dtype, f32 softmax and layer-norm statistics, tanh GELU,
 layer-norm epsilon 1e-6, ``-1e30`` masks applied with an explicit
 ``where``, ``scale = 1/sqrt(f32(d))``.
@@ -14,6 +15,20 @@ init_cache``) is a dict ``{"position": int, "block_<i>": {"cached_key",
 dict ``{"block_<i>": {"k_pages", "v_pages"[, "k_scales", "v_scales"]}}``.
 Both are updated IN PLACE — where the JAX model returns a new ``cache``
 collection, the port writes the tensors it was given.
+
+Autograd. The model is built in eval mode, where its forward runs without
+autograd, as inference callers expect. In train mode (``model.train()``,
+which ``train.Trainer`` sets around a step) the full forward records the
+graph; with ``remat`` each block, or with ``mlp_remat`` only its MLP, runs
+under ``torch.utils.checkpoint`` and recomputes its activations in the
+backward pass. Decode never records a graph and never remats: it writes
+the caches in place.
+
+Train-mode attention with ``attention_impl="pallas"`` is the JAX package's
+zero-relayout path (``transformer.py:554-577``): the projections emit
+head-major ``(b, h, s, d)`` q/k/v, the flash kernels (B1 forward, B2/B3
+backward) take them as they are, and the output projection contracts the
+head-major result.
 """
 
 import dataclasses
@@ -22,9 +37,11 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import device_info
 from tensorflowonspark_tpu_torch.ops import attention as attention_ops
+from tensorflowonspark_tpu_torch.ops import flash_attention
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa_ops
 # Re-exported beside _kv_quantize, where the JAX package keeps both; the
 # plain paged walk in ops owns it so that ops never imports models.
@@ -36,9 +53,10 @@ from tensorflowonspark_tpu_torch.ops.paged_attention import (  # noqa: F401
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields and validation as the JAX ``TransformerConfig``;
-    ``dtype`` is a torch dtype. In this slice the port runs
-    ``attention_impl="dense"``, ``decode_attention="dense"`` and
-    ``ring_layout="contiguous"``. ``paged_attention_impl`` takes only
+    ``dtype`` is a torch dtype. The port runs ``attention_impl`` ``"dense"``
+    and ``"pallas"`` (the flash kernels), ``decode_attention="dense"`` and
+    ``ring_layout="contiguous"``; the sequence-parallel implementations are
+    ROADMAP A10. ``paged_attention_impl`` takes only
     ``"pallas"``, the kernel route: the paged step always launches the
     ``ops.paged_attention`` kernel, and the lax composition the JAX
     package also offers is not ported. The pool geometry (``page_size``,
@@ -182,7 +200,7 @@ class Dense(nn.Module):
 
 class QKVProj(nn.Module):
     """Fused QKV projection, ``kernel`` (embed, 3, h, d); natural (b, s, h,
-    d) outputs."""
+    d) outputs, or with ``head_major`` contiguous (b, h, s, d) ones."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -190,12 +208,14 @@ class QKVProj(nn.Module):
         self.kernel = nn.Parameter(torch.empty(
             cfg.embed_dim, 3, cfg.num_heads, cfg.head_dim))
 
-    def forward(self, x):
+    def forward(self, x, head_major=False):
         cfg = self.cfg
         b, s, _ = x.shape
         w = self.kernel.to(cfg.dtype).reshape(cfg.embed_dim, -1)
         qkv = (x.to(cfg.dtype) @ w).view(b, s, 3, cfg.num_heads,
                                          cfg.head_dim)
+        if head_major:
+            return qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -208,11 +228,12 @@ class QProj(nn.Module):
         self.kernel = nn.Parameter(torch.empty(
             cfg.embed_dim, cfg.num_heads, cfg.head_dim))
 
-    def forward(self, x):
+    def forward(self, x, head_major=False):
         cfg = self.cfg
         b, s, _ = x.shape
         w = self.kernel.to(cfg.dtype).reshape(cfg.embed_dim, -1)
-        return (x.to(cfg.dtype) @ w).view(b, s, cfg.num_heads, cfg.head_dim)
+        q = (x.to(cfg.dtype) @ w).view(b, s, cfg.num_heads, cfg.head_dim)
+        return q.transpose(1, 2).contiguous() if head_major else q
 
 
 class KVProj(nn.Module):
@@ -224,23 +245,30 @@ class KVProj(nn.Module):
         self.kernel = nn.Parameter(torch.empty(
             cfg.embed_dim, 2, cfg.kv_heads, cfg.head_dim))
 
-    def forward(self, x):
+    def forward(self, x, head_major=False):
         cfg = self.cfg
         b, s, _ = x.shape
         w = self.kernel.to(cfg.dtype).reshape(cfg.embed_dim, -1)
         kv = (x.to(cfg.dtype) @ w).view(b, s, 2, cfg.kv_heads, cfg.head_dim)
+        if head_major:
+            return kv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         return kv[:, :, 0], kv[:, :, 1]
 
 
 class OutProj(nn.Module):
-    """Attention output projection, ``kernel`` (embed, embed)."""
+    """Attention output projection, ``kernel`` (embed, embed); takes the
+    natural (b, s, embed) attention output or, with ``head_major``, the (b,
+    h, s, d) one."""
 
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
         self.kernel = nn.Parameter(torch.empty(cfg.embed_dim, cfg.embed_dim))
 
-    def forward(self, out):
+    def forward(self, out, head_major=False):
+        if head_major:
+            b, _, s, _ = out.shape
+            out = out.transpose(1, 2).reshape(b, s, self.cfg.embed_dim)
         return out.to(self.cfg.dtype) @ self.kernel.to(self.cfg.dtype)
 
 
@@ -259,24 +287,28 @@ class Attention(nn.Module):
     def forward(self, x, segment_ids=None, decode=False, pages=None,
                 seq_lens=None, cache=None):
         cfg = self.cfg
-        if cfg.attention_impl != "dense":
-            raise NotImplementedError(
-                "attention_impl={!r} is not ported yet (ROADMAP Queue B "
-                "B1-B3 and A10); the port runs 'dense'".format(
-                    cfg.attention_impl))
+        attention_ops.check_impl(cfg.attention_impl, cfg.ring_layout)
+        # The flash route's zero-relayout path: head-major projections in,
+        # head-major attention output into the output projection.
+        head_major = cfg.attention_impl == "pallas" and not decode
         if cfg.kv_heads == cfg.num_heads:
-            q, k, v = self.qkv(x)
+            q, k, v = self.qkv(x, head_major=head_major)
         else:
-            q = self.q(x)
-            k, v = self.kv(x)
+            q = self.q(x, head_major=head_major)
+            k, v = self.kv(x, head_major=head_major)
         if decode:
             if segment_ids is not None:
                 raise NotImplementedError(
                     "decode mode does not support segment_ids")
             out = self._decode_step(q, k, v, cache, pages, seq_lens)
-        else:
-            out = attention_ops.dense_causal_attention(
+        elif head_major:
+            out = flash_attention.flash_attention_head_major(
                 q, k, v, segment_ids=segment_ids)
+            return self.out(out, head_major=True)
+        else:
+            out = attention_ops.causal_attention(
+                q, k, v, impl=cfg.attention_impl, segment_ids=segment_ids,
+                ring_layout=cfg.ring_layout)
         out = out.reshape(out.shape[:2] + (cfg.embed_dim,))
         return self.out(out)
 
@@ -366,6 +398,7 @@ class Block(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = LayerNorm(cfg.embed_dim, cfg.dtype)
         self.attn = Attention(cfg)
         self.ln2 = LayerNorm(cfg.embed_dim, cfg.dtype)
@@ -375,6 +408,13 @@ class Block(nn.Module):
                 seq_lens=None, cache=None):
         x = x + self.attn(self.ln1(x), segment_ids, decode, pages=pages,
                           seq_lens=seq_lens, cache=cache)
+        cfg = self.cfg
+        if (cfg.mlp_remat and not cfg.remat and not decode
+                and torch.is_grad_enabled()):
+            # Only the MLP recomputes: its (b*s, mlp_dim) activations are
+            # the block's largest. Under full-block remat this would
+            # recompute the MLP twice for no saving.
+            return x + checkpoint(self.mlp, self.ln2(x), use_reentrant=False)
         return x + self.mlp(self.ln2(x))
 
 
@@ -413,12 +453,12 @@ class TransformerLM(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module("block_{}".format(i), Block(cfg))
         self.ln_f = LayerNorm(cfg.embed_dim, cfg.dtype)
-        self._init_weights(seed)
+        self.reset_parameters(seed)
         self.to(dev)
         self.eval()
 
     @torch.no_grad()
-    def _init_weights(self, seed):
+    def reset_parameters(self, seed):
         gen = torch.Generator().manual_seed(int(seed))
         for name, p in self.named_parameters():
             if name.endswith("embedding") or name == "pos_embed":
@@ -438,16 +478,23 @@ class TransformerLM(nn.Module):
         return [getattr(self, "block_{}".format(i))
                 for i in range(self.cfg.num_layers)]
 
-    @torch.no_grad()
     def forward(self, tokens, segment_ids=None, decode=False,
                 positions=None, pages=None, seq_lens=None, cache=None):
-        """``tokens``: int (batch, seq). Eval mode (default) runs the full
-        causal forward, with optional packed ``segment_ids``/``positions``.
-        ``decode=True`` runs against ``cache``: a contiguous cache
-        (position = tokens the cache has absorbed, one step or a prompt
-        chunk per call), or with ``pages``/``seq_lens`` the paged pool —
-        one token per row, row r at position ``seq_lens[r]``. Returns f32
-        logits (model-dtype logits with ``upcast_logits=False``)."""
+        """``tokens``: int (batch, seq). Without ``decode`` this runs the
+        full causal forward, with optional packed ``segment_ids``/
+        ``positions``; in train mode it records the autograd graph (see the
+        module docstring). ``decode=True`` runs against ``cache``: a
+        contiguous cache (position = tokens the cache has absorbed, one step
+        or a prompt chunk per call), or with ``pages``/``seq_lens`` the paged
+        pool — one token per row, row r at position ``seq_lens[r]``. Returns
+        f32 logits (model-dtype logits with ``upcast_logits=False``)."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.training
+                                    and not decode):
+            return self._forward(tokens, segment_ids, decode, positions,
+                                 pages, seq_lens, cache)
+
+    def _forward(self, tokens, segment_ids, decode, positions, pages,
+                 seq_lens, cache):
         cfg = self.cfg
         if cfg.ring_layout != "contiguous":
             raise NotImplementedError(
@@ -488,7 +535,11 @@ class TransformerLM(nn.Module):
                 x = x + self.pos_embed[:seq_len][None].to(cfg.dtype)
             else:
                 x = x + self.pos_embed[positions.long()].to(cfg.dtype)
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
+            if remat:
+                x = checkpoint(block, x, segment_ids, use_reentrant=False)
+                continue
             layer_cache = None if cache is None else cache[
                 "block_{}".format(i)]
             x = block(x, segment_ids, decode, pages=pages, seq_lens=seq_lens,

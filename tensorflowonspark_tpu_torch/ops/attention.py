@@ -1,17 +1,58 @@
-"""Dense causal attention (port of ``ops/attention.py``'s dense subset).
+"""Causal attention: dense, and the dispatcher over implementations (port
+of ``ops/attention.py``'s dense subset and ``causal_attention``).
 
 All shapes are ``(batch, seq, heads, head_dim)``, as in the JAX package.
 ``segment_ids``: int32 ``(batch, seq)``; ``0`` marks padding, and a query
 attends only to keys of its own nonzero segment. GQA/MQA: ``k``/``v`` may
 carry fewer heads than ``q``, each K/V head serving a contiguous group of
-query heads. The ring, Ulysses and flash variants belong to later slices.
+query heads. ``impl="pallas"`` routes to the port's flash kernels
+(:mod:`.flash_attention`); the ring, ring-flash and Ulysses sequence-
+parallel implementations are ROADMAP A10.
 """
 
 import math
 
 import torch
 
+from tensorflowonspark_tpu_torch.ops import flash_attention
+
 _NEG_INF = -1e30
+_SEQUENCE_PARALLEL = ("ring", "ring_flash", "ulysses")
+
+
+def check_impl(impl, ring_layout="contiguous"):
+    """Raise unless ``impl``/``ring_layout`` name a ported route: the JAX
+    package's ``ring_layout`` validation, then ``NotImplementedError`` for
+    the sequence-parallel implementations and the zigzag layout (ROADMAP
+    A10), ``ValueError`` for an unknown name."""
+    if ring_layout not in ("contiguous", "zigzag"):
+        raise ValueError(
+            "ring_layout must be 'contiguous' or 'zigzag', got {!r}".format(
+                ring_layout))
+    if ring_layout == "zigzag" and impl != "ring_flash":
+        raise ValueError(
+            "ring_layout='zigzag' is a ring_flash schedule; impl {!r} "
+            "does not consume it".format(impl))
+    if impl in _SEQUENCE_PARALLEL or ring_layout == "zigzag":
+        raise NotImplementedError(
+            "attention impl {!r} (ring_layout {!r}) is sequence parallelism, "
+            "not ported yet (ROADMAP A10)".format(impl, ring_layout))
+    if impl not in ("dense", "pallas"):
+        raise ValueError("unknown attention impl: {!r}".format(impl))
+
+
+def causal_attention(q, k, v, impl="dense", segment_ids=None,
+                     ring_layout="contiguous"):
+    """Dispatch on implementation: ``"dense"`` (the full score matrix) or
+    ``"pallas"`` (the flash kernels B1-B3, under the JAX package's name for
+    its kernel route). The sequence-parallel implementations and the zigzag
+    layout raise ``NotImplementedError`` (ROADMAP A10); the JAX package's
+    ``ring_layout`` validation is kept."""
+    check_impl(impl, ring_layout)
+    if impl == "dense":
+        return dense_causal_attention(q, k, v, segment_ids=segment_ids)
+    return flash_attention.flash_causal_attention(
+        q, k, v, segment_ids=segment_ids)
 
 
 def _expand_kv(q, k, v):

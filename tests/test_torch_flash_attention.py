@@ -1,0 +1,259 @@
+"""The port's flash attention held against the JAX package's Pallas kernels.
+
+The same numpy inputs go through ``flash_attention_with_lse`` (Pallas in
+interpret mode, as ``tests/test_flash_folded.py`` runs it) and through the
+port, whose wrappers take their plain versions for CPU tensors: ``out``,
+``lse`` and the three gradients (with an lse cotangent, which the backward
+folds into delta) across MHA, GQA (h 4 over h_kv 2 and 1), packed segments
+with padding, non-causal rectangular attention, and bf16. Block sizes 32 on
+both sides. The CUDA kernels themselves run only on the card
+(``chip_smoke.py`` holds them against these plain versions there).
+
+Tolerance 1e-5 for every result. Measured: at most 1.43e-6 in f32 (dv of
+the MQA case, values up to 7.8), and in bf16 out, dq, dk and dv are
+bitwise equal — both sides round P and dS to bf16 at the same points — with
+lse (f32) within 4.8e-7.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorflowonspark_tpu.ops import flash_attention as jax_fa
+from tensorflowonspark_tpu_torch.ops import attention, flash_attention as fa
+
+B, S, H, D = 2, 64, 4, 16
+BLOCK = 32
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # The tier-1 run shares the machine's cores among its workers.
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _segments(kind, s):
+    seg = np.ones((B, s), np.int32)
+    if kind == "packed":
+        # Two documents per row and a padded tail; row 1's padding covers
+        # its whole second block, which the kernels skip.
+        seg[:, s // 2:] = 2
+        seg[0, -s // 8:] = 0
+        seg[1, BLOCK - 8:] = 0
+        seg[1, :4] = 3
+    return seg
+
+
+# name: (h_kv, s_q, s_k, segments, causal, dtype)
+CASES = {
+    "mha": (H, S, S, "none", True, "f32"),
+    "gqa2_packed": (2, S, S, "packed", True, "f32"),
+    "mqa1_packed": (1, S, S, "packed", True, "f32"),
+    "rect_full": (2, BLOCK, S, "packed", False, "f32"),
+    "mha_bf16": (H, S, S, "packed", True, "bf16"),
+}
+_JAX = {}
+
+
+def _inputs(name):
+    h_kv, s_q, s_k, seg_kind, causal, dtype = CASES[name]
+    rng = np.random.RandomState(sorted(CASES).index(name))
+    arrays = dict(
+        q=rng.randn(B, s_q, H, D), k=rng.randn(B, s_k, h_kv, D),
+        v=rng.randn(B, s_k, h_kv, D), g=rng.randn(B, s_q, H, D),
+        g_lse=rng.randn(B, H, s_q))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    if dtype == "bf16":
+        # Values exactly representable in bf16 on both sides.
+        arrays = {k: np.asarray(torch.tensor(v).bfloat16().float())
+                  for k, v in arrays.items()}
+    seg = _segments(seg_kind, s_q) if seg_kind != "none" else None
+    kv_seg = None
+    if seg is not None and s_k != s_q:
+        kv_seg = _segments(seg_kind, s_k)
+    return arrays, seg, kv_seg, causal, dtype
+
+
+def _jax_result(name):
+    """(out, lse, dq, dk, dv) of the Pallas kernels in interpret mode, as
+    f32 numpy; computed once per case."""
+    if name not in _JAX:
+        arrays, seg, kv_seg, causal, dtype = _inputs(name)
+        jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+        g = jnp.asarray(arrays["g"], jdt)
+        g_lse = jnp.asarray(arrays["g_lse"])
+
+        def loss(q, k, v):
+            out, lse = jax_fa.flash_attention_with_lse(
+                q, k, v, segment_ids=None if seg is None else jnp.asarray(
+                    seg), kv_segment_ids=None if kv_seg is None else
+                jnp.asarray(kv_seg), block_q=BLOCK, block_k=BLOCK,
+                interpret=True, causal=causal)
+            total = jnp.sum(out.astype(jnp.float32) * g.astype(jnp.float32))
+            return total + jnp.sum(lse * g_lse), (out, lse)
+
+        fn = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                        has_aux=True))
+        (_, (out, lse)), grads = fn(*(jnp.asarray(arrays[n], jdt)
+                                      for n in "qkv"))
+        _JAX[name] = [np.asarray(x, np.float32)
+                      for x in (out, lse) + tuple(grads)]
+    return _JAX[name]
+
+
+def _port_result(name):
+    arrays, seg, kv_seg, causal, dtype = _inputs(name)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (torch.tensor(arrays[n]).to(tdt).requires_grad_()
+               for n in "qkv")
+    out, lse = fa.flash_attention_with_lse(
+        q, k, v, segment_ids=None if seg is None else torch.tensor(seg),
+        kv_segment_ids=None if kv_seg is None else torch.tensor(kv_seg),
+        block_q=BLOCK, block_k=BLOCK, causal=causal)
+    total = (out.float() * torch.tensor(arrays["g"])).sum()
+    (total + (lse * torch.tensor(arrays["g_lse"])).sum()).backward()
+    return [x.detach().float().numpy()
+            for x in (out, lse, q.grad, k.grad, v.grad)]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_forward_and_lse_match_pallas(name):
+    got, want = _port_result(name), _jax_result(name)
+    for label, a, b in zip(("out", "lse"), got[:2], want[:2]):
+        assert a.shape == b.shape, label
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL, err_msg=label)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_grads_match_pallas_with_lse_cotangent(name):
+    got, want = _port_result(name), _jax_result(name)
+    for label, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:]):
+        assert a.shape == b.shape, label
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL, err_msg=label)
+
+
+def test_head_major_entry_matches_folded_pallas():
+    """The model's head-major entry against ``flash_attention_folded`` on
+    the same logical tensors (q (b, h, s, d); the folded API takes K/V
+    transposed to (b, h_kv, d, s)): output and all three gradients."""
+    arrays, seg, _, _, _ = _inputs("gqa2_packed")
+    q = arrays["q"].transpose(0, 2, 1, 3)
+    k = arrays["k"].transpose(0, 2, 1, 3)
+    v = arrays["v"].transpose(0, 2, 1, 3)
+    w = arrays["g"].transpose(0, 2, 1, 3)
+
+    def loss(q, kT, vT):
+        out = jax_fa.flash_attention_folded(
+            q, kT, vT, segment_ids=jnp.asarray(seg), block_q=BLOCK,
+            block_k=BLOCK, interpret=True)
+        return jnp.sum(out * w), out
+
+    (_, want_out), (dq, dkT, dvT) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(
+            jnp.asarray(q), jnp.asarray(k.transpose(0, 1, 3, 2)),
+            jnp.asarray(v.transpose(0, 1, 3, 2)))
+    tq, tk, tv = (torch.tensor(x).requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention_head_major(
+        tq, tk, tv, segment_ids=torch.tensor(seg), block_q=BLOCK,
+        block_k=BLOCK)
+    (out * torch.tensor(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=TOL)
+    np.testing.assert_allclose(tq.grad.numpy(), dq, atol=TOL)
+    np.testing.assert_allclose(tk.grad.numpy(),
+                               np.asarray(dkT).transpose(0, 1, 3, 2), atol=TOL)
+    np.testing.assert_allclose(tv.grad.numpy(),
+                               np.asarray(dvT).transpose(0, 1, 3, 2), atol=TOL)
+
+
+def test_flash_causal_attention_is_the_lse_call_without_lse():
+    arrays, seg, _, _, _ = _inputs("mqa1_packed")
+    q, k, v = (torch.tensor(arrays[n]) for n in "qkv")
+    got = fa.flash_causal_attention(q, k, v, segment_ids=torch.tensor(seg),
+                                    block_q=BLOCK, block_k=BLOCK)
+    want = _jax_result("mqa1_packed")[0]
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL)
+
+
+def test_padded_rows_give_zero_out_and_zero_grads():
+    """A fully padded query row: out 0, lse -1e30 + log(1e-30) (which is
+    -1e30 in f32), and no gradient flows to or from it."""
+    arrays, seg, _, _, _ = _inputs("mqa1_packed")
+    q, k, v = (torch.tensor(arrays[n]).requires_grad_() for n in "qkv")
+    out, lse = fa.flash_attention_with_lse(
+        q, k, v, segment_ids=torch.tensor(seg), block_q=BLOCK, block_k=BLOCK)
+    (out.sum() + lse.sum()).backward()
+    pad = torch.tensor(seg == 0)
+    assert pad.any()
+    assert torch.equal(out.detach()[pad], torch.zeros_like(out[pad]))
+    want_lse = torch.tensor(-1e30, dtype=torch.float32) + torch.log(
+        torch.tensor(1e-30, dtype=torch.float32))
+    assert torch.equal(lse.detach().transpose(1, 2)[pad],
+                       want_lse.expand(int(pad.sum()), H))
+    for grad in (q.grad, k.grad, v.grad):
+        assert torch.equal(grad[pad], torch.zeros_like(grad[pad]))
+
+
+def test_cpu_route_launches_no_kernel():
+    fa.reset_launches()
+    arrays, _, _, _, _ = _inputs("mha")
+    q, k, v = (torch.tensor(arrays[n]).requires_grad_() for n in "qkv")
+    fa.flash_causal_attention(q, k, v).sum().backward()
+    assert fa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}
+
+
+def test_dispatcher_routes_pallas_and_rejects_sequence_parallel():
+    arrays, seg, _, _, _ = _inputs("gqa2_packed")
+    q, k, v = (torch.tensor(arrays[n]) for n in "qkv")
+    seg = torch.tensor(seg)
+    got = attention.causal_attention(q, k, v, impl="pallas", segment_ids=seg)
+    want = fa.flash_causal_attention(q, k, v, segment_ids=seg)
+    assert torch.equal(got, want)
+    dense = attention.causal_attention(q, k, v, impl="dense",
+                                       segment_ids=seg)
+    # Flash and dense sum in other orders: measured 3.6e-7.
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=2e-6)
+    for impl in ("ring", "ring_flash", "ulysses"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            attention.causal_attention(q, k, v, impl=impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        attention.causal_attention(q, k, v, impl="ring_flash",
+                                   ring_layout="zigzag")
+    with pytest.raises(ValueError, match="zigzag"):
+        attention.causal_attention(q, k, v, impl="pallas",
+                                   ring_layout="zigzag")
+    with pytest.raises(ValueError, match="ring_layout"):
+        attention.causal_attention(q, k, v, ring_layout="striped")
+    with pytest.raises(ValueError, match="unknown"):
+        attention.causal_attention(q, k, v, impl="sparse")
+
+
+def test_wrappers_reject_what_they_do_not_take():
+    q = torch.zeros(B, H, S, D)
+    k = torch.zeros(B, 3, S, D)
+    ones = torch.ones(B, S, dtype=torch.int32)
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_forward(q, k, k, ones, ones)
+    k = torch.zeros(B, H, S // 2, D)
+    with pytest.raises(ValueError, match="rectangular attention is "
+                                         "non-causal"):
+        fa.flash_forward(q, k, k, ones, ones[:, :S // 2])
+    with pytest.raises(ValueError, match="kv_segment_ids"):
+        fa.flash_attention_with_lse(q.transpose(1, 2), k.transpose(1, 2),
+                                    k.transpose(1, 2), segment_ids=ones,
+                                    causal=False)
+    k = torch.zeros(B, H, S, D)
+    rows = torch.zeros(B, H, S)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa.flash_bwd_dq(q, k, k, q, rows[:, :, :-1], rows, ones, ones)
+    with pytest.raises(ValueError, match="shaped like q"):
+        fa.flash_bwd_dkv(q, k, k, q[:1], rows, rows, ones, ones)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        fa.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"),
+                         ones.to("meta"), ones.to("meta"))

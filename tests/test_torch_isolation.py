@@ -52,8 +52,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     assert "tensorflowonspark_tpu_torch.serving.engine" in doc["imported"]
-    assert "tensorflowonspark_tpu_torch.ops.paged_attention" in doc[
-        "imported"]
+    for name in ("ops.paged_attention", "ops.flash_attention",
+                 "ops.attention", "train.trainer", "train.losses"):
+        assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
 

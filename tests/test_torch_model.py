@@ -224,8 +224,11 @@ def test_device_info_never_guesses_on_the_cpu():
 
 
 def test_unported_impls_raise():
-    tm = factory.get_model("transformer", device="cpu",
-                           attention_impl="pallas", dtype=torch.float32,
-                           **LM_KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros((1, 4), dtype=torch.int64))
+    """The sequence-parallel implementations are not ported; ``"pallas"``
+    (the flash kernels) is, and ``tests/test_torch_trainer.py`` holds it."""
+    for impl in ("ring", "ring_flash", "ulysses"):
+        tm = factory.get_model("transformer", device="cpu",
+                               attention_impl=impl, dtype=torch.float32,
+                               **LM_KW)
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            tm(torch.zeros((1, 4), dtype=torch.int64))
