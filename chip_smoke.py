@@ -10,7 +10,7 @@ calls and fails (non-zero exit) if any phase fails:
                shapes, timing kernel, plain version and a PyTorch yardstick:
                the paged decode step (B4), and the flash-attention forward,
                dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
-               GQA and f32;
+               GQA and f32 (SDPA's forward, and its backward alone);
 3. serve    — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
                weights, page_size 128, decode_horizon 1) serves mixed
                requests, once with a bf16 pool and once with an int8 pool;
@@ -23,9 +23,22 @@ calls and fails (non-zero exit) if any phase fails:
                the loss falling and B1, B2 and B3 each launched 12 times a
                step; a remat step (24 B1 launches), a packed step, step 1
                against the dense attention route, and a profiled window;
-5. greedy   — engine streams equal solo ``generate`` bitwise at the toy
+5. resnet   — the fused ResNet bottleneck: B5 (1x1 conv + statistics, with
+               and without the bn+relu prologue) and B6 (3x3 conv +
+               statistics) against their plain versions at the JAX test
+               shape and ``scripts/block_bench.py``'s two b256 blocks, timed
+               beside their bound and their library renditions
+               (``torch.matmul``/``F.conv2d`` + sums); ``bottleneck_forward``
+               at both blocks (B5 twice and B6 once a call) against the
+               port's ``BottleneckBlock`` in train mode, ``reference_forward``
+               and each per-slot library swap; then ``bench.py``'s
+               ``bench_resnet50`` through ``Trainer.train_step`` (ResNet-50,
+               b256 224x224 bf16, SGD 0.1 momentum 0.9: 4 steps on one
+               batch, finite and falling losses, running statistics moved,
+               images/s) and a profiled window;
+6. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry, and teacher-forced at full width in fp32;
-6. http     — ``POST /v1/generate`` from a separate process over TCP.
+7. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The last two lines of standard output are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -325,8 +338,10 @@ def flash_bound_ms(torch, c, name, peak_bw, peak_ops):
 
 def sdpa_yardsticks(torch, c):
     """``F.scaled_dot_product_attention`` (causal) on the same head-major
-    q, k, v: forward, and forward plus backward with ``dO`` — timing
-    yardsticks only; the port never calls it."""
+    q, k, v: the forward, and the backward alone — ``torch.autograd.grad``
+    with ``dO`` on a graph whose forward ran once, outside the timed
+    window, and is retained. One backward call computes dQ, dK and dV
+    together. Timing yardsticks only; the port never calls it."""
     import torch.nn.functional as F
 
     q, k, v = (c[n].detach().requires_grad_() for n in ("q", "k", "v"))
@@ -335,10 +350,12 @@ def sdpa_yardsticks(torch, c):
         with torch.no_grad():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    def fwd_bwd():
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return torch.autograd.grad(out, (q, k, v), c["do"])
-    return fwd, fwd_bwd
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def bwd():
+        return torch.autograd.grad(out, (q, k, v), c["do"],
+                                   retain_graph=True)
+    return fwd, bwd
 
 
 def flash_phase(torch, fa, device_info):
@@ -400,10 +417,9 @@ def flash_phase(torch, fa, device_info):
             main = c
     peak_bw = device_info.peak_bandwidth()
     timings = {}
-    sdpa_fwd, sdpa_fwd_bwd = sdpa_yardsticks(torch, main)
+    sdpa_fwd, sdpa_bwd = sdpa_yardsticks(torch, main)
     lib = {"flash_fwd": time_cold(torch, sdpa_fwd)}
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_cold(torch,
-                                                            sdpa_fwd_bwd)
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_cold(torch, sdpa_bwd)
     kernels = flash_calls(fa, main, True)
     plains = flash_calls(fa, main, False)
     for name in fa.launches:
@@ -417,7 +433,7 @@ def flash_phase(torch, fa, device_info):
         log("time   {:13s} main bf16 kernel {:.4f} ms  plain {:.4f} ms  "
             "sdpa {} {:.4f} ms  bound {:.4f} ms ({})".format(
                 name, ms, plain_ms,
-                "fwd" if name == "flash_fwd" else "fwd+bwd", lib[name],
+                "fwd" if name == "flash_fwd" else "bwd (dq+dk+dv)", lib[name],
                 bound_ms, bound_by))
     return timings
 
@@ -673,10 +689,13 @@ def training_phase(torch, fa, pa, card):
     return launches
 
 
-def profile_train_step(torch, tr, state, batch, steps=2):
+def profile_train_step(torch, tr, state, batch, steps=2,
+                       label="b8 s1024 bf16", top_ops=0):
     """Where a training step's time goes: one ``torch.profiler`` window
     over ``steps`` steps; device busy time against the window's wall time,
-    and the largest device kernels."""
+    and the largest device kernels; with ``top_ops``, also the operators
+    whose kernels take the most device time (self time: an operator's own
+    kernels, not its children's)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -690,14 +709,310 @@ def profile_train_step(torch, tr, state, batch, steps=2):
         window_ms = (time.perf_counter() - t0) / steps * 1e3
     by_name, count = device_kernels(prof)
     busy_ms = sum(by_name.values()) / steps
-    log("profile train step (b8 s1024 bf16): profiled window {:.3f} "
+    log("profile train step ({}): profiled window {:.3f} "
         "ms/step, device busy {:.3f} ms/step, idle share {:.3f}, {:.0f} "
-        "device kernels/step".format(window_ms, busy_ms,
+        "device kernels/step".format(label, window_ms, busy_ms,
                                      1.0 - busy_ms / window_ms,
                                      count / steps))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log("profile   {:8.4f} ms/step {:5.1%}  {}".format(
             ms / steps, ms / steps / busy_ms, name[:90]))
+    ops = sorted(((ev.key, ev.self_device_time_total / 1e3 / steps)
+                  for ev in prof.key_averages()
+                  if ev.key.startswith("aten::")), key=lambda kv: -kv[1])
+    for name, ms in ops[:top_ops]:
+        log("profile   op {:8.4f} ms/step {:5.1%}  {}".format(
+            ms, ms / busy_ms, name))
+
+
+# -- fused ResNet bottleneck (B5, B6) and ResNet-50 training -------------------
+
+# ``scripts/block_bench.py``'s two full-width blocks (name, spatial, C, F),
+# batch 256, and the JAX kernel tests' shape (b4, 8x8, C 32, F 16).
+BLOCKS = [("stage1", 56, 256, 64), ("stage3", 14, 1024, 256)]
+BLOCK_BATCH = 256
+SMALL_BLOCK = ("jax_test", 8, 32, 16)
+SMALL_BATCH = 4
+# Fused-block kernels against their plain versions on the same inputs:
+# y (bf16) within one bf16 step (2^-7 of the value) plus FUSED_Y_ATOL, and
+# differing in at most BF16_MAX_DIFFERING of the values (read: one step, in
+# at most 0.062% of the values, where the f32 sums' order flips a rounding;
+# near zero, where y is a difference of nearly equal sums of 1024-2304
+# products, the two orders differ by up to 1.4e-6 past the step, so the
+# absolute floor; the script prints that excess as "near-zero");
+# the f32 sums within FUSED_SUM_RTOL of their largest value (read 2.7e-6 at
+# the stage-3 block, 6.1e-7 at stage 1; NVIDIA H100 80GB HBM3, 700 W).
+FUSED_Y_RTOL = 2.0 ** -7
+FUSED_Y_ATOL = 1e-5
+FUSED_SUM_RTOL = 6e-6
+# The fused block against the port's BottleneckBlock in train mode, against
+# reference_forward and against each per-slot library swap: the JAX test's
+# 5e-2, absolute plus relative (|err| <= 5e-2 + 5e-2 |ref|).
+BLOCK_TOL = 5e-2
+RESNET_BATCH = 256
+
+
+def block_inputs(torch, frb, spatial, c, f, batch, seed):
+    """One block's operands on the card: x, the parameters (He-normal
+    weights, non-identity norms), and the inputs each conv slot sees on
+    the main path, taken from the plain chain: K1 (x), K2 (y1 and bn1's
+    affine) and K3 (y2 and bn2's affine)."""
+    g = torch.Generator().manual_seed(seed)
+    params = frb.init_params(c, f, device="cuda", generator=g)
+    for i, width in (("1", f), ("2", f), ("3", c)):
+        params["gamma" + i] = (1.0 + 0.2 * torch.randn(width, generator=g)
+                               ).cuda()
+        params["beta" + i] = (0.1 * torch.randn(width, generator=g)).cuda()
+    x = (0.5 * torch.randn(batch, spatial, spatial, c, generator=g)).to(
+        torch.bfloat16).cuda()
+    n = batch * spatial * spatial
+    y1, s1, q1 = frb.matmul_stats_reference(x.reshape(n, c), params["w1"])
+    sc1, sh1, _, _ = frb._affine(s1, q1, n, params["gamma1"],
+                                 params["beta1"])
+    y2, s2, q2 = frb.conv3x3_stats_reference(
+        y1.reshape(batch, spatial, spatial, f), params["w2"], sc1, sh1)
+    sc2, sh2, _, _ = frb._affine(s2, q2, n, params["gamma2"],
+                                 params["beta2"])
+    return dict(x=x, params=params, slots={
+        "K1": (x.reshape(n, c), params["w1"], None, None),
+        "K2": (y1.reshape(batch, spatial, spatial, f), params["w2"], sc1,
+               sh1),
+        "K3": (y2.reshape(n, f), params["w3"], sc2, sh2)})
+
+
+def fused_calls(frb, slot, args):
+    """(kernel, plain version, library rendition) of one conv slot."""
+    if slot == "K2":
+        fns = (frb._conv3x3_stats, frb.conv3x3_stats_reference,
+               frb._xla_conv3x3_stats)
+    else:
+        fns = (frb._conv1x1_stats, frb.matmul_stats_reference,
+               frb._xla_conv1x1_stats)
+    return [lambda fn=fn: fn(*args) for fn in fns]
+
+
+def fused_bound_ms(torch, slot, args, peak_bw, peak_ops):
+    """Least time of one slot's call: the bytes it must move (x, w, the
+    affine vectors and y once, the two f32 sums) at the memory rate, or its
+    matmul FLOPs (2 per multiply-add; 9 taps for the 3x3 conv) at the bf16
+    rate, the larger."""
+    x, w = args[0], args[1]
+    f_out = w.shape[-1]
+    n = x.numel() // x.shape[-1]
+    el = x.element_size()
+    nbytes = (x.numel() + w.numel() + n * f_out) * el + 2 * f_out * 4
+    if args[2] is not None:
+        nbytes += 2 * x.shape[-1] * 4
+    flops = 2 * n * w.numel()
+    t_bytes, t_ops = nbytes / peak_bw, flops / peak_ops("bf16")
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fused_compare(torch, got, ref):
+    """(y max abs err, y's largest error past one bf16 step, share of y
+    values differing, sums' error over their largest value) of one kernel
+    call against its plain version; raises past the limits."""
+    y, yr = got[0].float(), ref[0].float()
+    err = (y - yr).abs()
+    y_err = float(err.max())
+    past_step = float((err - FUSED_Y_RTOL * yr.abs()).clamp_min(0.0).max())
+    differing = float((got[0] != ref[0]).float().mean())
+    if not past_step <= FUSED_Y_ATOL:
+        raise AssertionError("y more than one bf16 step from the plain "
+                             "version: max abs err {}, {} past the step "
+                             "(limit {})".format(y_err, past_step,
+                                                 FUSED_Y_ATOL))
+    if not differing <= BF16_MAX_DIFFERING:
+        raise AssertionError("{:.4f} of y differ from the plain version "
+                             "(limit {})".format(differing,
+                                                 BF16_MAX_DIFFERING))
+    sum_err = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got[1:], ref[1:]))
+    if not sum_err <= FUSED_SUM_RTOL:
+        raise AssertionError("sums off by {} of their largest value "
+                             "(limit {})".format(sum_err, FUSED_SUM_RTOL))
+    return y_err, past_step, differing, sum_err
+
+
+def fused_kernel_phase(torch, frb, device_info):
+    """(a) B5 (K1 without, K3 with the prologue) and B6 (K2) against their
+    plain versions at the JAX test shape and both full-width blocks; times
+    at the full-width blocks. Returns ({kernel: max y error}, {(block,
+    slot): timings})."""
+    peak_bw = device_info.peak_bandwidth()
+    errs = {"matmul_stats": 0.0, "conv3x3_stats": 0.0}
+    timings = {}
+    shapes = [(SMALL_BLOCK, SMALL_BATCH)] + [(b, BLOCK_BATCH)
+                                             for b in BLOCKS]
+    for i, ((name, spatial, c, f), batch) in enumerate(shapes):
+        case = block_inputs(torch, frb, spatial, c, f, batch, 300 + i)
+        for slot, args in case["slots"].items():
+            kernel, plain, lib = fused_calls(frb, slot, args)
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            y_err, past_step, differing, sum_err = fused_compare(
+                torch, got, ref)
+            kname = "conv3x3_stats" if slot == "K2" else "matmul_stats"
+            errs[kname] = max(errs[kname], y_err)
+            log("kernel {:13s} {:8s} {} b{} {}x{} {}->{}: y max_abs_err "
+                "{:.3e} ({:.5f} differ, near-zero {:.3e}), sums rel err "
+                "{:.3e}".format(kname, name, slot, batch, spatial, spatial,
+                                args[0].shape[-1], args[1].shape[-1], y_err,
+                                differing, past_step, sum_err))
+            if batch != BLOCK_BATCH:
+                continue
+            ms = time_cold(torch, kernel)
+            plain_ms = time_cold(torch, plain, reps=5)
+            lib_ms = time_cold(torch, lib)
+            bound_ms, bound_by = fused_bound_ms(torch, slot, args, peak_bw,
+                                                device_info.peak_ops)
+            timings[(name, slot)] = dict(ms=ms, plain_ms=plain_ms,
+                                         library_ms=lib_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by)
+            log("time   {:13s} {:8s} {} kernel {:.4f} ms  plain {:.4f} ms  "
+                "library {:.4f} ms  bound {:.4f} ms ({})".format(
+                    kname, name, slot, ms, plain_ms, lib_ms, bound_ms,
+                    bound_by))
+        del case
+        torch.cuda.empty_cache()
+    return errs, timings
+
+
+def port_block(torch, params):
+    """The port's ``models.resnet.BottleneckBlock`` (stride 1, C = 4F) in
+    train mode, holding the fused block's weights."""
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    c, f = params["w1"].shape
+    block = resnet.BottleneckBlock(c, f, 1, torch.bfloat16).cuda().train()
+    with torch.no_grad():
+        block.Conv_0.kernel.copy_(params["w1"].t()[:, :, None, None])
+        block.Conv_1.kernel.copy_(params["w2"].permute(3, 2, 0, 1))
+        block.Conv_2.kernel.copy_(params["w3"].t()[:, :, None, None])
+        for i in range(3):
+            norm = getattr(block, "BatchNorm_{}".format(i))
+            norm.scale.copy_(params["gamma{}".format(i + 1)])
+            norm.bias.copy_(params["beta{}".format(i + 1)])
+    return block
+
+
+def block_phase(torch, frb):
+    """(b) ``bottleneck_forward`` at both full-width blocks: the default
+    route launches B5 twice and B6 once per call (counted from zero around
+    these two calls, the main path of the kernels), and agrees with the
+    port's BottleneckBlock in train mode, with ``reference_forward`` and
+    with every per-slot library swap."""
+    cases = []
+    frb.reset_launches()
+    for i, (name, spatial, c, f) in enumerate(BLOCKS):
+        case = block_inputs(torch, frb, spatial, c, f, BLOCK_BATCH, 400 + i)
+        before = dict(frb.launches)
+        out, stats = frb.bottleneck_forward(case["params"], case["x"])
+        torch.cuda.synchronize()
+        counts = {k: frb.launches[k] - before[k] for k in before}
+        if counts != {"matmul_stats": 2, "conv3x3_stats": 1}:
+            raise AssertionError("bottleneck_forward {} launched {}".format(
+                name, counts))
+        cases.append((name, case, out, stats))
+    launches = dict(frb.launches)
+    for name, case, out, stats in cases:
+        x, params = case["x"], case["params"]
+        with torch.no_grad():
+            want = port_block(torch, params)(x.permute(0, 3, 1, 2)).permute(
+                0, 2, 3, 1)
+        refs = [("BottleneckBlock", want),
+                ("reference_forward", frb.reference_forward(params, x))]
+        refs += [("/".join(impls), frb.bottleneck_forward(
+            params, x, impls=impls)[0]) for impls in (
+                ("xla", "pallas", "pallas"), ("pallas", "xla", "pallas"),
+                ("pallas", "pallas", "xla"))]
+        readings = {}
+        for label, ref in refs:
+            err = (out.float() - ref.float()).abs()
+            # The share of the limit used: 1 at |err| = 5e-2 + 5e-2 |ref|.
+            used = float((err / (BLOCK_TOL + BLOCK_TOL * ref.float().abs())
+                          ).max())
+            readings[label] = (float(err.max()), used)
+            if not used <= 1.0:
+                raise AssertionError("fused block {} disagrees with {}: max "
+                                     "abs err {}".format(name, label,
+                                                         float(err.max())))
+        finite = all(bool(torch.isfinite(t).all()) for pair in stats
+                     for t in pair)
+        if not (finite and bool(torch.isfinite(out).all())):
+            raise AssertionError("fused block {}: non-finite".format(name))
+        log("block  {} b{} {}x{} {}->{}: max abs err vs {}".format(
+            name, BLOCK_BATCH, *([case["x"].shape[1]] * 2),
+            case["x"].shape[-1], case["params"]["w1"].shape[1],
+            ", ".join("{} {:.3e} ({:.2f} of the limit)".format(k, *v)
+                      for k, v in readings.items())))
+    log("block  launches over the two default calls: {}".format(launches))
+    del cases
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_training_phase(torch, card):
+    """(c) ``bench.py``'s ``bench_resnet50`` through the port: resnet50,
+    1000 classes, b256 bf16 224x224x3 images (the same batch every step),
+    ``sgd(0.1, momentum=0.9)``; 4 steps with finite losses, the loss of
+    the last step below the first's (the same batch every step, so a
+    backward that does not descend shows), the running statistics moved,
+    images/s (median of steps 2-4); then a profiled window."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    model = factory.get_model("resnet50", num_classes=1000, device="cuda",
+                              seed=0)
+    tr = Trainer(model, optimizer=trainer.sgd(0.1, momentum=0.9),
+                 device="cuda")
+    state = tr.init()
+    rng = np.random.RandomState(0)
+    batch = {
+        "x": torch.from_numpy(rng.rand(RESNET_BATCH, 224, 224, 3).astype(
+            np.float32)).to(torch.bfloat16).cuda(),
+        "y": torch.from_numpy(rng.randint(0, 1000, size=RESNET_BATCH).astype(
+            np.int64)).cuda(),
+    }
+    stats0 = {n: b.clone() for n, b in state.model_state.items()}
+    losses, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state, m = tr.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    moved = sum(not torch.equal(b, stats0[n])
+                for n, b in state.model_state.items() if n.endswith("mean"))
+    n_means = sum(n.endswith("mean") for n in state.model_state)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("resnet50 losses not finite: {}".format(losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("resnet50 loss did not fall over 4 steps on "
+                             "one batch: {}".format(losses))
+    if moved != n_means:
+        raise AssertionError("{} of {} running means moved".format(moved,
+                                                                   n_means))
+    step_ms = float(np.median(secs[1:])) * 1e3
+    log("resnet ResNet-50 b256 224x224 bf16 sgd(0.1, 0.9): losses {}; "
+        "running means moved {}/{}; step {:.2f} ms median of steps 2-4 "
+        "(step 1 {:.0f} ms), {:.1f} images/s, peak memory {:.1f} GB on "
+        "{}".format(["{:.4f}".format(x) for x in losses], moved, n_means,
+                    step_ms, secs[0] * 1e3, RESNET_BATCH / step_ms * 1e3,
+                    torch.cuda.max_memory_allocated() / 1e9, card))
+    profile_train_step(torch, tr, state, batch, steps=2,
+                       label="ResNet-50 b256 224x224 bf16", top_ops=12)
+    del model, tr, state, batch
+    torch.cuda.empty_cache()
+
+
+def resnet_phase(torch, frb, device_info, card):
+    errs, timings = fused_kernel_phase(torch, frb, device_info)
+    launches = block_phase(torch, frb)
+    resnet_training_phase(torch, card)
+    return errs, timings, launches
 
 
 # -- greedy equality -----------------------------------------------------------
@@ -855,6 +1170,7 @@ def main():
     from tensorflowonspark_tpu_torch import device_info
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.ops import fused_resnet_block as frb
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -877,6 +1193,13 @@ def main():
         raise AssertionError("serving launched flash kernels: {}".format(
             fa.launches))
     flash_launches = training_phase(torch, fa, pa, card)
+    fa.reset_launches()
+    frb.reset_launches()
+    fused_errs, fused_timings, fused_launches = resnet_phase(
+        torch, frb, device_info, card)
+    if any(fa.launches.values()):
+        raise AssertionError("the resnet phase launched flash kernels: "
+                             "{}".format(fa.launches))
     toy_model = toy_greedy_phase(torch)
     full_width_teacher_forced(torch)
     http_phase(torch, toy_model)
@@ -894,6 +1217,23 @@ def main():
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
             launches=flash_launches[name], **flash_timings[name]))
+    # B5's row: one launch of a stage-1 block, the mean of its two (K1
+    # without, K3 with the prologue); B6's: the stage-1 block's K2.
+    k1, k3 = fused_timings[("stage1", "K1")], fused_timings[("stage1", "K3")]
+    b5 = {k: (k1[k] + k3[k]) / 2 for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms")}
+    b5["bound_by"] = k1["bound_by"] if k1["bound_by"] == k3["bound_by"] \
+        else "bytes, operations"
+    for name, line, t in (("matmul_stats", 53, b5),
+                          ("conv3x3_stats", 112,
+                           fused_timings[("stage1", "K2")])):
+        rows.append(dict(
+            name=name,
+            source="tensorflowonspark_tpu_torch/csrc/fused_resnet_block.cu",
+            replaces="tensorflowonspark_tpu/ops/fused_resnet_block.py:"
+                     "{}".format(line),
+            launches=fused_launches[name], max_abs_err=fused_errs[name],
+            **t))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: dict(row, route="cuda")[k] for k in keys}

@@ -1,14 +1,19 @@
-"""Weights of the JAX package's ``TransformerLM`` as the port's
-``state_dict``.
+"""Weights of the JAX package's models as the port's ``state_dict``.
 
-``params_from_flax(params, cfg)`` takes the flax ``params`` tree (nested
-dicts of numpy arrays — ``jax.device_get`` of the unboxed
-``variables["params"]``) and
-returns ``{name: torch.Tensor}`` for
-:class:`~tensorflowonspark_tpu_torch.models.transformer.TransformerLM`.
-The port keeps flax's kernel layouts, so the conversion is a renaming
-plus shape checks: a tree from another geometry fails loudly instead of
-loading half a model.
+Each function takes flax trees as nested dicts of numpy arrays
+(``jax.device_get`` of the unboxed variables) and returns ``{name:
+torch.Tensor}``:
+
+* ``params_from_flax(params, cfg)`` for
+  :class:`~tensorflowonspark_tpu_torch.models.transformer.TransformerLM`,
+  whose kernels keep flax's layouts: a renaming;
+* ``resnet_params_from_flax(variables, model)`` for the port's ResNets:
+  ``params`` and ``batch_stats`` together, conv kernels HWIO -> OIHW;
+* ``fused_block_params_from_jax(params)`` for
+  ``ops.fused_resnet_block``'s parameter dict, dtype and layout kept.
+
+All check names and shapes: a tree of another depth or width fails
+loudly instead of loading half a model.
 """
 
 from collections.abc import Mapping
@@ -58,11 +63,7 @@ def params_from_flax(params, cfg):
     :class:`TransformerConfig`)."""
     flat = _flat(params)
     expected = _expected(cfg)
-    missing = sorted(set(expected) - set(flat))
-    extra = sorted(set(flat) - set(expected))
-    if missing or extra:
-        raise ValueError("flax params do not match the config: missing {}, "
-                         "unexpected {}".format(missing, extra))
+    _check_names(flat, expected, "flax params and the config")
     out = {}
     for name, shape in expected.items():
         arr = np.asarray(flat[name])
@@ -71,4 +72,66 @@ def params_from_flax(params, cfg):
                 name, arr.shape, shape))
         out[name.replace("/", ".")] = torch.from_numpy(
             np.array(arr, dtype=np.float32, order="C"))
+    return out
+
+
+def _check_names(have, want, what):
+    missing = sorted(set(want) - set(have))
+    extra = sorted(set(have) - set(want))
+    if missing or extra:
+        raise ValueError("{} do not match: missing {}, unexpected {}".format(
+            what, missing, extra))
+
+
+def _tensor(arr):
+    """A CPU tensor of ``arr``'s dtype; bf16 numpy arrays (which
+    ``torch.from_numpy`` does not take) pass through their bits."""
+    arr = np.array(arr, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def resnet_params_from_flax(variables, model):
+    """The port's ``state_dict`` (f32 CPU tensors, running statistics
+    included) for a flax ResNet's ``{"params": ..., "batch_stats": ...}``;
+    ``model`` is the port's ResNet of the same depth and width. Conv
+    kernels go from flax's HWIO to the port's OIHW."""
+    flat = {"params/" + k: v for k, v in _flat(variables["params"]).items()}
+    flat.update({"batch_stats/" + k: v for k, v in
+                 _flat(variables.get("batch_stats", {})).items()})
+    want = {}
+    for name, t in model.state_dict().items():
+        coll = "batch_stats" if name.endswith((".mean", ".var")) else "params"
+        want["{}/{}".format(coll, name.replace(".", "/"))] = (name, t.shape)
+    _check_names(flat, want, "flax ResNet variables and the model")
+    out = {}
+    for key, (name, shape) in want.items():
+        arr = np.asarray(flat[key], dtype=np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)           # HWIO -> OIHW
+        if arr.shape != tuple(shape):
+            raise ValueError("{} has shape {}, the model wants {}".format(
+                key, arr.shape, tuple(shape)))
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def fused_block_params_from_jax(params):
+    """``ops.fused_resnet_block``'s parameter dict from the JAX one (the
+    same keys and layouts: ``w1`` (C, F), ``w2`` (3, 3, F, F), ``w3`` (F,
+    C), ``gamma*``/``beta*``), each leaf a CPU tensor of its own dtype."""
+    want = ("w1", "w2", "w3", "gamma1", "beta1", "gamma2", "beta2", "gamma3",
+            "beta3")
+    _check_names(params, want, "fused-block params")
+    c, f = np.shape(params["w1"])
+    shapes = {"w1": (c, f), "w2": (3, 3, f, f), "w3": (f, c),
+              "gamma1": (f,), "beta1": (f,), "gamma2": (f,), "beta2": (f,),
+              "gamma3": (c,), "beta3": (c,)}
+    out = {}
+    for name, shape in shapes.items():
+        if tuple(np.shape(params[name])) != shape:
+            raise ValueError("{} has shape {}, want {}".format(
+                name, tuple(np.shape(params[name])), shape))
+        out[name] = _tensor(params[name])
     return out

@@ -1,1 +1,2 @@
-"""Models of the port (the decoder-only TransformerLM first)."""
+"""Models of the port: the decoder-only TransformerLM and the ResNet
+family."""

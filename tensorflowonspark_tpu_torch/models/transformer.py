@@ -32,7 +32,6 @@ head-major result.
 """
 
 import dataclasses
-import math
 
 import torch
 import torch.nn as nn
@@ -40,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch.initializers import truncated_normal_
 from tensorflowonspark_tpu_torch.ops import attention as attention_ops
 from tensorflowonspark_tpu_torch.ops import flash_attention
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa_ops
@@ -151,17 +151,6 @@ def _packed_positions(segment_ids):
     starts = torch.cummax(torch.where(segment_ids != prev, idx, 0),
                           dim=1).values
     return idx - starts
-
-
-# flax's he_normal is a truncated normal at +-2 std whose std is widened by
-# the truncated unit normal's std, so the drawn values keep variance 2/fan_in.
-_TRUNC_STD = 0.87962566103423978
-
-
-def _he_normal_(param, fan_in, gen):
-    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(param, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=gen)
 
 
 class LayerNorm(nn.Module):
@@ -464,7 +453,7 @@ class TransformerLM(nn.Module):
             if name.endswith("embedding") or name == "pos_embed":
                 nn.init.normal_(p, 0.0, 0.02, generator=gen)
             elif name.endswith("kernel"):
-                _he_normal_(p, p.shape[0], gen)
+                truncated_normal_(p, 2.0 / p.shape[0], gen)
             elif name.endswith("scale"):
                 p.fill_(1.0)
             elif name.endswith("bias"):

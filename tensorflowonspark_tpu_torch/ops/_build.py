@@ -5,8 +5,8 @@ interface — no PyTorch headers, so a build takes seconds — and loads
 through ``ctypes``. Libraries land in ``build/torch_kernels/`` at the root
 of the checkout (listed in ``.gitignore``), under a directory named by a
 hash of the sources and the flags, so an edited kernel never loads a stale
-binary. Sources build one after another. A failed build raises: there is
-no fallback.
+binary. Sources build in parallel, one ``nvcc`` each. A failed build
+raises: there is no fallback.
 """
 
 import ctypes
@@ -64,18 +64,26 @@ def build_all():
     os.makedirs(out_dir, exist_ok=True)
     libs = {name: os.path.join(out_dir, "lib{}.so".format(name))
             for name in srcs}
+    # One nvcc per missing library, all started together. Each writes
+    # beside its target, then renames: a concurrent process never loads a
+    # half-written library.
+    procs = {}
     for name, src in srcs.items():
-        if os.path.exists(libs[name]):
-            continue
-        # Write beside the target, then rename: a concurrent process never
-        # loads a half-written library.
-        tmp = "{}.{}.tmp".format(libs[name], os.getpid())
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        if not os.path.exists(libs[name]):
+            tmp = "{}.{}.tmp".format(libs[name], os.getpid())
+            procs[name] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for {} (exit {}):\n{}{}".format(
-                name, proc.returncode, proc.stdout, proc.stderr))
-        os.replace(tmp, libs[name])
+            failed.append("nvcc failed for {} (exit {}):\n{}{}".format(
+                name, proc.returncode, out, err))
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return libs
 
 

@@ -6,7 +6,9 @@ port trains on one device in PyTorch's own idiom: the model holds its
 parameters, an optimizer built by a factory holds their moments, and a step
 is forward, ``backward()`` and ``optimizer.step()``, updating both in place.
 Gradient accumulation is a Python loop over microbatches where the JAX
-package scans. Sharded training (``mesh``/``rules``) is ROADMAP A10, the
+package scans; a model's buffers (BatchNorm's running statistics) move in
+place with each forward, in microbatch order, as the scan carries
+``model_state``. Sharded training (``mesh``/``rules``) is ROADMAP A10, the
 persistent compile cache A12, and ``fit`` with device prefetch and
 asynchronous metrics A4b; ``donate`` has no meaning without XLA buffers.
 """
@@ -15,9 +17,20 @@ import dataclasses
 import inspect
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import device_info
 from tensorflowonspark_tpu_torch.train import losses as losses_lib
+
+
+def sgd(learning_rate, momentum=None, nesterov=False):
+    """Optimizer factory for ``torch.optim.SGD`` as ``optax.sgd``: with
+    ``momentum`` the trace is ``g + momentum * trace`` from a zero trace,
+    which torch's buffer (no dampening) equals from step 1; ``nesterov``
+    steps along ``g + momentum * trace``. Without momentum, plain SGD."""
+    return lambda params: torch.optim.SGD(
+        params, lr=learning_rate, momentum=momentum or 0.0, dampening=0.0,
+        nesterov=bool(nesterov and momentum))
 
 
 def adam(learning_rate=1e-3):
@@ -40,15 +53,20 @@ def adamw(learning_rate, weight_decay=1e-4):
 @dataclasses.dataclass
 class TrainState:
     """The step count, the model's parameters (the live ``nn.Parameter``
-    objects, by ``state_dict`` name) and the optimizer over them.
+    objects, by ``state_dict`` name), the optimizer over them, and the
+    model's buffers by ``state_dict`` name (``model_state``: BatchNorm's
+    running statistics, the counterpart of the JAX
+    ``model_state["batch_stats"]``; empty for the transformer).
 
     Where the JAX state is an immutable pytree, ``train_step`` updates these
-    tensors and the optimizer's moments in place and returns a state whose
-    ``step`` is one further; both states name the same tensors."""
+    tensors, the buffers and the optimizer's moments in place and returns a
+    state whose ``step`` is one further; both states name the same
+    tensors."""
 
     step: int
     params: dict
     optimizer: torch.optim.Optimizer
+    model_state: dict = dataclasses.field(default_factory=dict)
 
 
 class Trainer:
@@ -89,8 +107,10 @@ class Trainer:
         # Each train_step splits the batch into grad_accum microbatches and
         # makes ONE optimizer update from their weighted gradients.
         self.grad_accum = int(grad_accum)
-        if remat:
-            _enable_model_remat(model)
+        # Without a per-block remat knob, remat checkpoints the whole
+        # forward (the JAX package's fallback).
+        self._whole_forward_remat = bool(remat) and not _enable_model_remat(
+            model)
         params = inspect.signature(model.forward).parameters
         self._has_segment_kwarg = "segment_ids" in params
         self._has_positions_kwarg = "positions" in params
@@ -113,7 +133,8 @@ class Trainer:
         named = dict(self.model.named_parameters())
         return TrainState(step=0, params=named,
                           optimizer=self.optimizer_factory(
-                              list(named.values())))
+                              list(named.values())),
+                          model_state=dict(self.model.named_buffers()))
 
     # -- steps --------------------------------------------------------------
 
@@ -143,7 +164,29 @@ class Trainer:
         x = batch[self.input_key]
         if self.input_fn is not None:
             x = self.input_fn(x)
+        if (self._whole_forward_remat and self.model.training
+                and torch.is_grad_enabled()):
+            return checkpoint(lambda inp: self.model(inp, **kwargs), x,
+                              use_reentrant=False)
         return self.model(x, **kwargs)
+
+    def _backward(self, batch, weight=None):
+        """Forward and backward of one (micro)batch; returns the detached
+        loss. Under the whole-forward checkpoint the backward runs the
+        forward again, in train mode, and that would move the running
+        statistics a second time; the JAX recompute re-applies no update.
+        So the buffers as the first forward left them are put back after
+        the backward."""
+        loss = self.loss_fn(self._outputs(batch), batch)
+        kept = ({name: buf.clone() for name, buf in
+                 self.model.named_buffers()}
+                if self._whole_forward_remat else {})
+        (loss if weight is None else loss * weight).backward()
+        if kept:
+            with torch.no_grad():
+                for name, buf in self.model.named_buffers():
+                    buf.copy_(kept[name])
+        return loss.detach()
 
     def _microbatches(self, batch):
         k = self.grad_accum
@@ -169,9 +212,7 @@ class Trainer:
         self.model.train()
         try:
             if self.grad_accum == 1:
-                loss = self.loss_fn(self._outputs(batch), batch)
-                loss.backward()
-                loss = loss.detach()
+                loss = self._backward(batch)
             else:
                 loss = self._accumulate(self._microbatches(batch))
             state.optimizer.step()
@@ -191,9 +232,7 @@ class Trainer:
         total = torch.clamp_min(torch.stack(weights).sum(), 1e-6)
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         for mb, w in zip(micro, weights):
-            mb_loss = self.loss_fn(self._outputs(mb), mb)
-            (mb_loss * (w / total)).backward()
-            loss = loss + mb_loss.detach() * w
+            loss = loss + self._backward(mb, w / total) * w
         return loss / total
 
     @torch.no_grad()
@@ -225,18 +264,16 @@ class Trainer:
 
 
 def _enable_model_remat(model):
-    """Turn on the model's own per-block remat (``cfg.remat``): every module
-    that shares the model's config gets a copy with ``remat=True``. The JAX
-    package falls back to a whole-forward checkpoint for models without the
-    knob; every ported model has it, so such a model raises here."""
+    """Turn on the model's own per-block remat (``cfg.remat``) if it has the
+    knob: every module that shares the model's config gets a copy with
+    ``remat=True``. Returns False for a model without it (the trainer then
+    checkpoints the whole forward)."""
     cfg = getattr(model, "cfg", None)
     if cfg is None or not hasattr(cfg, "remat"):
-        raise NotImplementedError(
-            "remat=True needs a model with a cfg.remat field; other models "
-            "are ROADMAP A11")
-    if cfg.remat:
-        return
-    new = dataclasses.replace(cfg, remat=True)
-    for module in model.modules():
-        if getattr(module, "cfg", None) is cfg:
-            module.cfg = new
+        return False
+    if not cfg.remat:
+        new = dataclasses.replace(cfg, remat=True)
+        for module in model.modules():
+            if getattr(module, "cfg", None) is cfg:
+                module.cfg = new
+    return True
