@@ -10,7 +10,8 @@ calls and fails (non-zero exit) if any phase fails:
                shapes, timing kernel, plain version and a PyTorch yardstick:
                the paged decode step (B4), and the flash-attention forward,
                dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
-               GQA and f32 (SDPA's forward, and its backward alone);
+               GQA, f32, ragged (s 1000) and non-causal rectangular (SDPA's
+               forward, and its backward alone);
 3. serve    — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
                weights, page_size 128, decode_horizon 1) serves mixed
                requests, once with a bf16 pool and once with an int8 pool;
@@ -41,7 +42,11 @@ calls and fails (non-zero exit) if any phase fails:
 7. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The last two lines of standard output are the ``kernels`` JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. In the record, ``ms`` and ``library_ms``
+are device times (:func:`device_ms`: the call's kernels alone, timed with
+the card held busy until the host has queued the call); ``call_ms`` and
+``plain_ms`` are CUDA events around the whole call (:func:`time_cold`), the
+wrapper's host work included.
 """
 
 import json
@@ -154,6 +159,42 @@ def time_cold(torch, fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def device_ms(torch, fn, reps=20, warmup=3, spin_cycles=4_000_000):
+    """Device milliseconds of one ``fn()``: CUDA events around the call
+    while a spin kernel (``torch.cuda._sleep``, about 2 ms) holds the card
+    until the host has queued the whole call, so the wrapper's host work
+    does not count, only the call's kernels and the gaps between them; L2
+    flushed by a read before each call, as in :func:`time_cold`; the
+    median of ``reps`` calls. A call that the card reached before the host
+    had queued it (its start event already passed) is timed again with
+    twice the spin. The same reading serves a kernel and its library
+    yardstick. (``torch.profiler`` windows this short lost device
+    activities on the card: 51 of 60 in one window, all in another.)"""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                       device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < reps:
+        flush.sum()
+        torch.cuda._sleep(spin_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        if start.query():
+            spin_cycles *= 2
+            if spin_cycles > 256_000_000:
+                raise AssertionError("device_ms: the host cannot queue the "
+                                     "call within a 128 ms spin")
+            continue
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def paged_bound_ms(torch, c, peak_bw, peak_ops_fn):
     """Least time of the step: the bytes it must move (visible K/V tokens
     and their scales, q, out, table, lengths — each once) over the memory
@@ -244,19 +285,21 @@ def kernel_phase(torch, pa, device_info):
     for shape_name, kind, c, _ in cases:
         if kind not in ("bf16", "int8_bf16"):
             continue
-        ms = time_cold(torch, lambda: call(pa.paged_attention, c))
+        kernel = lambda: call(pa.paged_attention, c)  # noqa: E731
+        ms = device_ms(torch, kernel)
+        call_ms = time_cold(torch, kernel)
         plain_ms = time_cold(torch,
                              lambda: call(pa.paged_attention_reference, c))
-        lib_ms = (time_cold(torch, sdpa_yardstick(torch, c))
+        lib_ms = (device_ms(torch, sdpa_yardstick(torch, c))
                   if kind == "bf16" else None)
         bound_ms, bound_by = paged_bound_ms(torch, c, peak_bw,
                                             device_info.peak_ops)
         timings[(shape_name, kind)] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by=bound_by)
-        log("time   paged_decode {:5s} {:10s} kernel {:.4f} ms  plain {:.4f} "
-            "ms  sdpa {}  bound {:.4f} ms ({})".format(
-                shape_name, kind, ms, plain_ms,
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        log("time   paged_decode {:5s} {:10s} kernel {:.4f} ms (call {:.4f}) "
+            " plain {:.4f} ms  sdpa {}  bound {:.4f} ms ({})".format(
+                shape_name, kind, ms, call_ms, plain_ms,
                 "-" if lib_ms is None else "{:.4f} ms".format(lib_ms),
                 bound_ms, bound_by))
     return max(err for *_, err in cases), timings
@@ -274,34 +317,68 @@ def lm_segments(batch, seq):
     return seg
 
 
-def flash_case(torch, seed, b, s, h, h_kv, dtype, packed):
-    """Head-major operands of one attention call on the card."""
+def ragged_segments(batch, seq):
+    """Two documents per row with a row-dependent boundary, and a padded
+    tail on odd rows only (37 tokens times the row): at a length that is
+    not a multiple of 64, even rows use their partial last tile, and the
+    boundaries and padding fall inside tiles."""
+    seg = np.ones((batch, seq), np.int32)
+    for i in range(batch):
+        seg[i, seq // 2 + 13 * i:] = 2
+        if i % 2:
+            seg[i, seq - 37 * i:] = 0
+    return seg
+
+
+SEGMENTS = {"none": lambda b, s: np.ones((b, s), np.int32),
+            "packed": lm_segments, "ragged": ragged_segments}
+
+
+def flash_case(torch, fa, seed, b, s, h, h_kv, dtype, segments, s_k=None,
+               causal=True):
+    """Head-major operands of one attention call on the card, with its
+    segment ids and the lengths the kernels take."""
+    s_k = s_k or s
     g = torch.Generator().manual_seed(seed)
     dev = lambda t: t.to(dtype).cuda()  # noqa: E731
     c = dict(q=dev(torch.randn(b, h, s, 64, generator=g)),
-             k=dev(torch.randn(b, h_kv, s, 64, generator=g)),
-             v=dev(torch.randn(b, h_kv, s, 64, generator=g)),
-             do=dev(torch.randn(b, h, s, 64, generator=g)))
-    seg = lm_segments(b, s) if packed else np.ones((b, s), np.int32)
-    c["seg"] = torch.as_tensor(seg).cuda()
+             k=dev(torch.randn(b, h_kv, s_k, 64, generator=g)),
+             v=dev(torch.randn(b, h_kv, s_k, 64, generator=g)),
+             do=dev(torch.randn(b, h, s, 64, generator=g)), causal=causal)
+    c["q_seg"] = torch.as_tensor(SEGMENTS[segments](b, s)).cuda()
+    c["k_seg"] = (c["q_seg"] if s_k == s else
+                  torch.as_tensor(SEGMENTS[segments](b, s_k)).cuda())
+    c["lens"] = fa._lengths(c["q_seg"], c["k_seg"])
     return c
 
 
-def flash_calls(fa, c, kernel):
-    """The three calls on ``c``: the kernels, or their plain versions. Both
-    backward calls take the plain forward's lse and delta, so each kernel
-    is held against its plain version on the same inputs."""
-    fwd = fa.flash_forward if kernel else fa.flash_forward_reference
-    dq = fa.flash_bwd_dq if kernel else fa.flash_bwd_dq_reference
-    dkv = fa.flash_bwd_dkv if kernel else fa.flash_bwd_dkv_reference
+def flash_calls(fa, c, route):
+    """The three calls on ``c`` by route: ``"kernel"`` the public wrappers
+    (lengths computed in the call), ``"launch"`` the kernels alone with
+    the case's lengths (as one attention call's forward and backward
+    reach them), ``"plain"`` the plain versions. The backward calls take
+    the plain forward's lse and delta, so each kernel is held against its
+    plain version on the same inputs."""
     args = (c["q"], c["k"], c["v"])
-    lse, delta = c["lse"], c["delta"]
+    segs = (c["q_seg"], c["k_seg"])
+    grads = (c["do"], c["lse"], c["delta"])
+    causal = c["causal"]
+    if route == "launch":
+        opts = (c["lens"], causal, None, None)
+        return {
+            "flash_fwd": lambda: fa._forward(*args, *segs, *opts),
+            "flash_bwd_dq": lambda: fa._bwd_dq(*args, *grads, *segs, *opts),
+            "flash_bwd_dkv": lambda: fa._bwd_dkv(*args, *grads, *segs,
+                                                 *opts),
+        }
+    fwd, dq, dkv = ((fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+                    if route == "kernel" else
+                    (fa.flash_forward_reference, fa.flash_bwd_dq_reference,
+                     fa.flash_bwd_dkv_reference))
     return {
-        "flash_fwd": lambda: fwd(*args, c["seg"], c["seg"]),
-        "flash_bwd_dq": lambda: dq(*args, c["do"], lse, delta, c["seg"],
-                                   c["seg"]),
-        "flash_bwd_dkv": lambda: dkv(*args, c["do"], lse, delta, c["seg"],
-                                     c["seg"]),
+        "flash_fwd": lambda: fwd(*args, *segs, causal=causal),
+        "flash_bwd_dq": lambda: dq(*args, *grads, *segs, causal=causal),
+        "flash_bwd_dkv": lambda: dkv(*args, *grads, *segs, causal=causal),
     }
 
 
@@ -312,18 +389,21 @@ def flash_bound_ms(torch, c, name, peak_bw, peak_ops):
     for dK/dV without dS K) at the bf16 peak, or the bytes it must move
     (inputs read once, outputs written once) at the memory rate, the
     larger."""
-    b, h, s, d = c["q"].shape
-    seg = c["seg"].long()
-    pos = torch.arange(s, device="cuda")
-    visible = ((seg[:, :, None] == seg[:, None, :]) & (seg != 0)[:, :, None]
-               & (pos[:, None] >= pos[None, :]))
+    b, h, s_q, d = c["q"].shape
+    q_seg, k_seg = c["q_seg"].long(), c["k_seg"].long()
+    visible = ((q_seg[:, :, None] == k_seg[:, None, :])
+               & (q_seg != 0)[:, :, None])
+    if c["causal"]:
+        q_pos = torch.arange(s_q, device=q_seg.device)
+        k_pos = torch.arange(k_seg.shape[1], device=q_seg.device)
+        visible &= q_pos[:, None] >= k_pos[None, :]
     pairs = int(visible.sum()) * h
     products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
     flops = 2 * d * pairs * products
     el = c["q"].element_size()
     qkv = (c["q"].numel() + c["k"].numel() + c["v"].numel()) * el
-    rows = b * h * s * 4                      # one f32 per query row
-    seg_bytes = 2 * c["seg"].numel() * 4
+    rows = b * h * s_q * 4                    # one f32 per query row
+    seg_bytes = (c["q_seg"].numel() + c["k_seg"].numel()) * 4
     io = {
         "flash_fwd": qkv + c["q"].numel() * el + rows,
         "flash_bwd_dq": qkv + 2 * c["q"].numel() * el + 2 * rows,
@@ -358,28 +438,33 @@ def sdpa_yardsticks(torch, c):
     return fwd, bwd
 
 
-def flash_phase(torch, fa, device_info):
-    cases = [
-        ("main", "bf16", dict(b=8, s=1024, h=12, h_kv=12,
-                              dtype=torch.bfloat16, packed=False)),
-        ("packed", "bf16", dict(b=8, s=1024, h=12, h_kv=12,
-                                dtype=torch.bfloat16, packed=True)),
-        ("gqa", "bf16", dict(b=8, s=1024, h=12, h_kv=4,
-                             dtype=torch.bfloat16, packed=True)),
-        ("f32", "f32", dict(b=4, s=1024, h=12, h_kv=12, dtype=torch.float32,
-                            packed=True)),
-    ]
+# name: (dtype kind, flash_case arguments). The last two reach the partial
+# last tile and the masked-tile path, and the non-causal schedule.
+FLASH_CASES = [
+    ("main", "bf16", dict(b=8, s=1024, h=12, h_kv=12, segments="none")),
+    ("packed", "bf16", dict(b=8, s=1024, h=12, h_kv=12, segments="packed")),
+    ("gqa", "bf16", dict(b=8, s=1024, h=12, h_kv=4, segments="packed")),
+    ("f32", "f32", dict(b=4, s=1024, h=12, h_kv=12, segments="packed")),
+    ("ragged", "bf16", dict(b=8, s=1000, h=12, h_kv=12, segments="ragged")),
+    ("full", "bf16", dict(b=8, s=1024, s_k=768, h=12, h_kv=12,
+                          segments="none", causal=False)),
+]
+
+
+def flash_phase(torch, fa):
     errs = {name: 0.0 for name in fa.launches}
     main = None
-    for i, (case, kind, kw) in enumerate(cases):
-        c = flash_case(torch, 100 + i, **kw)
+    for i, (case, kind, kw) in enumerate(FLASH_CASES):
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        c = flash_case(torch, fa, 100 + i, dtype=dtype, **kw)
         ref_out, ref_lse = fa.flash_forward_reference(
-            c["q"], c["k"], c["v"], c["seg"], c["seg"])
+            c["q"], c["k"], c["v"], c["q_seg"], c["k_seg"],
+            causal=c["causal"])
         c["lse"] = ref_lse
         c["delta"] = (ref_out.float() * c["do"].float()).sum(dim=-1)
-        got = {n: fn() for n, fn in flash_calls(fa, c, True).items()}
+        got = {n: fn() for n, fn in flash_calls(fa, c, "kernel").items()}
         torch.cuda.synchronize()
-        ref = {n: fn() for n, fn in flash_calls(fa, c, False).items()}
+        ref = {n: fn() for n, fn in flash_calls(fa, c, "plain").items()}
         pairs = {
             "flash_fwd": (("out", got["flash_fwd"][0], ref_out),
                           ("lse", got["flash_fwd"][1], ref_lse)),
@@ -410,29 +495,37 @@ def flash_phase(torch, fa, device_info):
                             name, case, differing, label,
                             BF16_MAX_DIFFERING))
                 errs[name] = max(errs[name], err)
-        log("kernel flash {:6s} {:4s} b{} s{} h{}/{}: {}".format(
-            case, kind, kw["b"], kw["s"], kw["h"], kw["h_kv"],
-            ", ".join(parts)))
+        log("kernel flash {:6s} {:4s} b{} s{}x{} h{}/{}{}: {}".format(
+            case, kind, kw["b"], kw["s"], kw.get("s_k", kw["s"]), kw["h"],
+            kw["h_kv"], "" if c["causal"] else " full", ", ".join(parts)))
         if case == "main":
             main = c
+    return errs, main
+
+
+def flash_timings(torch, fa, device_info, errs, main):
+    """Kernel (device), call, plain and SDPA (device) times of B1-B3 at
+    the main case, beside their bound."""
     peak_bw = device_info.peak_bandwidth()
     timings = {}
     sdpa_fwd, sdpa_bwd = sdpa_yardsticks(torch, main)
-    lib = {"flash_fwd": time_cold(torch, sdpa_fwd)}
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_cold(torch, sdpa_bwd)
-    kernels = flash_calls(fa, main, True)
-    plains = flash_calls(fa, main, False)
+    lib = {"flash_fwd": device_ms(torch, sdpa_fwd)}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = device_ms(torch, sdpa_bwd)
+    launch = flash_calls(fa, main, "launch")
+    kernels = flash_calls(fa, main, "kernel")
+    plains = flash_calls(fa, main, "plain")
     for name in fa.launches:
-        ms = time_cold(torch, kernels[name])
+        ms = device_ms(torch, launch[name])
+        call_ms = time_cold(torch, kernels[name])
         plain_ms = time_cold(torch, plains[name], reps=5)
         bound_ms, bound_by = flash_bound_ms(torch, main, name, peak_bw,
                                             device_info.peak_ops)
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib[name],
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=errs[name])
-        log("time   {:13s} main bf16 kernel {:.4f} ms  plain {:.4f} ms  "
-            "sdpa {} {:.4f} ms  bound {:.4f} ms ({})".format(
-                name, ms, plain_ms,
+        timings[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                             library_ms=lib[name], bound_ms=bound_ms,
+                             bound_by=bound_by, max_abs_err=errs[name])
+        log("time   {:13s} main bf16 kernel {:.4f} ms (call {:.4f})  plain "
+            "{:.4f} ms  sdpa {} {:.4f} ms  bound {:.4f} ms ({})".format(
+                name, ms, call_ms, plain_ms,
                 "fwd" if name == "flash_fwd" else "bwd (dq+dk+dv)", lib[name],
                 bound_ms, bound_by))
     return timings
@@ -714,6 +807,11 @@ def profile_train_step(torch, tr, state, batch, steps=2,
         "device kernels/step".format(label, window_ms, busy_ms,
                                      1.0 - busy_ms / window_ms,
                                      count / steps))
+    flash_ms = sum(ms for name, ms in by_name.items()
+                   if "flash_" in name) / steps
+    if flash_ms:
+        log("profile   flash kernels (B1-B3) {:.4f} ms/step, {:.1%} of device "
+            "busy".format(flash_ms, flash_ms / busy_ms))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log("profile   {:8.4f} ms/step {:5.1%}  {}".format(
             ms / steps, ms / steps / busy_ms, name[:90]))
@@ -863,18 +961,19 @@ def fused_kernel_phase(torch, frb, device_info):
                                 differing, past_step, sum_err))
             if batch != BLOCK_BATCH:
                 continue
-            ms = time_cold(torch, kernel)
+            ms = device_ms(torch, kernel)
+            call_ms = time_cold(torch, kernel)
             plain_ms = time_cold(torch, plain, reps=5)
-            lib_ms = time_cold(torch, lib)
+            lib_ms = device_ms(torch, lib)
             bound_ms, bound_by = fused_bound_ms(torch, slot, args, peak_bw,
                                                 device_info.peak_ops)
-            timings[(name, slot)] = dict(ms=ms, plain_ms=plain_ms,
-                                         library_ms=lib_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by)
-            log("time   {:13s} {:8s} {} kernel {:.4f} ms  plain {:.4f} ms  "
-                "library {:.4f} ms  bound {:.4f} ms ({})".format(
-                    kname, name, slot, ms, plain_ms, lib_ms, bound_ms,
-                    bound_by))
+            timings[(name, slot)] = dict(ms=ms, call_ms=call_ms,
+                                         plain_ms=plain_ms, library_ms=lib_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
+            log("time   {:13s} {:8s} {} kernel {:.4f} ms (call {:.4f})  "
+                "plain {:.4f} ms  library {:.4f} ms  bound {:.4f} ms "
+                "({})".format(kname, name, slot, ms, call_ms, plain_ms,
+                              lib_ms, bound_ms, bound_by))
         del case
         torch.cuda.empty_cache()
     return errs, timings
@@ -1186,7 +1285,10 @@ def main():
         len(libs), "y" if len(libs) == 1 else "ies",
         time.perf_counter() - t0))
     max_err, timings = kernel_phase(torch, pa, device_info)
-    flash_timings = flash_phase(torch, fa, device_info)
+    flash_errs, flash_main = flash_phase(torch, fa)
+    flash_times = flash_timings(torch, fa, device_info, flash_errs,
+                                flash_main)
+    del flash_main
     fa.reset_launches()
     launches = main_phase(torch, pa)
     if any(fa.launches.values()):
@@ -1216,12 +1318,12 @@ def main():
             source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
-            launches=flash_launches[name], **flash_timings[name]))
+            launches=flash_launches[name], **flash_times[name]))
     # B5's row: one launch of a stage-1 block, the mean of its two (K1
     # without, K3 with the prologue); B6's: the stage-1 block's K2.
     k1, k3 = fused_timings[("stage1", "K1")], fused_timings[("stage1", "K3")]
-    b5 = {k: (k1[k] + k3[k]) / 2 for k in ("ms", "plain_ms", "library_ms",
-                                           "bound_ms")}
+    b5 = {k: (k1[k] + k3[k]) / 2 for k in ("ms", "call_ms", "plain_ms",
+                                           "library_ms", "bound_ms")}
     b5["bound_by"] = k1["bound_by"] if k1["bound_by"] == k3["bound_by"] \
         else "bytes, operations"
     for name, line, t in (("matmul_stats", 53, b5),
@@ -1235,7 +1337,8 @@ def main():
             launches=fused_launches[name], max_abs_err=fused_errs[name],
             **t))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = {"kernels": [{k: dict(row, route="cuda")[k] for k in keys}
                            for row in rows]}
     log("total {:.1f} s".format(time.perf_counter() - t_start))

@@ -23,9 +23,15 @@ Bound. At the training shapes (s 1024, d 64, bf16, causal) each call's
 least work sits near the H100's ridge point: 250-300 FLOP per byte moved
 against the card's 295, so the bytes bound B1 and B3 (whose f32 dK/dV
 writes double its output) and the bf16 tensor-core rate bounds B2 — some
-0.015-0.03 ms each. This first design is bound by neither: every product
-goes through a shared-memory tile and a block-wide barrier, with one tile
-in flight per block (``csrc/flash_attention.cu`` says what comes next).
+0.015-0.03 ms each. In bf16, B1 and B3 keep their products in registers
+(``mma.sync``) and stream tiles through a two-stage ``cp.async`` ring; B2
+and the f32 kernels still pass every product through a shared-memory tile
+behind a block-wide barrier (``csrc/flash_attention.cu`` says more).
+
+Lengths. Each kernel bounds its loops by ``q_len``/``k_len``, the tokens
+through each row's last non-padding one. One attention call computes them
+once (:func:`_lengths`) and its backward reuses them; a wrapper called
+alone computes its own.
 
 Layout. The kernels take head-major tensors: ``q``/``out`` ``(b, h, s, d)``
 and ``k``/``v`` ``(b, h_kv, s, d)``, contiguous, ``d`` innermost. The JAX
@@ -94,6 +100,13 @@ def _valid_len(seg):
     pos = torch.arange(1, seg.shape[1] + 1, dtype=torch.int32,
                        device=seg.device)
     return torch.where(seg != 0, pos, 0).amax(dim=1).to(torch.int32)
+
+
+def _lengths(q_seg, k_seg):
+    """``(q_len, k_len)`` for the kernels: :func:`_valid_len` of each side,
+    once when both sides share one segment tensor."""
+    q_len = _valid_len(q_seg)
+    return q_len, (q_len if k_seg is q_seg else _valid_len(k_seg))
 
 
 def _group_view(x, h_kv):
@@ -279,15 +292,24 @@ def _check_kernel(name, tensors, float_tensors, seg_tensors, block_q,
             raise ValueError("{}: segment ids must be int32".format(name))
 
 
-def _kernel_fn(name, n_ptrs):
+# Pointer arguments of each C entry point in ``csrc/flash_attention.cu``;
+# all three then take b, h, h_kv, s_q, s_k (int), scale (float), causal,
+# dtype (int) and the stream.
+_POINTERS = {"flash_fwd": 9, "flash_bwd_dq": 11, "flash_bwd_dkv": 12}
+
+
+def _argtypes(name):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return [vp] * _POINTERS[name] + [ci] * 5 + [ctypes.c_float, ci, ci, vp]
+
+
+def _kernel_fn(name):
     from tensorflowonspark_tpu_torch.ops import _build
 
     fn = getattr(_build.load_library("flash_attention"), name)
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * n_ptrs + [ci] * 5 + [ctypes.c_float, ci, ci,
-                                                   vp])
-        fn.restype = ci
+        fn.argtypes = _argtypes(name)
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -308,17 +330,42 @@ def flash_forward(q, k, v, q_seg, k_seg, *, causal=True, block_q=None,
     """B1. ``q`` (b, h, s_q, d), ``k``/``v`` (b, h_kv, s_k, d) head-major;
     ``q_seg``/``k_seg`` int32 (b, s_q)/(b, s_k), 0 = padding. Returns
     ``(out (b, h, s_q, d), lse (b, h, s_q) f32)``."""
+    return _forward(q, k, v, q_seg, k_seg, None, causal, block_q, block_k)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, *, causal=True,
+                 block_q=None, block_k=None):
+    """B2. ``do`` like ``q``; ``lse``/``delta`` f32 (b, h, s_q). Returns dQ
+    in q's dtype."""
+    return _bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, None, causal,
+                   block_q, block_k)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, *, causal=True,
+                  block_q=None, block_k=None):
+    """B3. Returns f32 ``(dk, dv)``, each (b, h_kv, s_k, d): the GQA
+    group's sum, which the caller casts down."""
+    return _bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, None, causal,
+                    block_q, block_k)
+
+
+# The wrappers' bodies. ``lens`` is ``(q_len, k_len)`` from :func:`_lengths`
+# when the caller has them (one attention call's forward and backward), or
+# None. The plain versions need no lengths.
+
+
+def _forward(q, k, v, q_seg, k_seg, lens, causal, block_q, block_k):
     _check_shapes(q, k, v, q_seg, k_seg, causal)
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, q_seg, k_seg, causal=causal,
                                        block_k=block_k or BLOCK)
-    _check_kernel("flash_forward", [q, k, v], [], [q_seg, k_seg], block_q,
-                  block_k)
+    q_len, k_len = lens or _lengths(q_seg, k_seg)
+    _check_kernel("flash_forward", [q, k, v], [],
+                  [q_seg, k_seg, q_len, k_len], block_q, block_k)
     b, h, s_q, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    q_len, k_len = _valid_len(q_seg), _valid_len(k_seg)
-    err = _kernel_fn("flash_fwd", 9)(
+    err = _kernel_fn("flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
         k_seg.data_ptr(), q_len.data_ptr(), k_len.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *_dims(q, k, causal))
@@ -327,20 +374,18 @@ def flash_forward(q, k, v, q_seg, k_seg, *, causal=True, block_q=None,
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, *, causal=True,
-                 block_q=None, block_k=None):
-    """B2. ``do`` like ``q``; ``lse``/``delta`` f32 (b, h, s_q). Returns dQ
-    in q's dtype."""
+def _bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, lens, causal, block_q,
+            block_k):
     _check_shapes(q, k, v, q_seg, k_seg, causal, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg, k_seg,
                                       causal=causal,
                                       block_k=block_k or BLOCK)
+    q_len, k_len = lens or _lengths(q_seg, k_seg)
     _check_kernel("flash_bwd_dq", [q, k, v, do], [lse, delta],
-                  [q_seg, k_seg], block_q, block_k)
+                  [q_seg, k_seg, q_len, k_len], block_q, block_k)
     dq = torch.empty_like(q)
-    q_len, k_len = _valid_len(q_seg), _valid_len(k_seg)
-    err = _kernel_fn("flash_bwd_dq", 11)(
+    err = _kernel_fn("flash_bwd_dq")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), q_seg.data_ptr(), k_seg.data_ptr(),
         q_len.data_ptr(), k_len.data_ptr(), dq.data_ptr(),
@@ -350,21 +395,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, *, causal=True,
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, *, causal=True,
-                  block_q=None, block_k=None):
-    """B3. Returns f32 ``(dk, dv)``, each (b, h_kv, s_k, d): the GQA
-    group's sum, which the caller casts down."""
+def _bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, lens, causal, block_q,
+             block_k):
     _check_shapes(q, k, v, q_seg, k_seg, causal, do, lse, delta)
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, q_seg, k_seg,
                                        causal=causal,
                                        block_q=block_q or BLOCK)
+    q_len, k_len = lens or _lengths(q_seg, k_seg)
     _check_kernel("flash_bwd_dkv", [q, k, v, do], [lse, delta],
-                  [q_seg, k_seg], block_q, block_k)
+                  [q_seg, k_seg, q_len, k_len], block_q, block_k)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty_like(dk)
-    q_len, k_len = _valid_len(q_seg), _valid_len(k_seg)
-    err = _kernel_fn("flash_bwd_dkv", 12)(
+    err = _kernel_fn("flash_bwd_dkv")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), q_seg.data_ptr(), k_seg.data_ptr(),
         q_len.data_ptr(), k_len.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -382,17 +425,18 @@ class _FlashAttention(torch.autograd.Function):
     outputs are differentiable; the lse cotangent folds into delta."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_seg, k_seg, causal, block_q, block_k):
-        out, lse = flash_forward(q, k, v, q_seg, k_seg, causal=causal,
-                                 block_q=block_q, block_k=block_k)
-        ctx.save_for_backward(q, k, v, q_seg, k_seg, out, lse)
-        ctx.opts = dict(causal=causal, block_q=block_q, block_k=block_k)
+    def forward(ctx, q, k, v, q_seg, k_seg, q_len, k_len, causal, block_q,
+                block_k):
+        ctx.opts = (causal, block_q, block_k)
+        out, lse = _forward(q, k, v, q_seg, k_seg, (q_len, k_len),
+                            *ctx.opts)
+        ctx.save_for_backward(q, k, v, q_seg, k_seg, q_len, k_len, out, lse)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, q_seg, k_seg, out, lse = ctx.saved_tensors
+        q, k, v, q_seg, k_seg, q_len, k_len, out, lse = ctx.saved_tensors
         do = (torch.zeros_like(out) if g_out is None
               else g_out.to(out.dtype).contiguous())
         # delta_i = rowsum(dO_i * O_i); the lse cotangent adds g_lse * p to
@@ -400,11 +444,11 @@ class _FlashAttention(torch.autograd.Function):
         delta = (out.float() * do.float()).sum(dim=-1)
         if g_lse is not None:
             delta = delta - g_lse.float()
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, **ctx.opts)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg,
-                               **ctx.opts)
-        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
-                None)
+        lens = (q_len, k_len)
+        dq = _bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, lens, *ctx.opts)
+        dk, dv = _bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, lens,
+                          *ctx.opts)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype)) + (None,) * 7
 
 
 def _segments(segment_ids, kv_segment_ids, b, s_q, s_k, device):
@@ -420,7 +464,8 @@ def _segments(segment_ids, kv_segment_ids, b, s_q, s_k, device):
         k_seg = torch.as_tensor(kv_segment_ids, device=device).to(
             torch.int32).contiguous()
     elif segment_ids is None:
-        k_seg = torch.ones((b, s_k), dtype=torch.int32, device=device)
+        k_seg = q_seg if s_k == s_q else torch.ones(
+            (b, s_k), dtype=torch.int32, device=device)
     elif s_k != s_q:
         raise ValueError(
             "rectangular attention (s_q={} != s_k={}) with segment_ids "
@@ -439,8 +484,9 @@ def _attention(q, k, v, segment_ids, kv_segment_ids, block_q, block_k,
     q_seg, k_seg = _segments(segment_ids, kv_segment_ids, b, s_q,
                              k.shape[2], q.device)
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), q_seg, k_seg, causal,
-                                 block_q, block_k)
+                                 v.contiguous(), q_seg, k_seg,
+                                 *_lengths(q_seg, k_seg), causal, block_q,
+                                 block_k)
 
 
 def flash_attention_head_major(q, k, v, segment_ids=None, block_q=None,

@@ -15,6 +15,10 @@ bitwise equal — both sides round P and dS to bf16 at the same points — with
 lse (f32) within 4.8e-7.
 """
 
+import ctypes
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,3 +261,66 @@ def test_wrappers_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="CPU tensors"):
         fa.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"),
                          ones.to("meta"), ones.to("meta"))
+
+
+def test_ctypes_signatures_match_the_cuda_source():
+    """Each ``flash_*`` C declaration in ``csrc/flash_attention.cu`` against
+    the wrapper's ctypes argument list: a slot typed ``int`` where the
+    source takes a pointer, or one missing, would pass a truncated address
+    or stream to the host entry point on the card."""
+    src = os.path.join(os.path.dirname(fa.__file__), os.pardir, "csrc",
+                       "flash_attention.cu")
+    with open(src) as f:
+        decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                f.read()))
+    assert sorted(decls) == sorted(fa._POINTERS)
+    types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    for name, params in decls.items():
+        want = [ctypes.c_void_p if "*" in p else types[p.split()[0]]
+                for p in params.split(",")]
+        assert fa._argtypes(name) == want, name
+
+
+def _length_segments(s):
+    """Packed, packed with padding inside and at the end, and all-padding
+    rows; with the lengths the kernels take for them."""
+    seg = np.ones((3, s), np.int32)
+    seg[:2, s // 2:] = 2
+    seg[1, 3:6] = 0
+    seg[1, s - 9:] = 0
+    seg[2] = 0
+    return seg, [s, s - 9, 0]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["square", "rect"])
+def test_attention_call_carries_lengths_to_its_backward(monkeypatch,
+                                                        causal):
+    """One attention call computes ``q_len``/``k_len`` once, whatever the
+    device, and its backward passes the same lengths to both backward
+    kernels: the tokens through each row's last non-padding one, which
+    bound the kernels' loops."""
+    seen = []
+    for name in ("_bwd_dq", "_bwd_dkv"):
+        def spy(*args, _real=getattr(fa, name)):
+            seen.append(args[8])  # lens, after the 8 tensors
+            return _real(*args)
+        monkeypatch.setattr(fa, name, spy)
+    s_k = S if causal else S // 2
+    seg, want_q = _length_segments(S)
+    kv_seg, want_k = _length_segments(s_k)
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.tensor(rng.randn(3, n, H, D).astype(np.float32),
+                            requires_grad=True)
+               for n in (S, s_k, s_k))
+    out, lse = fa.flash_attention_with_lse(
+        q, k, v, segment_ids=torch.tensor(seg),
+        kv_segment_ids=None if causal else torch.tensor(kv_seg),
+        causal=causal)
+    (out.sum() + lse.sum()).backward()
+    assert len(seen) == 2
+    for q_len, k_len in seen:
+        assert q_len.dtype == k_len.dtype == torch.int32
+        assert q_len.tolist() == want_q and k_len.tolist() == want_k
+        assert torch.equal(q_len, fa._valid_len(torch.tensor(seg)))
+        assert torch.equal(k_len, fa._valid_len(torch.tensor(kv_seg)))
+    assert seen[0][0] is seen[1][0] and seen[0][1] is seen[1][1]
