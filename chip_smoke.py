@@ -10,8 +10,9 @@ calls and fails (non-zero exit) if any phase fails:
                shapes, timing kernel, plain version and a PyTorch yardstick:
                the paged decode step (B4), and the flash-attention forward,
                dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
-               GQA, f32, ragged (s 1000) and non-causal rectangular (SDPA's
-               forward, and its backward alone);
+               GQA, f32, ragged (s 1000) and non-causal rectangular, and at
+               GPT-2-small's width split into head widths 32 and 128 (SDPA's
+               forward, and its backward alone, timed at each width);
 3. serve    — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
                weights, page_size 128, decode_horizon 1) serves mixed
                requests, once with a bf16 pool and once with an int8 pool;
@@ -24,6 +25,8 @@ calls and fails (non-zero exit) if any phase fails:
                the loss falling and B1, B2 and B3 each launched 12 times a
                step; a remat step (24 B1 launches), a packed step, step 1
                against the dense attention route, and a profiled window;
+               then step 1 at ``examples/transformer/train_lm.py``'s
+               geometry (head width 32) against the dense route;
 5. resnet   — the fused ResNet bottleneck: B5 (1x1 conv + statistics, with
                and without the bn+relu prologue) and B6 (3x3 conv +
                statistics) against their plain versions at the JAX test
@@ -335,16 +338,16 @@ SEGMENTS = {"none": lambda b, s: np.ones((b, s), np.int32),
 
 
 def flash_case(torch, fa, seed, b, s, h, h_kv, dtype, segments, s_k=None,
-               causal=True):
+               causal=True, d=64):
     """Head-major operands of one attention call on the card, with its
     segment ids and the lengths the kernels take."""
     s_k = s_k or s
     g = torch.Generator().manual_seed(seed)
     dev = lambda t: t.to(dtype).cuda()  # noqa: E731
-    c = dict(q=dev(torch.randn(b, h, s, 64, generator=g)),
-             k=dev(torch.randn(b, h_kv, s_k, 64, generator=g)),
-             v=dev(torch.randn(b, h_kv, s_k, 64, generator=g)),
-             do=dev(torch.randn(b, h, s, 64, generator=g)), causal=causal)
+    c = dict(q=dev(torch.randn(b, h, s, d, generator=g)),
+             k=dev(torch.randn(b, h_kv, s_k, d, generator=g)),
+             v=dev(torch.randn(b, h_kv, s_k, d, generator=g)),
+             do=dev(torch.randn(b, h, s, d, generator=g)), causal=causal)
     c["q_seg"] = torch.as_tensor(SEGMENTS[segments](b, s)).cuda()
     c["k_seg"] = (c["q_seg"] if s_k == s else
                   torch.as_tensor(SEGMENTS[segments](b, s_k)).cuda())
@@ -438,8 +441,11 @@ def sdpa_yardsticks(torch, c):
     return fwd, bwd
 
 
-# name: (dtype kind, flash_case arguments). The last two reach the partial
-# last tile and the masked-tile path, and the non-causal schedule.
+# name: (dtype kind, flash_case arguments). "ragged" and "full" reach the
+# partial last tile and the masked-tile path, and the non-causal schedule;
+# the last six split GPT-2-small's width 768 into heads of 32 and 128, the
+# kernels' other instances ("main_d32" and "main_d128" are timed beside
+# "main").
 FLASH_CASES = [
     ("main", "bf16", dict(b=8, s=1024, h=12, h_kv=12, segments="none")),
     ("packed", "bf16", dict(b=8, s=1024, h=12, h_kv=12, segments="packed")),
@@ -448,12 +454,30 @@ FLASH_CASES = [
     ("ragged", "bf16", dict(b=8, s=1000, h=12, h_kv=12, segments="ragged")),
     ("full", "bf16", dict(b=8, s=1024, s_k=768, h=12, h_kv=12,
                           segments="none", causal=False)),
+    ("main_d32", "bf16", dict(b=8, s=1024, h=24, h_kv=24, segments="none",
+                              d=32)),
+    ("main_d128", "bf16", dict(b=8, s=1024, h=6, h_kv=6, segments="none",
+                               d=128)),
+    ("d32", "bf16", dict(b=8, s=1024, h=24, h_kv=24, segments="packed",
+                         d=32)),
+    ("d128", "bf16", dict(b=8, s=1024, h=6, h_kv=6, segments="packed",
+                          d=128)),
+    ("d128gqa", "bf16", dict(b=8, s=1024, h=6, h_kv=2, segments="packed",
+                             d=128)),
+    ("d128f32", "f32", dict(b=4, s=1024, h=6, h_kv=6, segments="packed",
+                            d=128)),
+    ("d32f32", "f32", dict(b=4, s=1024, h=24, h_kv=24, segments="packed",
+                           d=32)),
 ]
+# The cases timed in flash_timings, by head width.
+FLASH_TIMED = {64: "main", 32: "main_d32", 128: "main_d128"}
 
 
 def flash_phase(torch, fa):
+    """Every case of FLASH_CASES against the plain versions; returns the
+    largest error of each kernel and the timed cases ({d: case})."""
     errs = {name: 0.0 for name in fa.launches}
-    main = None
+    timed = {}
     for i, (case, kind, kw) in enumerate(FLASH_CASES):
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
         c = flash_case(torch, fa, 100 + i, dtype=dtype, **kw)
@@ -495,39 +519,48 @@ def flash_phase(torch, fa):
                             name, case, differing, label,
                             BF16_MAX_DIFFERING))
                 errs[name] = max(errs[name], err)
-        log("kernel flash {:6s} {:4s} b{} s{}x{} h{}/{}{}: {}".format(
+        log("kernel flash {:9s} {:4s} b{} s{}x{} h{}/{} d{}{}: {}".format(
             case, kind, kw["b"], kw["s"], kw.get("s_k", kw["s"]), kw["h"],
-            kw["h_kv"], "" if c["causal"] else " full", ", ".join(parts)))
-        if case == "main":
-            main = c
-    return errs, main
+            kw["h_kv"], kw.get("d", 64), "" if c["causal"] else " full",
+            ", ".join(parts)))
+        timed.update({d: c for d, name in FLASH_TIMED.items()
+                      if name == case})
+    return errs, timed
 
 
-def flash_timings(torch, fa, device_info, errs, main):
+def flash_timings(torch, fa, device_info, errs, timed):
     """Kernel (device), call, plain and SDPA (device) times of B1-B3 at
-    the main case, beside their bound."""
+    the timed cases (b8 s1024 bf16 causal at head width 32, 64 and 128),
+    beside their bound; returns the main case's (d = 64)."""
     peak_bw = device_info.peak_bandwidth()
     timings = {}
-    sdpa_fwd, sdpa_bwd = sdpa_yardsticks(torch, main)
-    lib = {"flash_fwd": device_ms(torch, sdpa_fwd)}
-    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = device_ms(torch, sdpa_bwd)
-    launch = flash_calls(fa, main, "launch")
-    kernels = flash_calls(fa, main, "kernel")
-    plains = flash_calls(fa, main, "plain")
-    for name in fa.launches:
-        ms = device_ms(torch, launch[name])
-        call_ms = time_cold(torch, kernels[name])
-        plain_ms = time_cold(torch, plains[name], reps=5)
-        bound_ms, bound_by = flash_bound_ms(torch, main, name, peak_bw,
-                                            device_info.peak_ops)
-        timings[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                             library_ms=lib[name], bound_ms=bound_ms,
-                             bound_by=bound_by, max_abs_err=errs[name])
-        log("time   {:13s} main bf16 kernel {:.4f} ms (call {:.4f})  plain "
-            "{:.4f} ms  sdpa {} {:.4f} ms  bound {:.4f} ms ({})".format(
-                name, ms, call_ms, plain_ms,
-                "fwd" if name == "flash_fwd" else "bwd (dq+dk+dv)", lib[name],
-                bound_ms, bound_by))
+    for d in sorted(timed, key=lambda d: d != 64):
+        c = timed[d]
+        sdpa_fwd, sdpa_bwd = sdpa_yardsticks(torch, c)
+        lib = {"flash_fwd": device_ms(torch, sdpa_fwd)}
+        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = device_ms(torch,
+                                                               sdpa_bwd)
+        launch = flash_calls(fa, c, "launch")
+        kernels = flash_calls(fa, c, "kernel")
+        plains = flash_calls(fa, c, "plain")
+        for name in fa.launches:
+            ms = device_ms(torch, launch[name])
+            call_ms = time_cold(torch, kernels[name])
+            plain_ms = time_cold(torch, plains[name], reps=5)
+            bound_ms, bound_by = flash_bound_ms(torch, c, name, peak_bw,
+                                                device_info.peak_ops)
+            if d == 64:
+                timings[name] = dict(ms=ms, call_ms=call_ms,
+                                     plain_ms=plain_ms, library_ms=lib[name],
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     max_abs_err=errs[name])
+            log("time   {:13s} {:9s} h{} d{} bf16 kernel {:.4f} ms (call "
+                "{:.4f})  plain {:.4f} ms  sdpa {} {:.4f} ms  bound {:.4f} "
+                "ms ({})".format(
+                    name, FLASH_TIMED[d], c["q"].shape[1], d, ms, call_ms,
+                    plain_ms,
+                    "fwd" if name == "flash_fwd" else "bwd (dq+dk+dv)",
+                    lib[name], bound_ms, bound_by))
     return timings
 
 
@@ -663,6 +696,14 @@ def profile_decode(torch, model, variables, steps=10):
 GRAD_NORM_PARAMS = ("embed.embedding", "block_0.attn.qkv.kernel",
                     "block_5.mlp.up.kernel", "block_11.attn.out.kernel",
                     "ln_f.scale")
+# ``examples/transformer/train_lm.py``'s model (its defaults: vocab 512, 4
+# layers, 8 heads of width 32, embed 256, MLP 512) at the training phase's
+# b8 x s1024; the parameters whose gradient norms step 1 compares.
+TRAIN_LM = dict(vocab_size=512, num_layers=4, num_heads=8, embed_dim=256,
+                mlp_dim=512, max_seq_len=1024, remat=False)
+TRAIN_LM_NORM_PARAMS = ("embed.embedding", "block_0.attn.qkv.kernel",
+                        "block_2.mlp.up.kernel", "block_3.attn.out.kernel",
+                        "ln_f.scale")
 
 
 def lm_batch(batch, seq, vocab, packed=False):
@@ -676,9 +717,8 @@ def lm_batch(batch, seq, vocab, packed=False):
     return b
 
 
-def grad_norms(state):
-    return {n: float(state.params[n].grad.float().norm())
-            for n in GRAD_NORM_PARAMS}
+def grad_norms(state, names=GRAD_NORM_PARAMS):
+    return {n: float(state.params[n].grad.float().norm()) for n in names}
 
 
 def train_step_counted(torch, fa, tr, state, batch):
@@ -744,28 +784,8 @@ def training_phase(torch, fa, pa, card):
 
     profile_train_step(torch, tr, state, batch)
 
-    # Step 1 again through the dense route on the same weights and batch.
-    dense = factory.get_model("transformer", dtype=torch.bfloat16,
-                              device="cuda", seed=0,
-                              **dict(kw, attention_impl="dense"))
-    dense.load_state_dict(initial)
-    dtr = Trainer(dense, optimizer=trainer.adamw(3e-4), device="cuda")
-    dstate, dloss, dcounts, _ = train_step_counted(torch, fa, dtr,
-                                                   dtr.init(), batch)
-    dnorms = grad_norms(dstate)
-    if any(dcounts.values()):
-        raise AssertionError("the dense route launched {}".format(dcounts))
-    rel = abs(losses[0] - dloss) / abs(dloss)
-    norm_rel = {n: abs(norms[n] - dnorms[n]) / dnorms[n] for n in norms}
-    log("train  step 1 flash vs dense: loss {:.6f} vs {:.6f} (rel {:.2e}, "
-        "limit {:g}); grad-norm rel diffs {} (limit {:g})".format(
-            losses[0], dloss, rel, TRAIN_LOSS_RTOL,
-            {n: "{:.2e}".format(v) for n, v in norm_rel.items()},
-            TRAIN_GRAD_NORM_RTOL))
-    if not rel <= TRAIN_LOSS_RTOL or not all(
-            v <= TRAIN_GRAD_NORM_RTOL for v in norm_rel.values()):
-        raise AssertionError("flash and dense step 1 disagree")
-    del dense, dtr, dstate
+    dense_step1(torch, fa, kw, initial, batch, losses[0], norms,
+                GRAD_NORM_PARAMS, "GPT-2-small")
 
     # Full-block remat: each block's forward runs again in the backward.
     rtr = Trainer(model, optimizer=trainer.adamw(3e-4), remat=True,
@@ -779,7 +799,67 @@ def training_phase(torch, fa, pa, card):
     log("train  remat step: loss {:.4f} launches {}".format(loss, counts))
     del model, tr, rtr, state
     torch.cuda.empty_cache()
+    train_lm_step1(torch, fa)
     return launches
+
+
+def dense_step1(torch, fa, kw, initial, batch, loss, norms, names, label):
+    """Step 1 through the dense attention route from the flash step's
+    initial weights on its batch, against the flash step's loss and
+    gradient norms (of ``names``)."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    dense = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0,
+                              **dict(kw, attention_impl="dense"))
+    dense.load_state_dict(initial)
+    dtr = Trainer(dense, optimizer=trainer.adamw(3e-4), device="cuda")
+    dstate, dloss, dcounts, _ = train_step_counted(torch, fa, dtr,
+                                                   dtr.init(), batch)
+    dnorms = grad_norms(dstate, names)
+    if any(dcounts.values()):
+        raise AssertionError("the dense route launched {}".format(dcounts))
+    rel = abs(loss - dloss) / abs(dloss)
+    norm_rel = {n: abs(norms[n] - dnorms[n]) / dnorms[n] for n in norms}
+    log("train  {} step 1 flash vs dense: loss {:.6f} vs {:.6f} (rel "
+        "{:.2e}, limit {:g}); grad-norm rel diffs {} (limit {:g})".format(
+            label, loss, dloss, rel, TRAIN_LOSS_RTOL,
+            {n: "{:.2e}".format(v) for n, v in norm_rel.items()},
+            TRAIN_GRAD_NORM_RTOL))
+    if not rel <= TRAIN_LOSS_RTOL or not all(
+            v <= TRAIN_GRAD_NORM_RTOL for v in norm_rel.values()):
+        raise AssertionError("{}: flash and dense step 1 disagree".format(
+            label))
+    del dense, dtr, dstate
+    torch.cuda.empty_cache()
+
+
+def train_lm_step1(torch, fa):
+    """Step 1 of ``examples/transformer/train_lm.py``'s model (head width
+    32) at b8 x s1024 bf16 through the flash route, each flash kernel
+    launched once a layer, against the dense route."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    kw = dict(TRAIN_LM, attention_impl="pallas")
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0, **kw)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tr = Trainer(model, optimizer=trainer.adamw(3e-4), device="cuda")
+    batch = lm_batch(8, 1024, TRAIN_LM["vocab_size"])
+    state, loss, counts, _ = train_step_counted(torch, fa, tr, tr.init(),
+                                                batch)
+    want = dict.fromkeys(fa.launches, TRAIN_LM["num_layers"])
+    if counts != want or not np.isfinite(loss):
+        raise AssertionError("train_lm step: loss {} launches {}, want "
+                             "{}".format(loss, counts, want))
+    log("train  train_lm geometry (d{}) b8 s1024 bf16 pallas: loss {:.4f} "
+        "launches {}".format(model.cfg.head_dim, loss, counts))
+    norms = grad_norms(state, TRAIN_LM_NORM_PARAMS)
+    del model, tr, state
+    dense_step1(torch, fa, kw, initial, batch, loss, norms,
+                TRAIN_LM_NORM_PARAMS, "train_lm d32")
 
 
 def profile_train_step(torch, tr, state, batch, steps=2,
@@ -1285,10 +1365,10 @@ def main():
         len(libs), "y" if len(libs) == 1 else "ies",
         time.perf_counter() - t0))
     max_err, timings = kernel_phase(torch, pa, device_info)
-    flash_errs, flash_main = flash_phase(torch, fa)
+    flash_errs, flash_timed = flash_phase(torch, fa)
     flash_times = flash_timings(torch, fa, device_info, flash_errs,
-                                flash_main)
-    del flash_main
+                                flash_timed)
+    del flash_timed
     fa.reset_launches()
     launches = main_phase(torch, pa)
     if any(fa.launches.values()):

@@ -23,10 +23,10 @@ Bound. At the training shapes (s 1024, d 64, bf16, causal) each call's
 least work sits near the H100's ridge point: 250-300 FLOP per byte moved
 against the card's 295, so the bytes bound B1 and B3 (whose f32 dK/dV
 writes double its output) and the bf16 tensor-core rate bounds B2 — some
-0.015-0.03 ms each. In bf16, B1 and B3 keep their products in registers
-(``mma.sync``) and stream tiles through a two-stage ``cp.async`` ring; B2
-and the f32 kernels still pass every product through a shared-memory tile
-behind a block-wide barrier (``csrc/flash_attention.cu`` says more).
+0.015-0.03 ms each. In bf16, all three keep their products in registers
+(``mma.sync``) and stream tiles through a two-stage ``cp.async`` ring; the
+f32 kernels stage tiles in shared memory and multiply with plain f32 FMAs
+(``csrc/flash_attention.cu`` says more).
 
 Lengths. Each kernel bounds its loops by ``q_len``/``k_len``, the tokens
 through each row's last non-padding one. One attention call computes them
@@ -56,11 +56,12 @@ to keys of its own nonzero segment.
 Routes. Each wrapper runs its plain version (``*_reference``, the same
 blockwise arithmetic in PyTorch) only for tensors that lie on the CPU; for
 CUDA tensors it launches its kernel or raises. The kernels tile 64 x 64
-and take ``head_dim`` 64 in f32 or bf16; the plain versions take any block
-sizes and head width. The plain versions walk every K (or Q) block under
-the masks, where the kernels skip blocks outside the causal and valid
-ranges: a fully masked block leaves ``m``, ``l`` and the accumulators
-exactly as they were, so both give the same values.
+and take ``head_dim`` 32, 64 or 128 (:data:`KERNEL_HEAD_DIMS`) in f32 or
+bf16; the plain versions take any block sizes and head width. The plain
+versions walk every K (or Q) block under the masks, where the kernels skip
+blocks outside the causal and valid ranges: a fully masked block leaves
+``m``, ``l`` and the accumulators exactly as they were, so both give the
+same values.
 """
 
 import ctypes
@@ -71,11 +72,11 @@ import torch
 
 _NEG_INF = -1e30
 
-# The kernels' tile: BLOCK query rows by BLOCK key rows, and the one head
-# width they are built for. The plain versions default to the same tile,
+# The kernels' tile: BLOCK query rows by BLOCK key rows, and the head
+# widths they are built for. The plain versions default to the same tile,
 # so on the same inputs both chunk the online softmax identically.
 BLOCK = 64
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (32, 64, 128)
 
 # Kernel launches since the last reset, per kernel — the counts a caller
 # reads to show that a path really went through the kernels.
@@ -263,9 +264,9 @@ def _check_kernel(name, tensors, float_tensors, seg_tensors, block_q,
     if q.dtype not in _DTYPE_CODES:
         raise ValueError("{} kernel takes f32 or bf16; got {}".format(
             name, q.dtype))
-    if q.shape[-1] != KERNEL_HEAD_DIM:
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError("{} kernel is built for head_dim {}; got {}".format(
-            name, KERNEL_HEAD_DIM, q.shape[-1]))
+            name, " or ".join(map(str, KERNEL_HEAD_DIMS)), q.shape[-1]))
     for blk in (block_q, block_k):
         if blk is not None and blk != BLOCK:
             raise ValueError("{} kernel tiles {} x {}; got block size "
@@ -293,14 +294,14 @@ def _check_kernel(name, tensors, float_tensors, seg_tensors, block_q,
 
 
 # Pointer arguments of each C entry point in ``csrc/flash_attention.cu``;
-# all three then take b, h, h_kv, s_q, s_k (int), scale (float), causal,
+# all three then take b, h, h_kv, s_q, s_k, d (int), scale (float), causal,
 # dtype (int) and the stream.
 _POINTERS = {"flash_fwd": 9, "flash_bwd_dq": 11, "flash_bwd_dkv": 12}
 
 
 def _argtypes(name):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return [vp] * _POINTERS[name] + [ci] * 5 + [ctypes.c_float, ci, ci, vp]
+    return [vp] * _POINTERS[name] + [ci] * 6 + [ctypes.c_float, ci, ci, vp]
 
 
 def _kernel_fn(name):
@@ -314,9 +315,9 @@ def _kernel_fn(name):
 
 
 def _dims(q, k, causal):
-    b, h, s_q, _ = q.shape
-    return [b, h, k.shape[1], s_q, k.shape[2], _scale(q.shape[-1]),
-            int(causal), _DTYPE_CODES[q.dtype],
+    b, h, s_q, d = q.shape
+    return [b, h, k.shape[1], s_q, k.shape[2], d, _scale(d), int(causal),
+            _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream]
 
 

@@ -5,7 +5,9 @@ check runs in a fresh interpreter: import every module of
 ``tensorflowonspark_tpu_torch`` and ``chip_smoke``, then neither ``jax``
 nor ``tensorflowonspark_tpu`` (the exact name or a dotted child — the
 port's own name shares that prefix) may be loaded. A static scan of the
-sources backs it up for imports a run might not reach.
+sources (the package, ``chip_smoke.py`` and the port's
+``scripts/torch_flash_ab.py``) backs it up for imports a run might not
+reach.
 """
 
 import ast
@@ -62,7 +64,8 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def _sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_flash_ab.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

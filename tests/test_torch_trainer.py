@@ -6,9 +6,10 @@ the flash kernels' plain versions on the port's — from the same weights
 (the JAX trainer's init, converted by ``convert.params_from_flax``) on the
 same numpy batches: packed rows with a padded tail, the loss mask defaulted
 from ``segment_ids`` on both sides. The JAX trainer runs once per module
-under ``optax.adam(1e-3)`` with a pass-through stage before it that keeps
-each step's gradients, so one compiled step gives the losses, step 1's
-gradients and the weights.
+and model under ``optax.adam(1e-3)`` with a pass-through stage before it
+that keeps each step's gradients, so one compiled step gives the losses,
+step 1's gradients and the weights; a test that only starts from the
+initial weights takes them from the JAX trainer's ``init`` alone.
 
 Tolerances, each with its reading: losses agree to 1e-5 (measured at most
 9.5e-7); step-1 gradients to 1e-6 per element (measured 1.8e-7); the
@@ -18,6 +19,17 @@ magnifies the gradients' last-bit differences where a gradient is near
 zero). ``grad_accum=2`` against one full batch: 5e-7 (measured: loss
 equal, gradients 1.2e-7); ``remat`` recomputes the same values (measured
 bitwise).
+
+The same holds for GQA (4/2) on the flash and dense routes and for head
+width 32 (measured: losses 0, 0 and 1.7e-6; step-1 gradients 1.7e-7,
+1.9e-7 and 4.8e-7; parameters 1.8e-6, 9.2e-7 and, away from the next
+case, at most 4.8e-6). Where step 1's gradient is within Adam's eps
+(1e-8) of zero, Adam's first update lr g / (|g| + eps) reads a gradient
+difference of a few 1e-9 as one of order lr: at head width 32 one
+V-projection element (gradient 3.5e-9 against JAX's 7.4e-9; 0.016% of
+that kernel's gradients lie below 1e-7) ends 1.6e-4 apart. Elements whose
+step-1 gradient lies below 1e-7 are held to 3 lr, the most three updates
+can move a parameter apart.
 """
 
 import inspect
@@ -45,11 +57,24 @@ from tensorflowonspark_tpu_torch.train import (
 
 LM_KW = dict(vocab_size=64, num_layers=2, num_heads=4, embed_dim=32,
              mlp_dim=64, max_seq_len=128, remat=False)
+# Attention layouts on top of LM_KW: the MHA model every test below uses,
+# GQA (4 query heads over 2 K/V heads) on the flash and dense routes, and
+# head width 32 (2 heads of an embed 64), which the port's kernels build.
+VARIANTS = {
+    "mha": {},
+    "gqa_pallas": dict(num_kv_heads=2),
+    "gqa_dense": dict(num_kv_heads=2, attention_impl="dense"),
+    "d32_pallas": dict(embed_dim=64, num_heads=2),
+}
 B, S = 4, 32
 TOL = 1e-5
 GRAD_TOL = 1e-6
 LOGIT_TOL = 2e-6
-_JAX = {}
+ADAM_LR = 1e-3
+ADAM_NEAR_EPS = 1e-7   # |step-1 gradient| within ~10 x Adam's eps of zero
+_JAX = {}        # variant -> _jax_run(variant)
+_JAX_INIT = {}   # variant -> _jax_init(variant), where no run was made
+_JAX_EVAL = []   # _jax_eval()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -75,9 +100,9 @@ def _batch(seed=0, packed=True):
     return batch
 
 
-def _jax_trainer(optimizer):
+def _jax_trainer(optimizer, **kw):
     jm = jax_factory.get_model("transformer", dtype=jnp.float32,
-                               attention_impl="pallas", **LM_KW)
+                               **{**LM_KW, "attention_impl": "pallas", **kw})
     # donate=False: the initial state is reused after the first step.
     return JaxTrainer(jm, optimizer=optimizer, donate=False,
                       mesh=MeshConfig(data=1).build(jax.devices()[:1]))
@@ -96,56 +121,75 @@ def _numpy(tree):
     return _flat_jax(jax.device_get(nn.meta.unbox(tree)))
 
 
-def _jax_run():
-    """Three steps of the JAX trainer under ``optax.adam(1e-3)`` on the
-    packed batch, which carries no mask (the trainer defaults it from the
-    segments): the initial params, each step's loss, step 1's gradients
-    and the final params; then one forward from the initial params — the
-    packed batch's loss and logits, and the logits of its tokens without
-    segments. Computed once."""
-    if not _JAX:
-        tr = _jax_trainer(optax.chain(_capture_grads(), optax.adam(1e-3)))
+def _jax_run(variant="mha"):
+    """Three steps of the JAX trainer on the ``variant`` model under
+    ``optax.adam(1e-3)`` on the packed batch, which carries no mask (the
+    trainer defaults it from the segments): the initial params, each step's
+    loss, step 1's gradients and the final params. Computed once per
+    variant."""
+    if variant not in _JAX:
+        run = {}
+        tr = _jax_trainer(optax.chain(_capture_grads(), optax.adam(1e-3)),
+                          **VARIANTS[variant])
         state = tr.init(jax.random.PRNGKey(0), _batch())
-        _JAX["params0"] = jax.device_get(nn.meta.unbox(state.params))
-        _JAX["losses"] = []
+        run["params0"] = jax.device_get(nn.meta.unbox(state.params))
+        run["losses"] = []
         for step in range(3):
             state, m = tr.train_step(state, _batch())
-            _JAX["losses"].append(float(m["loss"]))
+            run["losses"].append(float(m["loss"]))
             if step == 0:
-                _JAX["grads1"] = _numpy(state.opt_state[0])
-        _JAX["params3"] = _numpy(state.params)
+                run["grads1"] = _numpy(state.opt_state[0])
+        run["params3"] = _numpy(state.params)
+        _JAX[variant] = run
+    return _JAX[variant]
+
+
+def _jax_init(variant="mha"):
+    """The JAX trainer's initial params (unboxed numpy), once per variant:
+    those of ``_jax_run`` where it has run, else from ``init`` alone, so a
+    test that only starts from them does not pay for the JAX steps."""
+    if variant in _JAX:
+        return _JAX[variant]["params0"]
+    if variant not in _JAX_INIT:
+        tr = _jax_trainer(optax.adam(1e-3), **VARIANTS[variant])
+        state = tr.init(jax.random.PRNGKey(0), _batch())
+        _JAX_INIT[variant] = jax.device_get(nn.meta.unbox(state.params))
+    return _JAX_INIT[variant]
+
+
+def _jax_eval():
+    """One forward of the JAX MHA model from the initial params: the packed
+    batch's loss and logits, and the logits of its tokens without segments.
+    Computed once."""
+    if not _JAX_EVAL:
+        model = _jax_trainer(optax.adam(1e-3)).model
         b = _batch()
         mask = jnp.asarray((b["segment_ids"] != 0).astype(np.float32))
 
         @jax.jit
         def forward(p):
-            logits = tr.model.apply({"params": p}, jnp.asarray(b["x"]),
-                                    segment_ids=jnp.asarray(
-                                        b["segment_ids"]))
+            logits = model.apply({"params": p}, jnp.asarray(b["x"]),
+                                 segment_ids=jnp.asarray(b["segment_ids"]))
             loss = jax_losses.softmax_cross_entropy(
                 logits, jnp.asarray(b["y"]), mask)
-            return loss, logits, tr.model.apply({"params": p},
-                                                jnp.asarray(b["x"]))
+            return loss, logits, model.apply({"params": p},
+                                             jnp.asarray(b["x"]))
 
-        _JAX["eval"] = [np.asarray(x) for x in forward(_JAX["params0"])]
-    return _JAX
-
-
-def _jax_init():
-    """The JAX trainer's initial params (unboxed numpy)."""
-    return _jax_run()["params0"]
+        _JAX_EVAL.extend(np.asarray(x) for x in forward(_jax_init()))
+    return _JAX_EVAL
 
 
 def _port_model(**kw):
     return factory.get_model("transformer", device="cpu",
-                             dtype=torch.float32, attention_impl="pallas",
-                             **dict(LM_KW, **kw))
+                             dtype=torch.float32,
+                             **{**LM_KW, "attention_impl": "pallas", **kw})
 
 
-def _port_trainer(optimizer=None, **kw):
-    model = _port_model()
+def _port_trainer(optimizer=None, variant="mha", **kw):
+    model = _port_model(**VARIANTS[variant])
     tr = Trainer(model, optimizer=optimizer, device="cpu", **kw)
-    state = tr.init(params=convert.params_from_flax(_jax_init(), model.cfg))
+    state = tr.init(params=convert.params_from_flax(_jax_init(variant),
+                                                    model.cfg))
     return tr, state
 
 
@@ -190,6 +234,37 @@ def test_three_adam_steps_match_jax_trainer():
     for name, p in state.params.items():
         np.testing.assert_allclose(p.detach().numpy(), want_params[name],
                                    rtol=0, atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("variant", ["gqa_pallas", "gqa_dense",
+                                     "d32_pallas"])
+def test_three_adam_steps_match_jax_across_attention_layouts(variant):
+    """GQA 4/2 on the flash and the dense route, and head width 32 on the
+    flash route: step 1's gradients, the three steps' losses and the final
+    weights against the JAX ``Trainer`` on the same model, to the MHA
+    trajectory's tolerances."""
+    run = _jax_run(variant)
+    tr, state = _port_trainer(variant=variant)
+    assert (state.params.keys() == run["grads1"].keys()
+            == run["params3"].keys())
+    losses = []
+    for step in range(3):
+        state, m = tr.train_step(state, _batch())
+        losses.append(float(m["loss"]))
+        if step == 0:
+            for name, p in state.params.items():
+                np.testing.assert_allclose(p.grad.numpy(),
+                                           run["grads1"][name], rtol=0,
+                                           atol=GRAD_TOL, err_msg=name)
+    np.testing.assert_allclose(losses, run["losses"], rtol=0, atol=TOL)
+    for name, p in state.params.items():
+        # Where step 1's gradient lies within Adam's eps of zero, the first
+        # update lr g / (|g| + eps) turns a gradient difference far below
+        # GRAD_TOL into one of up to lr: those elements are held to 3 lr.
+        near_eps = np.abs(run["grads1"][name]) < ADAM_NEAR_EPS
+        err = np.abs(p.detach().numpy() - run["params3"][name])
+        assert err[~near_eps].max(initial=0.0) <= TOL, name
+        assert err[near_eps].max(initial=0.0) <= 3 * ADAM_LR, name
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw"])
@@ -284,7 +359,7 @@ def test_eval_step_and_predict_match_jax():
     """``eval_step`` (loss with the defaulted mask, and logits) and
     ``predict`` (logits of the inputs alone) from the initial weights,
     against the JAX model's forward on the same batch."""
-    want_loss, want_logits, want_plain = _jax_run()["eval"]
+    want_loss, want_logits, want_plain = _jax_eval()
     tr, state = _port_trainer()
     out = tr.eval_step(state, _batch())
     assert abs(float(out["loss"]) - float(want_loss)) <= TOL
