@@ -8,7 +8,12 @@ calls and fails (non-zero exit) if any phase fails:
                csrc`` and holds each against its plain PyTorch version on
                the card, at the repo's bench shapes and the main path's
                shapes, timing kernel, plain version and a PyTorch yardstick:
-               the paged decode step (B4), and the flash-attention forward,
+               the paged decode step (B4: the bench and main shapes as
+               f32, bf16, int8, int8_bf16 and GQA f32; GQA and MQA bf16,
+               head widths 32 and 128, edge rows, one long row, a wide
+               table, d = 8 int8 and token-tiled f32 pages; every case
+               called twice and held bitwise equal to itself), and the
+               flash-attention forward,
                dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
                GQA, f32, ragged (s 1000) and non-causal rectangular, and at
                GPT-2-small's width split into head widths 32 and 128 (SDPA's
@@ -18,7 +23,7 @@ calls and fails (non-zero exit) if any phase fails:
                requests, once with a bf16 pool and once with an int8 pool;
                every decode step of every layer must launch B4; then a
                profiler window over steady decode steps says where a step's
-               time goes;
+               time goes (device busy, kernels a step, B4's share);
 4. train    — ``Trainer.train_step`` at GPT-2-small width (``bench.py``'s
                ``_lm_trainer``: b8 x s1024, bf16 compute, f32 weights,
                ``attention_impl="pallas"``, AdamW 3e-4) takes 4 steps with
@@ -244,13 +249,70 @@ def sdpa_yardstick(torch, c):
     return run
 
 
+PAGED_BENCH = dict(h=12, h_kv=12, d=64, ps=64, tw=8,
+                   lens=[5, 60, 64, 130, 200, 300, 450, 511])
+PAGED_MAIN = dict(h=12, h_kv=12, d=64, ps=128, tw=8,
+                  lens=[96, 200, 333, 512, 640, 777, 900, 1023])
+# B4 cases beyond the five kinds at the bench and main shapes: (name, kind,
+# dtype name, quant, shape). GQA and MQA; head widths 32 and 128, where
+# scale is no power of two and a fused multiply-subtract would round once
+# instead of twice; edge rows (empty but for the new token, one short of a
+# page, a page, one past it, the whole table); one long row alone; a wide
+# table whose rows use few of its slots; d = 8 int8 (rows of 8 bytes: the
+# element path); f32 pages of 256 tokens at d = 128, walked in token tiles.
+PAGED_EXTRA = [
+    ("main", "gqa_bf16", "bfloat16", False, dict(PAGED_MAIN, h_kv=4)),
+    ("main", "mqa_bf16", "bfloat16", False, dict(PAGED_MAIN, h_kv=1)),
+    ("main_d128", "bf16", "bfloat16", False,
+     dict(PAGED_MAIN, h=6, h_kv=6, d=128)),
+    ("main_d32", "bf16", "bfloat16", False,
+     dict(PAGED_MAIN, h=24, h_kv=24, d=32)),
+    ("edges", "bf16", "bfloat16", False,
+     dict(PAGED_MAIN, lens=[0, 127, 128, 129, 8 * 128 - 1])),
+    ("edges", "int8_bf16", "bfloat16", True,
+     dict(PAGED_MAIN, lens=[0, 127, 128, 129, 8 * 128 - 1])),
+    ("one_row", "bf16", "bfloat16", False, dict(PAGED_MAIN, lens=[1023])),
+    ("tw16", "bf16", "bfloat16", False,
+     dict(PAGED_BENCH, tw=16, lens=[3, 64, 200, 700, 1023, 130])),
+    ("toy_d8", "int8", "float32", True,
+     dict(h=4, h_kv=4, d=8, ps=16, tw=8, lens=[0, 15, 16, 40, 127])),
+    ("tiled", "f32", "float32", False,
+     dict(h=4, h_kv=2, d=128, ps=256, tw=4, lens=[5, 255, 256, 700])),
+]
+
+
+def paged_check(torch, pa, shape_name, kind, c):
+    """B4 against its plain version on case ``c``: the largest difference
+    within ``TOL``, in bf16 at most ``BF16_MAX_DIFFERING`` of the outputs
+    differing at all, and a second call bitwise equal to the first."""
+    got = call(pa.paged_attention, c)
+    again = call(pa.paged_attention, c)
+    torch.cuda.synchronize()
+    ref = call(pa.paged_attention_reference, c)
+    err = float((got.float() - ref.float()).abs().max())
+    differing = float((got != ref).float().mean())
+    tol = TOL[kind.split("_", 1)[1] if kind[:4] in ("gqa_", "mqa_")
+              else kind]
+    log("kernel paged_decode {:9s} {:10s} max_abs_err {:.3e} (tol {:g}) "
+        "differing {:.4f}".format(shape_name, kind, err, tol, differing))
+    if not err <= tol:
+        raise AssertionError("paged_decode {} {} disagrees with its plain "
+                             "version: {} > {}".format(shape_name, kind, err,
+                                                       tol))
+    if got.dtype == torch.bfloat16 and not differing <= BF16_MAX_DIFFERING:
+        raise AssertionError(
+            "paged_decode {} {}: {:.4f} of the bf16 outputs differ from the "
+            "plain version (limit {})".format(shape_name, kind, differing,
+                                              BF16_MAX_DIFFERING))
+    if not torch.equal(got, again):
+        raise AssertionError("paged_decode {} {}: two calls on the same "
+                             "operands differ".format(shape_name, kind))
+    return err
+
+
 def kernel_phase(torch, pa, device_info):
-    bench = dict(h=12, h_kv=12, d=64, ps=64, tw=8,
-                 lens=[5, 60, 64, 130, 200, 300, 450, 511])
-    main = dict(h=12, h_kv=12, d=64, ps=128, tw=8,
-                lens=[96, 200, 333, 512, 640, 777, 900, 1023])
     cases = []
-    for shape_name, shape in (("bench", bench), ("main", main)):
+    for shape_name, shape in (("bench", PAGED_BENCH), ("main", PAGED_MAIN)):
         for kind, dtype, quant, h_kv in (
                 ("f32", torch.float32, False, shape["h_kv"]),
                 ("bf16", torch.bfloat16, False, shape["h_kv"]),
@@ -260,33 +322,22 @@ def kernel_phase(torch, pa, device_info):
             kw = dict(shape, h_kv=h_kv)
             c = paged_case(torch, len(cases), dtype, quant, kw["h"], h_kv,
                            kw["d"], kw["ps"], kw["tw"], kw["lens"])
-            got = call(pa.paged_attention, c)
-            torch.cuda.synchronize()
-            ref = call(pa.paged_attention_reference, c)
-            err = float((got.float() - ref.float()).abs().max())
-            differing = float((got != ref).float().mean())
-            tol = TOL[kind.replace("gqa_", "")]
-            log("kernel paged_decode {:5s} {:10s} max_abs_err {:.3e} "
-                "(tol {:g}) differing {:.4f}".format(shape_name, kind, err,
-                                                     tol, differing))
-            if not err <= tol:
-                raise AssertionError("paged_decode {} {} disagrees with its "
-                                     "plain version: {} > {}".format(
-                                         shape_name, kind, err, tol))
-            if dtype == torch.bfloat16 and not (
-                    differing <= BF16_MAX_DIFFERING):
-                raise AssertionError(
-                    "paged_decode {} {}: {:.4f} of the bf16 outputs differ "
-                    "from the plain version (limit {})".format(
-                        shape_name, kind, differing, BF16_MAX_DIFFERING))
-            cases.append((shape_name, kind, c, err))
+            cases.append((shape_name, kind, c,
+                          paged_check(torch, pa, shape_name, kind, c)))
+    for shape_name, kind, dtype, quant, kw in PAGED_EXTRA:
+        c = paged_case(torch, len(cases), getattr(torch, dtype), quant,
+                       kw["h"], kw["h_kv"], kw["d"], kw["ps"], kw["tw"],
+                       kw["lens"])
+        cases.append((shape_name, kind, c,
+                      paged_check(torch, pa, shape_name, kind, c)))
     peak_bw = device_info.peak_bandwidth()
     if peak_bw is None:
         raise RuntimeError("no bandwidth figure for this card: {}".format(
             torch.cuda.get_device_name(0)))
     timings = {}
     for shape_name, kind, c, _ in cases:
-        if kind not in ("bf16", "int8_bf16"):
+        if (shape_name not in ("bench", "main")
+                or kind not in ("bf16", "int8_bf16")):
             continue
         kernel = lambda: call(pa.paged_attention, c)  # noqa: E731
         ms = device_ms(torch, kernel)
@@ -681,11 +732,14 @@ def profile_decode(torch, model, variables, steps=10):
     engine.close()
     by_name, count = device_kernels(prof)
     busy_ms = sum(by_name.values()) / steps
+    b4_ms = sum(ms for name, ms in by_name.items()
+                if "paged_decode" in name) / steps
     log("profile decode step (8 rows, bf16 pool): host {:.3f} ms/step "
         "unprofiled; profiled window {:.3f} ms/step, device busy {:.3f} "
-        "ms/step, idle share {:.3f}, {:.0f} device kernels/step".format(
+        "ms/step, idle share {:.3f}, {:.0f} device kernels/step; B4 "
+        "paged_decode {:.4f} ms/step ({:.1%} of device busy)".format(
             host_ms, window_ms, busy_ms, 1.0 - busy_ms / window_ms,
-            count / steps))
+            count / steps, b4_ms, b4_ms / busy_ms))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log("profile   {:7.4f} ms/step {:5.1%}  {}".format(
             ms / steps, ms / steps / busy_ms, name[:90]))

@@ -2,18 +2,26 @@
 
 ``paged_attention`` replaces the Pallas kernel ``_paged_decode_kernel``
 (``tensorflowonspark_tpu/ops/paged_attention.py:65``) with the hand-written
-CUDA kernel in ``csrc/paged_attention.cu``: one thread block per (row, KV
-head) walking that row's page table, int8 pages dequantized in registers,
-the online softmax updated once per page, the query heads of a GQA group
-sharing every K/V page read.
+CUDA kernel in ``csrc/paged_attention.cu``.
 
 Bound: the step reads the visible K/V pages (plus their f32 scales when the
 pool is int8), q and the table, and writes out — a few FLOPs per byte, so
 its least time is those bytes over the card's memory rate (3.35 TB/s on an
-H100 SXM). The design reads each visible page once per KV head and never
-touches pages past a row's extent; it keeps one page in flight per block,
-which is what later work on this kernel has to change to approach the
-bound.
+H100 SXM), reached only with most SMs loading at once. The first design
+(one block per (row, KV head) walking the row's pages one after another,
+one page in flight, one warp a query head in the softmax) kept 96 blocks
+busy at 8 rows x 12 heads and ran at 5% of that rate.
+
+The kernel splits the walk across the card: one block per (row, KV head,
+page), every page's K and V loads in flight at once, the products spread
+over all warps. It keeps the sequential walk's roundings: each block takes
+the running max m_c as the max over its own and the earlier pages' maxima
+(published in flagged words), computes its page's p, sum and rounded PV
+partial against m_c, and the last block of a (row, KV head) runs the walk's
+sequential combine. One kernel launch a call; the wrapper allocates one f32
+scratch (m_c, sums, PV partials) and keeps a zero-initialised state buffer
+per device and stream (ticket, counts, flags), which every call leaves
+zero.
 
 ``paged_attention_reference`` is the PyTorch rendition of the JAX
 package's ``_paged_cache_attention`` single-token walk (gather, dequantize,
@@ -32,6 +40,10 @@ _NEG_INF = -1e30
 # Kernel launches since the last reset — the count a caller reads to show
 # that a path really went through the kernel.
 launches = 0
+
+# The kernel's state words per (device index, stream): zero before a call
+# and after it (the kernel resets them); grown, never shrunk.
+_state = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -139,25 +151,48 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, page_size, k_scales,
             raise ValueError("pages must start on a 16-byte boundary")
     b, _, h, d = q.shape
     n_pages, ps, h_kv, _ = k_pages.shape
+    tw = page_table.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    scratch = torch.empty(b * h * tw * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    state = _state_words(q.device, stream, 2 * b * h_kv + b * h * tw)
     lib = _build.load_library("paged_attention")
     fn = lib.paged_decode
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
-        fn.restype = ci
+        fn.argtypes = _argtypes()
+        fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              k_scales.data_ptr() if quant else None,
              v_scales.data_ptr() if quant else None,
              page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             b, h, h_kv, d, ps, page_table.shape[1], n_pages, _scale(d),
-             _DTYPE_CODES[q.dtype], int(quant),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             scratch.data_ptr(), state.data_ptr(), b, h, h_kv, d, ps, tw,
+             n_pages, _scale(d), _DTYPE_CODES[q.dtype], int(quant), stream)
     if err:
         raise RuntimeError("paged_decode launch failed: CUDA error "
                            "{}".format(err))
     launches += 1
     return out
+
+
+def _argtypes():
+    """``paged_decode``'s C parameters: ten pointers (q, pages, scales,
+    table, lengths, out, scratch, state), seven ints, the scale, dtype and
+    quant codes, the stream."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return [vp] * 10 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
+
+
+def _state_words(device, stream, n):
+    """At least ``n`` zeroed 64-bit state words for launches on ``stream``
+    (a buffer is zeroed once, when it is made or grown)."""
+    key = (device.index, stream)
+    buf = _state.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 2 * buf.numel() if buf is not None else 0)
+        buf = _state[key] = torch.zeros(size, dtype=torch.int64,
+                                        device=device)
+    return buf
 
 
 def _kv_dequantize(q, scale, dtype):

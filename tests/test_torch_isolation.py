@@ -6,8 +6,8 @@ check runs in a fresh interpreter: import every module of
 nor ``tensorflowonspark_tpu`` (the exact name or a dotted child — the
 port's own name shares that prefix) may be loaded. A static scan of the
 sources (the package, ``chip_smoke.py`` and the port's
-``scripts/torch_flash_ab.py``) backs it up for imports a run might not
-reach.
+``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``) backs it
+up for imports a run might not reach.
 """
 
 import ast
@@ -65,7 +65,8 @@ def test_importing_every_port_module_loads_no_jax():
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "scripts", "torch_flash_ab.py")]
+             os.path.join(ROOT, "scripts", "torch_flash_ab.py"),
+             os.path.join(ROOT, "scripts", "torch_paged_ab.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
