@@ -35,9 +35,11 @@ calls and fails (non-zero exit) if any phase fails:
 5. resnet   — the fused ResNet bottleneck: B5 (1x1 conv + statistics, with
                and without the bn+relu prologue) and B6 (3x3 conv +
                statistics) against their plain versions at the JAX test
-               shape and ``scripts/block_bench.py``'s two b256 blocks, timed
-               beside their bound and their library renditions
-               (``torch.matmul``/``F.conv2d`` + sums); ``bottleneck_forward``
+               shape (bf16 and f32), ``scripts/block_bench.py``'s two b256
+               blocks, timed beside their bound and their library
+               renditions (``torch.matmul``/``F.conv2d`` + sums),
+               ResNet-50's stages 2 and 4 at b16 and a ragged block, every
+               call bitwise equal to a second one; ``bottleneck_forward``
                at both blocks (B5 twice and B6 once a call) against the
                port's ``BottleneckBlock`` in train mode, ``reference_forward``
                and each per-slot library swap; then ``bench.py``'s
@@ -965,6 +967,13 @@ BLOCKS = [("stage1", 56, 256, 64), ("stage3", 14, 1024, 256)]
 BLOCK_BATCH = 256
 SMALL_BLOCK = ("jax_test", 8, 32, 16)
 SMALL_BATCH = 4
+# Geometry-only bf16 cases, untimed (name, spatial, C, F, batch): ResNet-50's
+# stride-1 stages 2 and 4 at b16 (an image smaller than a strip, F above
+# 256, C = 2048), and a ragged block: strips of 8, 8, 8 and 6 rows, input
+# channels no multiple of a 64-channel chunk (96, 384), part-filled column
+# tiles, rows no multiple of a row tile.
+GEOMETRY_BLOCKS = [("stage2", 28, 512, 128, 16), ("stage4", 7, 2048, 512, 16),
+                   ("ragged", 30, 384, 96, 3)]
 # Fused-block kernels against their plain versions on the same inputs:
 # y (bf16) within one bf16 step (2^-7 of the value) plus FUSED_Y_ATOL, and
 # differing in at most BF16_MAX_DIFFERING of the values (read: one step, in
@@ -973,7 +982,9 @@ SMALL_BATCH = 4
 # products, the two orders differ by up to 1.4e-6 past the step, so the
 # absolute floor; the script prints that excess as "near-zero");
 # the f32 sums within FUSED_SUM_RTOL of their largest value (read 2.7e-6 at
-# the stage-3 block, 6.1e-7 at stage 1; NVIDIA H100 80GB HBM3, 700 W).
+# the stage-3 block, 6.1e-7 at stage 1; NVIDIA H100 80GB HBM3, 700 W). The
+# f32 kernels' y is held to TOL["f32"] instead (no bf16 step; f32 sums in
+# another order differ in most values' last bits, so no share is counted).
 FUSED_Y_RTOL = 2.0 ** -7
 FUSED_Y_ATOL = 1e-5
 FUSED_SUM_RTOL = 6e-6
@@ -984,19 +995,21 @@ BLOCK_TOL = 5e-2
 RESNET_BATCH = 256
 
 
-def block_inputs(torch, frb, spatial, c, f, batch, seed):
-    """One block's operands on the card: x, the parameters (He-normal
-    weights, non-identity norms), and the inputs each conv slot sees on
-    the main path, taken from the plain chain: K1 (x), K2 (y1 and bn1's
-    affine) and K3 (y2 and bn2's affine)."""
+def block_inputs(torch, frb, spatial, c, f, batch, seed,
+                 dtype=None):
+    """One block's operands on the card in ``dtype`` (bf16 by default): x,
+    the parameters (He-normal weights, non-identity norms), and the inputs
+    each conv slot sees on the main path, taken from the plain chain: K1
+    (x), K2 (y1 and bn1's affine) and K3 (y2 and bn2's affine)."""
+    dtype = torch.bfloat16 if dtype is None else dtype
     g = torch.Generator().manual_seed(seed)
-    params = frb.init_params(c, f, device="cuda", generator=g)
+    params = frb.init_params(c, f, dtype=dtype, device="cuda", generator=g)
     for i, width in (("1", f), ("2", f), ("3", c)):
         params["gamma" + i] = (1.0 + 0.2 * torch.randn(width, generator=g)
                                ).cuda()
         params["beta" + i] = (0.1 * torch.randn(width, generator=g)).cuda()
     x = (0.5 * torch.randn(batch, spatial, spatial, c, generator=g)).to(
-        torch.bfloat16).cuda()
+        dtype).cuda()
     n = batch * spatial * spatial
     y1, s1, q1 = frb.matmul_stats_reference(x.reshape(n, c), params["w1"])
     sc1, sh1, _, _ = frb._affine(s1, q1, n, params["gamma1"],
@@ -1044,18 +1057,23 @@ def fused_bound_ms(torch, slot, args, peak_bw, peak_ops):
 def fused_compare(torch, got, ref):
     """(y max abs err, y's largest error past one bf16 step, share of y
     values differing, sums' error over their largest value) of one kernel
-    call against its plain version; raises past the limits."""
+    call against its plain version; raises past the limits (an f32 y:
+    TOL["f32"])."""
     y, yr = got[0].float(), ref[0].float()
     err = (y - yr).abs()
     y_err = float(err.max())
     past_step = float((err - FUSED_Y_RTOL * yr.abs()).clamp_min(0.0).max())
     differing = float((got[0] != ref[0]).float().mean())
-    if not past_step <= FUSED_Y_ATOL:
+    if got[0].dtype == torch.float32:
+        if not y_err <= TOL["f32"]:
+            raise AssertionError("f32 y off the plain version by {} (limit "
+                                 "{})".format(y_err, TOL["f32"]))
+    elif not past_step <= FUSED_Y_ATOL:
         raise AssertionError("y more than one bf16 step from the plain "
                              "version: max abs err {}, {} past the step "
                              "(limit {})".format(y_err, past_step,
                                                  FUSED_Y_ATOL))
-    if not differing <= BF16_MAX_DIFFERING:
+    if got[0].dtype != torch.float32 and not differing <= BF16_MAX_DIFFERING:
         raise AssertionError("{:.4f} of y differ from the plain version "
                              "(limit {})".format(differing,
                                                  BF16_MAX_DIFFERING))
@@ -1069,30 +1087,41 @@ def fused_compare(torch, got, ref):
 
 def fused_kernel_phase(torch, frb, device_info):
     """(a) B5 (K1 without, K3 with the prologue) and B6 (K2) against their
-    plain versions at the JAX test shape and both full-width blocks; times
-    at the full-width blocks. Returns ({kernel: max y error}, {(block,
-    slot): timings})."""
+    plain versions, and each call against a second call on the same
+    operands (y and both sums bitwise): at the JAX test shape in bf16 and
+    f32, at both full-width blocks (timed) and at the geometry-only blocks.
+    Returns ({kernel: max y error}, {(block, slot): timings})."""
     peak_bw = device_info.peak_bandwidth()
     errs = {"matmul_stats": 0.0, "conv3x3_stats": 0.0}
     timings = {}
-    shapes = [(SMALL_BLOCK, SMALL_BATCH)] + [(b, BLOCK_BATCH)
-                                             for b in BLOCKS]
-    for i, ((name, spatial, c, f), batch) in enumerate(shapes):
-        case = block_inputs(torch, frb, spatial, c, f, batch, 300 + i)
+    shapes = [(SMALL_BLOCK, SMALL_BATCH, torch.bfloat16)]
+    shapes += [(b, BLOCK_BATCH, torch.bfloat16) for b in BLOCKS]
+    shapes += [(SMALL_BLOCK, SMALL_BATCH, torch.float32)]
+    shapes += [(b[:4], b[4], torch.bfloat16) for b in GEOMETRY_BLOCKS]
+    for i, ((name, spatial, c, f), batch, dtype) in enumerate(shapes):
+        case = block_inputs(torch, frb, spatial, c, f, batch, 300 + i,
+                            dtype=dtype)
+        kind = "f32" if dtype == torch.float32 else "bf16"
         for slot, args in case["slots"].items():
             kernel, plain, lib = fused_calls(frb, slot, args)
-            got = kernel()
+            got, again = kernel(), kernel()
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("{} {} {}: two calls on the same "
+                                     "operands differ".format(name, slot,
+                                                              kind))
             ref = plain()
             y_err, past_step, differing, sum_err = fused_compare(
                 torch, got, ref)
             kname = "conv3x3_stats" if slot == "K2" else "matmul_stats"
             errs[kname] = max(errs[kname], y_err)
-            log("kernel {:13s} {:8s} {} b{} {}x{} {}->{}: y max_abs_err "
+            log("kernel {:13s} {:8s} {} {} b{} {}x{} {}->{}: y max_abs_err "
                 "{:.3e} ({:.5f} differ, near-zero {:.3e}), sums rel err "
-                "{:.3e}".format(kname, name, slot, batch, spatial, spatial,
-                                args[0].shape[-1], args[1].shape[-1], y_err,
-                                differing, past_step, sum_err))
+                "{:.3e}, repeat equal".format(
+                    kname, name, slot, kind, batch, spatial, spatial,
+                    args[0].shape[-1], args[1].shape[-1], y_err, differing,
+                    past_step, sum_err))
+            del got, again, ref
             if batch != BLOCK_BATCH:
                 continue
             ms = device_ms(torch, kernel)

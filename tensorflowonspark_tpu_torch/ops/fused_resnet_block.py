@@ -34,8 +34,10 @@ explicitly padded tile in the JAX tap order) only for tensors that lie on
 the CPU; for CUDA tensors they launch the kernel or raise. The JAX
 arguments ``interpret``, ``block_rows`` and ``images_per_step`` are gone:
 they sized the TPU's VMEM tiles (``:157-165`` there) and chose its
-interpreter, and here the tensors' device picks the route and the kernels
-fix their own tiles.
+interpreter, and here the tensors' device picks the route. The launch
+plan (:func:`matmul_plan`, :func:`conv3x3_plan`: column tile, strips, grid
+and shared memory, sized by the card's SM count) is made here and checked
+by the kernels' C entry points, so the CPU tests hold the plan that runs.
 
 ``impls`` in :func:`bottleneck_forward` keeps the JAX values per conv slot:
 ``"pallas"`` is the hand-written kernel, ``"xla"`` the library rendition
@@ -52,7 +54,9 @@ Parameters keep the JAX layout: ``w1`` (C, F), ``w2`` (3, 3, F, F) HWIO,
 ``w3`` (F, C) in the activation dtype; ``gamma*``/``beta*`` f32.
 """
 
+import collections
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -67,14 +71,123 @@ EPS = 1e-5
 launches = {"matmul_stats": 0, "conv3x3_stats": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernels' tiles (64 pixels x 64 channels) and the blocks a launch aims
-# for: 8 per SM of the H100's 132, one resident wave. Each block walks a
-# fixed share of the row tiles and writes one row of partial statistics.
-_TILE = 64
-_TARGET_BLOCKS = 8 * 132
 # The C entry points' arguments in csrc/fused_resnet_block.cu: this many
 # pointers, then this many ints, then the stream.
-_SIGNATURES = {"matmul_stats": (9, 6), "conv3x3_stats": (9, 6)}
+_SIGNATURES = {"matmul_stats": (9, 8), "conv3x3_stats": (9, 10)}
+
+# The launch plan. The kernels' geometry (csrc/fused_resnet_block.cu): bf16
+# blocks of 256 threads (8 warps, one block an SM), 64-channel chunks staged
+# in rows of 72 elements, at most 227 KB of shared memory a block; the f32
+# parity kernel's 64 x 64 tiles, 8 blocks an SM. A block walks a fixed
+# share of the work items (row tiles, or groups of image strips) and writes
+# one row of partial statistics, so the grid is one wave of the card.
+_THREADS = 256
+_KC = 64
+_LDA = _KC + 8
+_SMEM_LIMIT = 232448
+_F32_TILE = 64
+_F32_BLOCKS_PER_SM = 8
+
+Plan = collections.namedtuple("Plan", [
+    "groups",            # blocks along the rows: grid (groups, col_tiles)
+    "block_n",           # output channels of a column tile
+    "col_tiles",
+    "items",             # row tiles (B5) or strip groups (B6)
+    "rows",              # output rows of a block: B5 row tile, B6 layout
+    "strip_rows",        # B6 (bf16): output rows of one image a strip
+    "strips_per_block",  # B6 (bf16): strips of one item
+    "smem",              # bf16: dynamic shared bytes (f32: 0)
+])
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _tile(block_n):
+    """(warp columns, warps along the rows, rows of a B5 item) of the bf16
+    kernel at column tile ``block_n``: 8 warps of 64 rows each."""
+    wn = 32 if block_n == 64 else 64
+    warps_m = 8 // (block_n // wn)
+    return wn, warps_m, 64 * warps_m
+
+
+def _smem_bf16(taps, block_n, a_rows, cin):
+    """Dynamic shared bytes of the bf16 kernel (``smem_bytes`` in the
+    source): A stages of ``a_rows`` rows, weight stages (all ``taps`` tiles
+    resident where one 64-channel chunk covers ``cin``), y staging, the
+    cross-warp sums, the row table and the copy masks."""
+    wn, warps_m, bm = _tile(block_n)
+    sa, sw = (3, 3) if taps == 1 else (2, 4)
+    if cin <= _KC:
+        sw = taps
+    return (sa * a_rows * _LDA * 2 + sw * _KC * (block_n + 8) * 2
+            + 8 * 16 * (wn + 8) * 2 + 2 * warps_m * block_n * 4 + bm * 4
+            + sa * _THREADS * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _f32_plan(n, fout, sm_count):
+    col_tiles = _cdiv(fout, _F32_TILE)
+    items = _cdiv(n, _F32_TILE)
+    groups = min(items, max(1, _cdiv(_F32_BLOCKS_PER_SM * sm_count,
+                                     col_tiles)))
+    return Plan(groups, _F32_TILE, col_tiles, items, _F32_TILE, 0, 0, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def matmul_plan(n, cin, fout, dtype, sm_count):
+    """B5's launch for ``(n, cin) . (cin, fout)`` on a card of ``sm_count``
+    SMs. bf16 column tiles are as wide as ``fout`` up to 256, so x is read
+    once per 256 output channels; row tiles of 256 (128 at 256 columns)."""
+    if dtype == torch.float32:
+        return _f32_plan(n, fout, sm_count)
+    block_n = 64 if fout <= 64 else 128 if fout <= 128 else 256
+    rows = _tile(block_n)[2]
+    col_tiles = _cdiv(fout, block_n)
+    items = _cdiv(n, rows)
+    groups = min(items, max(1, sm_count // col_tiles))
+    return Plan(groups, block_n, col_tiles, items, rows, 0, 0,
+                _smem_bf16(1, block_n, rows, cin))
+
+
+@functools.lru_cache(maxsize=256)
+def conv3x3_plan(b, h, w, f, dtype, sm_count):
+    """B6's launch for a (b, h, w, f) activation. bf16: a block's 256 rows
+    hold strips of ``strip_rows`` output rows of one image (several whole
+    images when one fits), as many as its halo tile — (rows + 2) x (w + 2)
+    pixels a strip, two chunk stages — leaves room for in 227 KB."""
+    if dtype == torch.float32:
+        return _f32_plan(b * h * w, f, sm_count)
+    block_n = 64 if f <= 64 else 128
+    rows = _tile(block_n)[2]
+    col_tiles = _cdiv(f, block_n)
+    strip_rows = min(h, rows // w)
+    while True:
+        if strip_rows < 1:
+            raise ValueError("conv3x3_stats kernel: images {} pixels wide "
+                             "do not fit its tiles".format(w))
+        spi = _cdiv(h, strip_rows)
+        strip_rows = _cdiv(h, spi)
+        per_block = min(rows // (strip_rows * w) if spi == 1 else 1, b * spi)
+        smem = lambda k: _smem_bf16(  # noqa: E731
+            9, block_n, k * (strip_rows + 2) * (w + 2), f)
+        while per_block > 1 and smem(per_block) > _SMEM_LIMIT:
+            per_block -= 1
+        if smem(per_block) <= _SMEM_LIMIT:
+            break
+        strip_rows -= 1
+    total = b * spi
+    items = _cdiv(total, per_block)
+    per_block = _cdiv(total, items)
+    groups = min(items, max(1, sm_count // col_tiles))
+    return Plan(groups, block_n, col_tiles, items,
+                per_block * strip_rows * w, strip_rows, per_block,
+                smem(per_block))
 
 
 def reset_launches():
@@ -143,11 +256,6 @@ def _kernel_fn(name):
     return fn
 
 
-def _groups(n_rows, f_out):
-    col_tiles = -(-f_out // _TILE)
-    return min(-(-n_rows // _TILE), max(1, -(-_TARGET_BLOCKS // col_tiles)))
-
-
 def _check_kernel(name, x, w, vectors):
     if x.device.type != "cuda":
         raise ValueError("{} runs on CPU tensors (plain version) or CUDA "
@@ -174,13 +282,13 @@ def _check_kernel(name, x, w, vectors):
                              "the input's device".format(name))
 
 
-def _outputs(x, n_rows, f_out, shape):
-    groups = _groups(n_rows, f_out)
+def _outputs(x, plan, f_out, shape):
     dev = x.device
     y = torch.empty(shape, dtype=x.dtype, device=dev)
-    parts = torch.empty((2, groups, f_out), dtype=torch.float32, device=dev)
+    parts = torch.empty((2, plan.groups, f_out), dtype=torch.float32,
+                        device=dev)
     stats = torch.empty((2, f_out), dtype=torch.float32, device=dev)
-    return groups, y, parts, stats
+    return y, parts, stats
 
 
 def _raise_on(name, err):
@@ -203,13 +311,14 @@ def _conv1x1_stats(x2d, w, scale=None, shift=None):
     vectors = [] if scale is None else [_row(scale, c), _row(shift, c)]
     _check_kernel("matmul_stats", x2d, w, vectors)
     f = w.shape[1]
-    groups, y, parts, stats = _outputs(x2d, n, f, (n, f))
+    plan = matmul_plan(n, c, f, x2d.dtype, _sm_count(x2d.device))
+    y, parts, stats = _outputs(x2d, plan, f, (n, f))
     ptr = lambda i: vectors[i].data_ptr() if vectors else None  # noqa: E731
     err = _kernel_fn("matmul_stats")(
         x2d.data_ptr(), w.data_ptr(), ptr(0), ptr(1), y.data_ptr(),
         parts[0].data_ptr(), parts[1].data_ptr(), stats[0].data_ptr(),
-        stats[1].data_ptr(), n, c, f, groups, int(bool(vectors)),
-        _DTYPE_CODES[x2d.dtype],
+        stats[1].data_ptr(), n, c, f, plan.groups, plan.block_n, plan.smem,
+        int(bool(vectors)), _DTYPE_CODES[x2d.dtype],
         torch.cuda.current_stream(x2d.device).cuda_stream)
     _raise_on("matmul_stats", err)
     launches["matmul_stats"] += 1
@@ -228,12 +337,14 @@ def _conv3x3_stats(x, w, scale, shift):
         return conv3x3_stats_reference(x, w, scale, shift)
     vectors = [_row(scale, f), _row(shift, f)]
     _check_kernel("conv3x3_stats", x, w, vectors)
-    groups, y, parts, stats = _outputs(x, b * h * w_sp, f, x.shape)
+    plan = conv3x3_plan(b, h, w_sp, f, x.dtype, _sm_count(x.device))
+    y, parts, stats = _outputs(x, plan, f, x.shape)
     err = _kernel_fn("conv3x3_stats")(
         x.data_ptr(), w.data_ptr(), vectors[0].data_ptr(),
         vectors[1].data_ptr(), y.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), b, h,
-        w_sp, f, groups, _DTYPE_CODES[x.dtype],
+        w_sp, f, plan.groups, plan.strip_rows, plan.strips_per_block,
+        plan.block_n, plan.smem, _DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on("conv3x3_stats", err)
     launches["conv3x3_stats"] += 1

@@ -18,6 +18,11 @@ Tolerances, each with its reading (largest over the cases):
   rounding in at most 1% of values (read 1.5e-8 on one value of 8192);
   the batch means and variances 4e-6 of their largest (read 6.4e-7);
 * the JAX tests' own 5e-2 where a test of theirs is ported.
+
+The launch-plan tests need no JAX: they hold the bf16 kernels' plans
+(``matmul_plan``, ``conv3x3_plan``) to covering every output once, keeping
+each halo inside its image and fitting a block's shared memory, through a
+model of the kernels' index arithmetic kept below.
 """
 
 import ctypes
@@ -364,3 +369,180 @@ def test_ctypes_signatures_match_the_cuda_source():
                    for p in params.split(",")), name
         assert frb._argtypes(name) == want, name
 
+
+
+# -- launch plan ---------------------------------------------------------------
+
+# (b, h, w, C, F): the JAX test shape, ResNet-50's stride-1 stages 1-4 at
+# b256, and a ragged shape (429 pixels, no multiple of a tile; F = 40, part
+# of a column tile).
+PLAN_SHAPES = {
+    "jax_test": (B, S, S, 32, F_),
+    "stage1": (256, 56, 56, 256, 64),
+    "stage2": (256, 28, 28, 512, 128),
+    "stage3": (256, 14, 14, 1024, 256),
+    "stage4": (256, 7, 7, 2048, 512),
+    "ragged": (3, 13, 11, 24, 40),
+}
+# H100 SXM and PCIe SM counts: the grid is one wave of whichever card.
+SM_COUNTS = (132, 114)
+
+
+def _block_items(plan, x):
+    """The items block row ``x`` walks, in order."""
+    return range(x, plan.items, plan.groups)
+
+
+# A model of the bf16 kernels' index arithmetic (csrc/fused_resnet_block.cu),
+# for the plan tests. ``item`` may be a column of items.
+
+
+def _strip_pixels(plan, b, h, w, item):
+    """B6: the output pixel of each of the 256 rows of ``item``, or -1
+    (``strip_pixel`` in the source)."""
+    m = torch.arange(256)
+    per = plan.strip_rows * w
+    g, rem = m // per, m % per
+    yy, xx = rem // w, rem % w
+    spi = frb._cdiv(h, plan.strip_rows)
+    st = item * plan.strips_per_block + g
+    img, y0 = st // spi, (st % spi) * plan.strip_rows
+    ok = (g < plan.strips_per_block) & (st < b * spi) & (y0 + yy < h)
+    return torch.where(ok, (img * h + y0 + yy) * w + xx, -1)
+
+
+def _halo_centres(plan, w):
+    """B6: the halo pixel each block row reads at the centre tap
+    (tap (dy, dx) reads it plus dy * (w + 2) + dx); rows past the layout
+    read a pixel whose nine taps stay in the tile."""
+    m = torch.arange(256)
+    per = plan.strip_rows * w
+    g, rem = m // per, m % per
+    yy, xx = rem // w, rem % w
+    base = (g * (plan.strip_rows + 2) + yy + 1) * (w + 2) + xx + 1
+    return torch.where(m < plan.rows, base, w + 3)
+
+
+def _halo_pixels(plan, b, h, w, item):
+    """B6: the source pixel of each halo pixel of ``item``, or -1
+    where the tile holds a zero (outside the image, or past the last
+    strip)."""
+    hr, hw = plan.strip_rows + 2, w + 2
+    hp = torch.arange(plan.strips_per_block * hr * hw)
+    g, rem = hp // (hr * hw), hp % (hr * hw)
+    hy, gx = rem // hw, rem % hw - 1
+    spi = frb._cdiv(h, plan.strip_rows)
+    st = item * plan.strips_per_block + g
+    img = st // spi
+    gy = (st % spi) * plan.strip_rows + hy - 1
+    ok = (st < b * spi) & (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+    return torch.where(ok, (img * h + gy) * w + gx, -1)
+
+
+def _covered_once(counts):
+    return bool((counts == 1).all())
+
+
+def _check_columns(plan, fout):
+    starts = torch.arange(plan.col_tiles) * plan.block_n
+    assert int(starts[-1]) < fout <= int(starts[-1]) + plan.block_n
+    cols = torch.cat([torch.arange(s, min(s + plan.block_n, fout))
+                      for s in starts.tolist()])
+    assert _covered_once(torch.bincount(cols, minlength=fout))
+
+
+def _walked_items(plan):
+    """Every item the grid's block rows walk, with repeats."""
+    return torch.tensor([i for x in range(plan.groups)
+                         for i in _block_items(plan, x)])
+
+
+@pytest.mark.watchdog_timeout(120)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_matmul_plan_covers_every_row_and_channel_once(shape, dtype):
+    """B5's plan (K1: C -> F, K3: F -> C) hands every row tile to exactly
+    one block row and every output channel to exactly one column tile,
+    stays in the shared memory of a block and launches one wave."""
+    b, h, w, c, f = PLAN_SHAPES[shape]
+    n = b * h * w
+    for sm in SM_COUNTS:
+        for cin, fout in ((c, f), (f, c)):
+            plan = frb.matmul_plan(n, cin, fout, dtype, sm)
+            items = _walked_items(plan)
+            assert _covered_once(torch.bincount(items,
+                                                minlength=plan.items))
+            rows = (items[:, None] * plan.rows
+                    + torch.arange(plan.rows)).reshape(-1)
+            assert _covered_once(torch.bincount(rows[rows < n], minlength=n))
+            assert int(rows.max()) >= n - 1
+            _check_columns(plan, fout)
+            if dtype == torch.bfloat16:
+                assert plan.block_n >= min(fout, 256)
+                assert plan.smem == frb._smem_bf16(1, plan.block_n,
+                                                   plan.rows, cin)
+                assert 0 < plan.smem <= frb._SMEM_LIMIT
+                assert plan.groups * plan.col_tiles <= sm
+            else:
+                assert plan.smem == 0 and plan.block_n == 64
+
+
+@pytest.mark.watchdog_timeout(120)
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_conv3x3_plan_covers_every_pixel_once_inside_its_image(shape):
+    """B6's bf16 plan: the strips of all items hold every output pixel
+    exactly once; each item's halo tile holds only pixels of its strips'
+    own images (zeros elsewhere), and every tap of every output pixel,
+    read at the tile offset the kernel reads, is that pixel's neighbour or
+    a zero where the neighbour is outside the image; the tile and its
+    stages stay in a block's shared memory."""
+    b, h, w, _, f = PLAN_SHAPES[shape]
+    n = b * h * w
+    for sm in SM_COUNTS:
+        plan = frb.conv3x3_plan(b, h, w, f, torch.bfloat16, sm)
+        halo_rows = plan.strips_per_block * (plan.strip_rows + 2) * (w + 2)
+        assert plan.rows == plan.strips_per_block * plan.strip_rows * w
+        assert plan.rows <= 256
+        assert plan.smem == frb._smem_bf16(9, plan.block_n, halo_rows, f)
+        assert plan.smem <= frb._SMEM_LIMIT
+        assert plan.groups * plan.col_tiles <= sm
+        _check_columns(plan, f)
+        items = _walked_items(plan)
+        assert _covered_once(torch.bincount(items, minlength=plan.items))
+        item = torch.arange(plan.items)[:, None]
+        pix = _strip_pixels(plan, b, h, w, item)
+        assert _covered_once(torch.bincount(pix[pix >= 0], minlength=n))
+        halo = _halo_pixels(plan, b, h, w, item)
+        assert halo.shape == (plan.items, halo_rows)
+        # Halo pixel -> the image of its strip.
+        hp = torch.arange(halo_rows)
+        strip = item * plan.strips_per_block + hp // (halo_rows
+                                                      // plan.strips_per_block)
+        img = strip // -(-h // plan.strip_rows)
+        inside = halo >= 0
+        assert bool((halo[inside] // (h * w) == img.expand_as(halo)[inside])
+                    .all())
+        centre = _halo_centres(plan, w)
+        valid = pix >= 0
+        yy, xx = (pix // w) % h, pix % w
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                got = halo[:, centre + dy * (w + 2) + dx]
+                ny, nx = yy + dy, xx + dx
+                want = torch.where((ny >= 0) & (ny < h) & (nx >= 0)
+                                   & (nx < w), pix + dy * w + dx, -1)
+                assert torch.equal(got[valid], want[valid]), (dy, dx)
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_conv3x3_plan_f32_and_limits():
+    """The f32 parity kernel's plan is its 64 x 64 tiles, 8 blocks an SM;
+    an image too wide for a strip of one row raises."""
+    for b, h, w, _, f in PLAN_SHAPES.values():
+        plan = frb.conv3x3_plan(b, h, w, f, torch.float32, 132)
+        assert plan.block_n == 64 and plan.smem == 0
+        assert plan.groups == min(-(-b * h * w // 64),
+                                  -(-8 * 132 // plan.col_tiles))
+    with pytest.raises(ValueError, match="wide"):
+        frb.conv3x3_plan(1, 4, 300, 64, torch.bfloat16, 132)

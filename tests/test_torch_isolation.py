@@ -65,6 +65,7 @@ def test_importing_every_port_module_loads_no_jax():
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_block_ab.py"),
              os.path.join(ROOT, "scripts", "torch_flash_ab.py"),
              os.path.join(ROOT, "scripts", "torch_paged_ab.py")]
     for dirpath, _, names in os.walk(PKG):
