@@ -32,6 +32,17 @@ calls and fails (non-zero exit) if any phase fails:
                against the dense attention route, and a profiled window;
                then step 1 at ``examples/transformer/train_lm.py``'s
                geometry (head width 32) against the dense route;
+   whole    — the main path whole at the same width: ``Trainer.fit`` over
+               CPU batches (``DevicePrefetch`` copies them; B1-B3 12 launches
+               each a step) with a checkpoint every 2 steps; step 4
+               committed and every retained manifest valid; step 5 of the
+               live trainer bitwise equal to that of a fresh trainer
+               restored from the checkpoint; ``restore_variables`` served
+               by a bf16 ``ServingEngine`` (B4 every decode step), its
+               greedy streams equal to the live weights' streams and to
+               solo decode (teacher-forced, near ties excepted); an async
+               save bitwise equal to its snapshot after two more steps;
+               step bytes, save/restore seconds and ``fit``'s step time;
 5. resnet   — the fused ResNet bottleneck: B5 (1x1 conv + statistics, with
                and without the bn+relu prologue) and B6 (3x3 conv +
                statistics) against their plain versions at the JAX test
@@ -856,7 +867,7 @@ def training_phase(torch, fa, pa, card):
     del model, tr, rtr, state
     torch.cuda.empty_cache()
     train_lm_step1(torch, fa)
-    return launches
+    return launches, step_ms
 
 
 def dense_step1(torch, fa, kw, initial, batch, loss, norms, names, label):
@@ -957,6 +968,390 @@ def profile_train_step(torch, tr, state, batch, steps=2,
     for name, ms in ops[:top_ops]:
         log("profile   op {:8.4f} ms/step {:5.1%}  {}".format(
             ms, ms / busy_ms, name))
+
+
+# -- the main path whole: fit, commit, restore, serve -------------------------
+
+# Greedy engine streams against solo ``generate`` in bf16: the engine's B4
+# walk and the solo path's dense cache attention round in other places, so
+# a token may differ where solo's top two logits lie within this many bf16
+# steps (of the larger) of each other; that stream's comparison stops there.
+BF16_NEAR_TIE_ULPS = 4
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at ``x`` (8 significand bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _moments(state):
+    return state.optimizer.state_dict()["state"]
+
+
+def _equal(x, y):
+    """``torch.equal`` across devices."""
+    return bool(x.equal(y)) if x.device == y.device else bool(
+        x.cpu().equal(y.cpu()))
+
+
+def _states_differ(a, b):
+    """Names of the parameters and AdamW moments that differ."""
+    bad = [n for n in a.params if not _equal(a.params[n], b.params[n])]
+    ma, mb = _moments(a), _moments(b)
+    bad += ["moment {} {}".format(i, k) for i in ma for k in ma[i]
+            if not _equal(ma[i][k], mb[i][k])]
+    return bad
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, n))
+               for root, _, names in os.walk(path) for n in names)
+
+
+def _serve_greedy(torch, model, variables, reqs, pa):
+    """Greedy streams of ``reqs`` through a bf16-pool engine over
+    ``variables``; returns (streams, B4 launches, decode steps)."""
+    from tensorflowonspark_tpu_torch.serving import FINISHED, ServingEngine
+
+    engine = ServingEngine(model, variables, max_slots=8, page_size=128,
+                           decode_horizon=1, device="cuda")
+    pa.reset_launches()
+    handles = [engine.submit(p, n) for p, n in reqs]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    launches, steps = pa.launches, engine.decode_steps
+    streams = []
+    for (p, n), h in zip(reqs, handles):
+        toks = h.result(timeout=5)
+        if h.state != FINISHED or len(toks) != n:
+            raise AssertionError("request ended {} with {} of {} tokens"
+                                 .format(h.state, len(toks), n))
+        streams.append(toks)
+    if engine.pool.pages_in_use:
+        raise AssertionError("pages leaked: {}".format(
+            engine.pool.pages_in_use))
+    engine.close()
+    return streams, launches, steps
+
+
+def _solo_teacher_forced(torch, model, reqs, streams):
+    """Each engine stream against solo decode teacher-forced on the
+    engine's own tokens (what solo ``generate`` computes up to the first
+    difference). Returns (tokens compared, near-tie stops, largest gap at
+    a stop in bf16 steps)."""
+    from tensorflowonspark_tpu_torch.models import decoding
+
+    compared = stops = 0
+    worst = 0.0
+    with torch.no_grad():
+        for (p, n), toks in zip(reqs, streams):
+            cache = decoding.init_cache(
+                model, 1, decoding._bucketed_cache_len(
+                    len(p) + n, model.cfg.max_seq_len))
+            logits = model(torch.as_tensor(p[None], device="cuda").long(),
+                           decode=True, cache=cache)[0, -1].float()
+            for j, tok in enumerate(toks):
+                solo_tok = int(torch.argmax(logits))
+                compared += 1
+                if solo_tok != tok:
+                    top2 = torch.topk(logits, 2).values
+                    top, second = float(top2[0]), float(top2[1])
+                    ulps = (top - second) / bf16_ulp(top)
+                    if ulps > BF16_NEAR_TIE_ULPS:
+                        raise AssertionError(
+                            "served stream differs from solo at step {}: "
+                            "engine {} solo {} (top-2 gap {} = {:.1f} bf16 "
+                            "steps)".format(j, tok, solo_tok, top - second,
+                                            ulps))
+                    stops += 1
+                    worst = max(worst, ulps)
+                    break
+                if j + 1 < len(toks):
+                    logits = model(torch.tensor([[tok]], device="cuda"),
+                                   decode=True, cache=cache)[0, -1].float()
+    return compared, stops, worst
+
+
+def whole_path_phase(torch, fa, pa, card, plain_step_ms):
+    """The main path whole at GPT-2-small width: ``Trainer.fit`` over host
+    batches (``DevicePrefetch`` copies them; B1-B3 12 launches each a
+    step) with a checkpoint every 2 steps; the commit; a bitwise resume of
+    step 5 by a fresh trainer restored from the checkpoint; serving from
+    ``restore_variables`` (B4 every decode step) against solo ``generate``
+    and against the live weights' streams; an async save that two more
+    steps must not reach; then ``fit``'s step time."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+    from tensorflowonspark_tpu_torch.train import checkpoint as ckpt_lib
+    from tensorflowonspark_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+
+    kw = dict(GPT2_SMALL, attention_impl="pallas")
+    vocab, layers = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"]
+    per_layer = dict.fromkeys(fa.launches, layers)
+    batch = lm_batch(8, 1024, vocab)
+    # Step 5's batch: another seeded draw, the same for both trainers.
+    batch5 = {"x": np.random.RandomState(5).randint(
+        1, vocab, size=(8, 1024)).astype(np.int32)}
+    batch5["y"] = batch5["x"]
+
+    def host_batches(n):
+        # CPU (numpy) batches: DevicePrefetch makes every copy to the card.
+        for _ in range(n):
+            yield {k: v.copy() for k, v in batch.items()}
+
+    def make(seed):
+        model = factory.get_model("transformer", dtype=torch.bfloat16,
+                                  device="cuda", seed=seed, **kw)
+        tr = Trainer(model, optimizer=trainer.adamw(3e-4), device="cuda")
+        return model, tr, tr.init()
+
+    root = tempfile.mkdtemp(prefix="tfos-whole-path-")
+    try:
+        ckdir = os.path.join(root, "ckpt")
+        model, tr, state = make(0)
+        mgr = CheckpointManager(ckdir, max_to_keep=2)
+
+        # Per-step launch counts, and proof that fit's batches arrive on
+        # the card already placed.
+        counts, on_card = [], []
+        plain_step = tr.train_step
+
+        def counted_step(state, batch):
+            on_card.append(all(v.is_cuda for v in batch.values()))
+            before = dict(fa.launches)
+            out = plain_step(state, batch)
+            counts.append({n: fa.launches[n] - before[n]
+                           for n in fa.launches})
+            return out
+
+        save_secs = []
+        plain_save = mgr.save
+
+        def timed_save(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved = plain_save(*args, **kwargs)
+            if saved:
+                save_secs.append(time.perf_counter() - t0)
+            return saved
+
+        tr.train_step, mgr.save = counted_step, timed_save
+        fa.reset_launches()
+        pa.reset_launches()
+        state, history = tr.fit(state, host_batches(4), steps=4,
+                                flush_every=2, checkpoint=mgr,
+                                checkpoint_every=2)
+        del tr.train_step, mgr.save  # back to the methods
+        losses = [h["loss"] for h in history]
+        if [h["step"] for h in history] != [0, 1, 2, 3] or not (
+                all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError("fit history {}".format(history))
+        if counts != [per_layer] * 4 or not all(on_card):
+            raise AssertionError("fit steps launched {} (want {} each); "
+                                 "batches on the card {}".format(
+                                     counts, per_layer, on_card))
+        if pa.launches:
+            raise AssertionError("fit launched paged_decode")
+        log("whole  fit GPT-2-small b8 s1024 bf16 pallas adamw(3e-4), 4 "
+            "steps over CPU batches (DevicePrefetch), flush_every 2, "
+            "checkpoint_every 2: losses {}; launches/step {}".format(
+                ["{:.4f}".format(x) for x in losses], counts[0]))
+
+        # The commit: step 4 committed, every retained step's manifest
+        # matching its files.
+        if ckpt_lib.latest_committed_step(ckdir) != 4 or \
+                mgr.latest_committed_step() != 4:
+            raise AssertionError("latest committed step {} != 4".format(
+                ckpt_lib.latest_committed_step(ckdir)))
+        retained = sorted(int(n) for n in os.listdir(ckdir) if n.isdigit())
+        for step in retained:
+            with open(os.path.join(ckdir, ckpt_lib._marker_name(step))) as f:
+                doc = json.load(f)
+            if doc != {"step": step, "files": ckpt_lib._step_manifest(
+                    os.path.join(ckdir, str(step)))}:
+                raise AssertionError("step {}'s manifest does not "
+                                     "validate".format(step))
+        step_dir = os.path.join(ckdir, "4")
+        step_bytes = _dir_bytes(step_dir)
+        var_bytes = sum(os.path.getsize(os.path.join(
+            step_dir, ckpt_lib.ITEM, name))
+            for name in (ckpt_lib.PARAMS, ckpt_lib.MODEL_STATE))
+        live4 = decoding.serving_variables(model.state_dict(),
+                                           torch.bfloat16)
+        log("whole  committed step 4; retained steps {} (max_to_keep 2), "
+            "manifests valid; step dir {} bytes, restore_variables reads {} "
+            "bytes; save blocked fit {} s (synchronous, steps 2 and 4) on "
+            "{}".format(retained, step_bytes, var_bytes,
+                        ["{:.3f}".format(x) for x in save_secs], card))
+
+        # Resume, bitwise: the live trainer and a fresh one restored from
+        # the checkpoint each take step 5 on the same batch.
+        state, live_loss, _, _ = train_step_counted(torch, fa, tr, state,
+                                                    batch5)
+        model2, tr2, state2 = make(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state2 = CheckpointManager(ckdir, max_to_keep=2).restore(state2)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if state2.step != 4:
+            raise AssertionError("restored step {}".format(state2.step))
+        state2, resumed_loss, _, _ = train_step_counted(torch, fa, tr2,
+                                                        state2, batch5)
+        differ = _states_differ(state, state2)
+        if live_loss != resumed_loss or state.step != state2.step or differ:
+            raise AssertionError(
+                "resumed step 5 differs: loss {} vs {}, {} tensors differ "
+                "(first {})".format(live_loss, resumed_loss, len(differ),
+                                    differ[:3]))
+        log("whole  resume: step 5 of the live and of the restored trainer "
+            "bitwise equal (loss {:.6f}, {} parameters, {} AdamW state "
+            "tensors); restore {:.3f} s on {}".format(
+                live_loss, len(state.params),
+                sum(len(m) for m in _moments(state).values()), restore_s,
+                card))
+        del model2, tr2, state2
+        torch.cuda.empty_cache()
+
+        # Serve from the committed checkpoint.
+        t0 = time.perf_counter()
+        restored = CheckpointManager(ckdir,
+                                     max_to_keep=2).restore_variables()
+        restore_vars_s = time.perf_counter() - t0
+        served = decoding.serving_variables(restored, torch.bfloat16)
+        bad = [k for k in live4 if not _equal(live4[k], served[k])]
+        if served.keys() != live4.keys() or bad:
+            raise AssertionError("restored variables differ from the live "
+                                 "step-4 weights: {}".format(bad[:3]))
+        smodel = factory.get_model("transformer", dtype=torch.bfloat16,
+                                   device="cuda", seed=2, **GPT2_SMALL)
+        decoding.load_variables(smodel, served)
+        rs = np.random.RandomState(11)
+        reqs = [(rs.randint(1, vocab, size=int(rs.randint(32, 257))),
+                 int(rs.randint(16, 33))) for _ in range(4)]
+        streams, launches, steps = _serve_greedy(torch, smodel, None, reqs,
+                                                 pa)
+        if launches != steps * layers or not steps:
+            raise AssertionError("paged_decode launched {} times over {} "
+                                 "decode steps x {} layers".format(
+                                     launches, steps, layers))
+        compared, stops, worst = _solo_teacher_forced(torch, smodel, reqs,
+                                                      streams)
+        exact = sum(
+            decoding.generate(smodel, None, p[None], n,
+                              auto_cache=True)[0, len(p):].tolist() == toks
+            for (p, n), toks in zip(reqs, streams))
+        live_streams, _, _ = _serve_greedy(torch, smodel, live4, reqs, pa)
+        if live_streams != streams:
+            raise AssertionError("streams from the checkpoint differ from "
+                                 "the live step-4 weights' streams")
+        log("whole  served from restore_variables ({:.3f} s, {} tensors) on "
+            "a bf16 model and pool: {} greedy requests, {} decode steps, "
+            "paged_decode launches {} (= steps x {}); streams equal the "
+            "live step-4 weights' streams; against solo generate: {} of {} "
+            "streams equal, teacher-forced {} tokens compared, {} near-tie "
+            "stops (largest top-2 gap {:.1f} bf16 steps, limit {}) on "
+            "{}".format(restore_vars_s, len(restored), len(reqs), steps,
+                        launches, layers, exact, len(reqs), compared, stops,
+                        worst, BF16_NEAR_TIE_ULPS, card))
+        del smodel, served, restored, live4
+        torch.cuda.empty_cache()
+
+        # Async: the save snapshots the state, two more steps update it in
+        # place, and the restored values are the values at the save.
+        amgr = CheckpointManager(os.path.join(root, "async"), max_to_keep=2,
+                                 async_checkpointing=True)
+        at_save = {k: v.detach().clone() for k, v in state.params.items()}
+        moments = {(i, k): v.clone() for i, m in _moments(state).items()
+                   for k, v in m.items()}
+        save_step = state.step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not amgr.save(state):
+            raise AssertionError("the async save was declined")
+        async_s = time.perf_counter() - t0
+        for _ in range(2):
+            state, _, _, _ = train_step_counted(torch, fa, tr, state, batch)
+        t0 = time.perf_counter()
+        amgr.wait()
+        wait_s = time.perf_counter() - t0
+        if amgr.latest_committed_step() != save_step:
+            raise AssertionError("async step {} not committed".format(
+                save_step))
+        state = amgr.restore(state)
+        after = _moments(state)
+        bad = [k for k in at_save if not _equal(state.params[k], at_save[k])]
+        bad += [key for key, v in moments.items()
+                if not _equal(after[key[0]][key[1]], v)]
+        if state.step != save_step or bad:
+            raise AssertionError("async save differs from its snapshot: "
+                                 "step {}, {}".format(state.step, bad[:3]))
+        amgr.close()
+        log("whole  async save at step {}: blocked fit {:.3f} s, wait after "
+            "two more steps {:.3f} s; restored bitwise equal to the values "
+            "at the save on {}".format(save_step, async_s, wait_s, card))
+
+        # fit's step time beside the plain train_step loop's (a host sync
+        # on each loss), 8 steps each, in turns: by CUDA events at each
+        # step's start (the device timeline, idle gaps included; median of
+        # steps 2-8) and by the host clock over the loop.
+        def timed(run):
+            marks = []
+
+            def marked_step(state, batch):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                return plain_step(state, batch)
+
+            tr.train_step = marked_step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = run()
+            finally:
+                del tr.train_step
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / 8 * 1e3
+            ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            return out, float(np.median(ms[1:])), host_ms
+
+        def plain_loop(state):
+            for b in host_batches(8):
+                state, m = tr.train_step(state, b)
+                float(m["loss"])
+            return state
+
+        runs = {"plain loop": [], "fit depth 2": [], "fit depth 0": []}
+        order = list(runs)
+        for rnd in range(4):  # in turns, the order reversed every round
+            for name in order if rnd % 2 == 0 else order[::-1]:
+                if name == "plain loop":
+                    state, ev, host = timed(lambda: plain_loop(state))
+                else:
+                    depth = int(name[-1])
+                    (state, _), ev, host = timed(lambda: tr.fit(
+                        state, host_batches(8), depth=depth, flush_every=2))
+                runs[name].append((ev, host))
+        log("whole  step ms by events / by host clock, 8 steps a run, four "
+            "runs each in turns (train phase's plain loop: {:.2f} ms host): "
+            "{}; medians by events {} on {}".format(
+                plain_step_ms, "; ".join(
+                    "{} {}".format(name, ", ".join(
+                        "{:.2f} / {:.2f}".format(*r) for r in rs))
+                    for name, rs in runs.items()),
+                ", ".join("{} {:.2f}".format(name, float(np.median(
+                    [ev for ev, _ in rs]))) for name, rs in runs.items()),
+                card))
+        del model, tr, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # -- fused ResNet bottleneck (B5, B6) and ResNet-50 training -------------------
@@ -1457,7 +1852,8 @@ def main():
     if any(fa.launches.values()):
         raise AssertionError("serving launched flash kernels: {}".format(
             fa.launches))
-    flash_launches = training_phase(torch, fa, pa, card)
+    flash_launches, plain_step_ms = training_phase(torch, fa, pa, card)
+    whole_path_phase(torch, fa, pa, card, plain_step_ms)
     fa.reset_launches()
     frb.reset_launches()
     fused_errs, fused_timings, fused_launches = resnet_phase(

@@ -1,7 +1,8 @@
-"""Training-plane modules of the port: the trainer (:mod:`.trainer`), its
-losses (:mod:`.losses`) and the HTTP serving surface (:mod:`.metrics`).
-``Trainer.fit`` with device prefetch and asynchronous metrics is ROADMAP
-A4b, checkpointing A5."""
+"""Training-plane modules of the port: the trainer (:mod:`.trainer`) and
+its loop ``Trainer.fit``, losses (:mod:`.losses`), checkpoints
+(:mod:`.checkpoint`), device prefetch (:mod:`.prefetch`), metrics, the
+tfevents codec and the HTTP serving surface (:mod:`.metrics`,
+:mod:`.tbevents`)."""
 
 from tensorflowonspark_tpu_torch.train import losses  # noqa: F401
 from tensorflowonspark_tpu_torch.train.trainer import (  # noqa: F401

@@ -1,7 +1,15 @@
-"""HTTP serving surface (port of ``train/metrics.py``'s ``MetricsServer``
-subset): ``POST /v1/generate`` and ``GET /v1/serving`` in front of a
-:class:`~tensorflowonspark_tpu_torch.serving.ServingEngine`.
+"""Metrics and the HTTP serving surface (port of ``train/metrics.py``).
 
+:class:`MetricsWriter` appends scalar events to ``metrics.jsonl`` (NaN and
+inf written as ``null`` with the value kept under ``raw``) and mirrors
+them to a tfevents file (:mod:`.tbevents`); :func:`read_events` reads the
+JSONL stream back. :class:`AsyncStepMetrics` is ``Trainer.fit``'s buffer:
+a step's metrics stay 0-d device tensors until a window is flushed with
+one host transfer.
+
+:class:`MetricsServer` is the subset that serves: ``POST /v1/generate``
+and ``GET /v1/serving`` in front of a
+:class:`~tensorflowonspark_tpu_torch.serving.ServingEngine`.
 ``POST /v1/generate`` takes the JAX endpoint's body fields (``prompt``,
 ``max_new_tokens``, ``temperature``, ``top_k``, ``top_p``, ``priority``,
 ``eos_token``, ``stream``, ``traceparent``) and answers the same way:
@@ -14,11 +22,169 @@ with the request's id, trace, state and ``ttft_ms``/``total_ms``; with
 import http.server
 import json
 import logging
+import math
 import threading
+import time
 import urllib.parse
 import uuid
 
+import torch
+
+from tensorflowonspark_tpu_torch import fs as fs_lib
+from tensorflowonspark_tpu_torch.train import tbevents
+
 logger = logging.getLogger(__name__)
+
+
+class MetricsWriter:
+    """Append-only JSONL scalar event log, mirrored to TensorBoard.
+
+    ``directory`` may be any URI. Local writes append line-buffered; object
+    stores have no append, so remote writes buffer events and rewrite the
+    object when ``flush_every`` events have accumulated or ``flush_secs``
+    have passed since the last upload (and on close). Unless
+    ``tfevents=False``, every scalar also goes to a tfevents file in the
+    same directory, so TensorBoard pointed at ``directory`` shows the
+    curves.
+    """
+
+    def __init__(self, directory, filename="metrics.jsonl",
+                 flush_every=50, flush_secs=10.0, tfevents=True):
+        self._local = fs_lib.is_local(directory)
+        self.path = fs_lib.join(directory, filename)
+        self._events = (
+            tbevents.EventsWriter(directory, flush_every=flush_every,
+                                  flush_secs=flush_secs)
+            if tfevents else None
+        )
+        self._t0 = time.time()
+        if self._local:
+            fs_lib.makedirs(directory)
+            self._f = open(fs_lib.local_path(self.path), "a", buffering=1)
+        else:
+            self._f = fs_lib.BufferedObjectWriter(
+                self.path, mode="w",
+                flush_every=flush_every, flush_secs=flush_secs)
+
+    def write(self, step, **scalars):
+        event = {"step": int(step), "time": round(time.time() - self._t0, 3)}
+        raw = {}
+        floats = {}
+        for k, v in scalars.items():
+            f = float(v)
+            floats[k] = f
+            if math.isfinite(f):
+                event[k] = f
+            else:
+                # NaN/inf (a diverging loss) would be written as the
+                # non-standard NaN/Infinity tokens, which strict JSON
+                # readers refuse: null, with the value kept in "raw".
+                event[k] = None
+                raw[k] = repr(f)
+        if raw:
+            event["raw"] = raw
+        if self._events is not None:
+            # tfevents holds binary floats: NaN/inf go through as they are.
+            self._events.write(int(step), floats)
+        self._f.write(json.dumps(event, allow_nan=False) + "\n")
+
+    def close(self):
+        if self._events is not None:
+            self._events.close()
+        self._f.close()
+
+
+class AsyncStepMetrics:
+    """Per-step metrics without a per-step host sync.
+
+    Reading a step's loss with ``float(...)`` blocks the host until the
+    step's kernels have run; done every step, it serializes the loop.
+    ``push`` only keeps the step's 0-d device tensors; every
+    ``flush_every`` steps :meth:`flush` stacks the window's values and
+    copies them to the host in ONE transfer.
+
+    ``hooks`` are called as ``hook(step, scalars_dict)`` per step at flush
+    time, in step order (e.g. ``lambda s, m: writer.write(s, **m)`` for a
+    :class:`MetricsWriter`). ``history`` accumulates ``{"step": int,
+    **scalars}`` dicts for the whole run.
+    """
+
+    def __init__(self, flush_every=16, hooks=()):
+        self.flush_every = max(1, int(flush_every))
+        self.hooks = list(hooks)
+        self.history = []
+        self.closed = False
+        self._pending = []
+
+    def push(self, step, metrics):
+        """Buffer one step's metrics dict; flushes (blocking) only when
+        ``flush_every`` steps have accumulated."""
+        if self.closed:
+            raise RuntimeError(
+                "AsyncStepMetrics is closed; its final window was already "
+                "flushed")
+        self._pending.append((int(step), metrics))
+        if len(self._pending) >= self.flush_every:
+            self.flush()
+
+    def flush(self):
+        """Fetch all buffered metrics in one blocking transfer; run hooks.
+
+        Returns ``history``. Every fetched step lands in ``history`` before
+        any hook runs, and a raising hook (a full disk under a
+        :class:`MetricsWriter`) is logged and skipped: hooks observe, they
+        neither drop the remaining steps nor unwind the training loop.
+        """
+        if not self._pending:
+            return self.history
+        pending, self._pending = self._pending, []
+        values = [torch.as_tensor(v).detach().reshape(())
+                  for _, m in pending for v in m.values()]
+        device = next((t.device for t in values if t.device.type != "cpu"),
+                      torch.device("cpu"))
+        # f64 holds every f32/bf16/int32 value exactly, so one stacked
+        # tensor carries the whole window (f64 on the card too).
+        fetched = iter(torch.stack(
+            [t.to(device=device, dtype=torch.float64) for t in values]
+        ).cpu().tolist() if values else ())
+        flushed = []
+        for step, m in pending:
+            scalars = {k: next(fetched) for k in m}
+            self.history.append({"step": step, **scalars})
+            flushed.append((step, scalars))
+        for step, scalars in flushed:
+            for hook in self.hooks:
+                try:
+                    hook(step, scalars)
+                except Exception:
+                    logger.exception(
+                        "metrics hook %r failed at step %d", hook, step)
+        return self.history
+
+    def close(self):
+        """Flush the final partial window and seal the buffer; returns
+        ``history``. ``Trainer.fit`` closes the buffers it creates (a shared
+        ``metrics=`` buffer is only flushed: it may span chunked fit
+        calls); ``push`` after close raises."""
+        history = self.flush()
+        self.closed = True
+        return history
+
+    @property
+    def last(self):
+        """Most recent flushed step's scalars (None before any flush)."""
+        return self.history[-1] if self.history else None
+
+
+def read_events(directory, filename="metrics.jsonl"):
+    """The events of a :class:`MetricsWriter` run, in write order (rolled
+    ``.partN`` objects of a long remote run joined)."""
+    path = fs_lib.join(directory, filename)
+    events = []
+    for part in fs_lib.part_uris(path) or [path]:
+        with fs_lib.open(part, "r") as f:
+            events.extend(json.loads(line) for line in f if line.strip())
+    return events
 
 _TRACE_CHARS = frozenset("0123456789abcdef")
 

@@ -8,19 +8,26 @@ is forward, ``backward()`` and ``optimizer.step()``, updating both in place.
 Gradient accumulation is a Python loop over microbatches where the JAX
 package scans; a model's buffers (BatchNorm's running statistics) move in
 place with each forward, in microbatch order, as the scan carries
-``model_state``. Sharded training (``mesh``/``rules``) is ROADMAP A10, the
-persistent compile cache A12, and ``fit`` with device prefetch and
-asynchronous metrics A4b; ``donate`` has no meaning without XLA buffers.
+``model_state``. :meth:`Trainer.fit` is the overlapped loop: device
+prefetch, asynchronous metrics and checkpoints. Sharded training
+(``mesh``/``rules``) is ROADMAP A10 and the persistent compile cache A12;
+``donate`` has no meaning without XLA buffers.
 """
 
 import dataclasses
 import inspect
+import logging
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch.train import checkpoint as checkpoint_lib
 from tensorflowonspark_tpu_torch.train import losses as losses_lib
+from tensorflowonspark_tpu_torch.train import metrics as metrics_lib
+from tensorflowonspark_tpu_torch.train import prefetch as prefetch_lib
+
+logger = logging.getLogger(__name__)
 
 
 def sgd(learning_rate, momentum=None, nesterov=False):
@@ -114,6 +121,16 @@ class Trainer:
         params = inspect.signature(model.forward).parameters
         self._has_segment_kwarg = "segment_ids" in params
         self._has_positions_kwarg = "positions" in params
+        self._placer = None
+
+    @property
+    def batch_placer(self):
+        """The trainer's batch placement, shared with ``DevicePrefetch`` by
+        :meth:`fit`: a prefetched batch's tensors already lie on the
+        trainer's device, and ``train_step`` takes them without a copy."""
+        if self._placer is None:
+            self._placer = prefetch_lib.BatchPlacer(self.device)
+        return self._placer
 
     # -- init ---------------------------------------------------------------
 
@@ -261,6 +278,117 @@ class Trainer:
             return self.model(x, **self.model_kwargs)
         finally:
             self.model.train(was_training)
+
+    # -- training loop ------------------------------------------------------
+
+    def fit(self, state, batches, steps=None, hooks=(), depth=2,
+            flush_every=16, metrics=None, checkpoint=None,
+            checkpoint_every=0):
+        """Overlapped training loop: device prefetch and async metrics.
+
+        ``batches`` is any host batch iterable (a generator, a data
+        pipeline) or an existing
+        :class:`~tensorflowonspark_tpu_torch.train.prefetch.DevicePrefetch`.
+        A plain iterable is wrapped in a DevicePrefetch of ``depth``
+        batches sharing :attr:`batch_placer`, so the copy of batch N+1 to
+        the card overlaps the step on batch N; ``depth=0`` places on this
+        thread.
+
+        Step metrics stay on the device and reach the host in one transfer
+        every ``flush_every`` steps (:class:`~tensorflowonspark_tpu_torch
+        .train.metrics.AsyncStepMetrics`). ``hooks`` are called
+        ``hook(step, scalars)`` at flush time, for this call only; pass
+        ``metrics=`` to share a buffer across calls.
+
+        Stops after ``steps`` optimizer steps (None: run the iterator dry;
+        ``steps <= 0`` returns at once). Returns ``(state, history)``,
+        ``history`` the ``{"step": int, **scalars}`` dicts flushed through
+        the end. On a ``steps``-capped exit the source stays open, so
+        chunked training over one source works; batches the wrapper had
+        prefetched past the cap are dropped (pass your own DevicePrefetch
+        across chunks to keep them).
+
+        ``checkpoint`` (a ``CheckpointManager`` or a directory path) makes
+        the loop durable: the state is saved every ``checkpoint_every``
+        steps (0: only at exit) and once, forced, when the loop exits,
+        an exit by exception included, so a relaunch resumes from the
+        last completed step.
+        """
+        own = not isinstance(batches, prefetch_lib.DevicePrefetch)
+        buf = (metrics if metrics is not None
+               else metrics_lib.AsyncStepMetrics(flush_every=flush_every))
+        # Hooks registered for THIS call only: a buffer shared across
+        # chunked fit() calls must not collect duplicates.
+        added_hooks = []
+        for hook in hooks:
+            if hook not in buf.hooks:
+                buf.hooks.append(hook)
+                added_hooks.append(hook)
+        if steps is not None and steps <= 0:
+            for hook in added_hooks:
+                buf.hooks.remove(hook)
+            return state, buf.history
+        # Made only past the early return, so a path-valued checkpoint
+        # never leaks an unclosed manager.
+        ckpt, own_ckpt = checkpoint, False
+        if ckpt is not None and not hasattr(ckpt, "save"):
+            ckpt, own_ckpt = checkpoint_lib.CheckpointManager(ckpt), True
+        pf = (prefetch_lib.DevicePrefetch(batches, depth=depth,
+                                          placer=self.batch_placer)
+              if own else batches)
+        step0 = int(state.step)
+        n = 0
+        capped = False
+        # On the way out the save of the last COMPLETED step comes first,
+        # and no cleanup step may replace fit's own error as the one
+        # raised: ``fit_exc`` (not sys.exc_info(), which is set when fit is
+        # called inside an outer except block) says whether fit failed.
+        fit_exc = None
+        try:
+            for batch in pf:
+                state, m = self.train_step(state, batch)
+                buf.push(step0 + n, m)
+                n += 1
+                if ckpt is not None and checkpoint_every and \
+                        n % checkpoint_every == 0:
+                    ckpt.save(state)
+                if steps is not None and n >= steps:
+                    capped = True
+                    break
+        except BaseException as e:
+            fit_exc = e
+            raise
+        finally:
+            cleanup_errors = []
+
+            def cleanup(what, fn):
+                # Every step runs; the first error is raised at the end
+                # only when fit itself succeeded.
+                try:
+                    fn()
+                except Exception as e:
+                    logger.exception("%s failed on fit() exit", what)
+                    cleanup_errors.append(e)
+
+            if ckpt is not None:
+                if n:
+                    # force covers a step the save interval declines.
+                    cleanup("exit-path checkpoint save", lambda: (
+                        ckpt.save(state, force=True), ckpt.wait()))
+                if own_ckpt:
+                    cleanup("checkpoint close", ckpt.close)
+            # A buffer fit() made is closed; a caller's shared buffer is
+            # only flushed (it may span chunked fit calls).
+            cleanup("metrics flush",
+                    buf.flush if metrics is not None else buf.close)
+            for hook in added_hooks:
+                buf.hooks.remove(hook)
+            if own:
+                cleanup("prefetch close",
+                        lambda: pf.close(close_source=not capped))
+            if cleanup_errors and fit_exc is None:
+                raise cleanup_errors[0]
+        return state, buf.history
 
 
 def _enable_model_remat(model):

@@ -1,4 +1,5 @@
-"""The port stands alone: nothing of JAX, flax or the JAX package.
+"""The port stands alone: nothing of JAX, flax, optax, orbax or the JAX
+package.
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter: import every module of
@@ -20,7 +21,8 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tensorflowonspark_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tensorflowonspark_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "tensorflowonspark_tpu")
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
@@ -42,6 +44,7 @@ def test_forbidden_name_match_is_exact():
     assert _forbidden("tensorflowonspark_tpu")
     assert _forbidden("tensorflowonspark_tpu.serving.cache")
     assert _forbidden("jax.numpy")
+    assert _forbidden("orbax.checkpoint")
     assert not _forbidden("tensorflowonspark_tpu_torch")
     assert not _forbidden("tensorflowonspark_tpu_torch.serving")
     assert not _forbidden("jaxtyping_free_module")
@@ -56,8 +59,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "tensorflowonspark_tpu_torch.serving.engine" in doc["imported"]
     for name in ("ops.paged_attention", "ops.flash_attention",
                  "ops.attention", "ops.fused_resnet_block", "models.resnet",
-                 "models.factory", "convert", "initializers",
-                 "train.trainer", "train.losses"):
+                 "models.factory", "convert", "initializers", "fs", "util",
+                 "train.trainer", "train.losses", "train.checkpoint",
+                 "train.prefetch", "train.tbevents", "train.metrics"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
