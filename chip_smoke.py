@@ -19,11 +19,23 @@ calls and fails (non-zero exit) if any phase fails:
                GPT-2-small's width split into head widths 32 and 128 (SDPA's
                forward, and its backward alone, timed at each width);
 3. serve    — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
-               weights, page_size 128, decode_horizon 1) serves mixed
-               requests, once with a bf16 pool and once with an int8 pool;
-               every decode step of every layer must launch B4; then a
-               profiler window over steady decode steps says where a step's
-               time goes (device busy, kernels a step, B4's share);
+               weights, page_size 128, decode_horizon 1, no sharing, no
+               preemption) serves mixed requests, once with a bf16 pool and
+               once with an int8 pool; every decode step of every layer must
+               launch B4; then a profiler window over steady decode steps
+               says where a step's time goes (device busy, kernels a step,
+               B4's share);
+   serve_default — the engine at its defaults (decode horizon 8, prefix
+               sharing, swap preemption) on ``bench.py``'s serving model
+               (GPT-2-small widths, context 512, chunked cache attention)
+               and ``bench_serving_continuous``'s load (24 requests, 12
+               slots, page 64, 49 pages), bf16 and int8 pools: B4 launched
+               decode calls x 8 x 12 times, streams bitwise those of the
+               same load at horizon 1; a prefix burst (8 requests on one
+               256-token prompt, 7 prefix hits) against a no-sharing run;
+               a preemption drill in swap (streams bitwise the
+               uninterrupted run's) and recompute mode; swap-out and
+               swap-in times a page;
 4. train    — ``Trainer.train_step`` at GPT-2-small width (``bench.py``'s
                ``_lm_trainer``: b8 x s1024, bf16 compute, f32 weights,
                ``attention_impl="pallas"``, AdamW 3e-4) takes 4 steps with
@@ -59,7 +71,10 @@ calls and fails (non-zero exit) if any phase fails:
                batch, finite and falling losses, running statistics moved,
                images/s) and a profiled window;
 6. greedy   — engine streams equal solo ``generate`` bitwise at the toy
-               fp32 geometry, and teacher-forced at full width in fp32;
+               fp32 geometry (horizon 1; and horizon 4 with a joining
+               request, prefix sharers, a COW duplicate, a swap and a
+               recompute resume), and teacher-forced at full width in
+               fp32;
 7. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The last two lines of standard output are the ``kernels`` JSON record and
@@ -636,7 +651,8 @@ def serve_requests(torch, model, variables, kv_cache_dtype, n_requests, seed,
     from tensorflowonspark_tpu_torch.serving import FINISHED, ServingEngine
 
     engine = ServingEngine(model, variables, max_slots=8, page_size=128,
-                           decode_horizon=1, kv_cache_dtype=kv_cache_dtype,
+                           decode_horizon=1, prefix_share=False,
+                           preempt="off", kv_cache_dtype=kv_cache_dtype,
                            device="cuda")
     rs = np.random.RandomState(seed)
     reqs = []
@@ -695,6 +711,354 @@ def main_phase(torch, pa):
     return launches
 
 
+# -- serving at the engine's defaults -----------------------------------------
+
+# bench.py:1454-1467 ``_serving_model``: GPT-2-small widths, context 512,
+# chunked cache attention, bf16 serving variables from a seed; and
+# bench.py:1064-1140 ``bench_serving_continuous``'s load and engine: 24
+# requests over four shapes, 12 slots, page 64, 1 + 4 x 12 pages, prefill
+# floor 32, at the engine's defaults (horizon 8, prefix sharing, swap).
+SERVE_DEFAULT_LM = dict(vocab_size=50257, num_layers=12, num_heads=12,
+                        embed_dim=768, mlp_dim=3072, max_seq_len=512,
+                        remat=False, decode_attention="chunked")
+SERVE_DEFAULT_SHAPES = [(32, 24), (64, 48), (96, 16), (128, 32)]
+SERVE_DEFAULT_ENGINE = dict(max_slots=12, page_size=64, num_pages=1 + 4 * 12,
+                            prefill_floor=32)
+_COUNTERS = ("decode_steps", "decode_tokens", "decode_seconds",
+             "prefill_seconds", "prefix_hits", "preemptions",
+             "preempt_swaps", "preempt_recomputes")
+
+
+def default_engine(model, variables, **kw):
+    from tensorflowonspark_tpu_torch.serving import ServingEngine
+
+    args = dict(SERVE_DEFAULT_ENGINE, device="cuda")
+    args.update(kw)
+    engine = ServingEngine(model, variables, **args)
+    # Warm: one request per shape (first calls of each GEMM shape),
+    # drained before anything is counted.
+    rs = np.random.RandomState(99)
+    for p, n in SERVE_DEFAULT_SHAPES:
+        engine.submit(rs.randint(1, model.cfg.vocab_size, size=p), n)
+    engine.run_until_idle()
+    return engine
+
+
+def serve_counted(torch, engine, pa, run):
+    """``run(engine)`` submits requests, drives the engine to idle and
+    returns ``[(handle, max_new_tokens)]``; B4's count is set to 0 just
+    before and read just after. Every request must finish with its token
+    count, no page may stay in use, and B4 must have launched decode calls
+    x horizon x layers times. Returns (streams, handles, counter deltas with
+    ``launches``)."""
+    from tensorflowonspark_tpu_torch.serving import FINISHED
+
+    before = engine.stats()
+    pa.reset_launches()
+    handles = run(engine)
+    torch.cuda.synchronize()
+    launches = pa.launches
+    after = engine.stats()
+    delta = {k: after[k] - before[k] for k in _COUNTERS}
+    delta["launches"] = launches
+    streams = []
+    for h, n in handles:
+        toks = h.result(timeout=5)
+        if h.state != FINISHED or len(toks) != n:
+            raise AssertionError("request ended {} with {} of {} tokens"
+                                 .format(h.state, len(toks), n))
+        streams.append(toks)
+    want = delta["decode_steps"] * engine.decode_horizon * engine.num_layers
+    if launches != want:
+        raise AssertionError(
+            "paged_decode launched {} times; {} decode calls x horizon {} x "
+            "{} layers = {}".format(launches, delta["decode_steps"],
+                                    engine.decode_horizon,
+                                    engine.num_layers, want))
+    if engine.pool.pages_in_use:
+        raise AssertionError("pages leaked: {}".format(
+            engine.pool.pages_in_use))
+    return streams, [h for h, _ in handles], delta
+
+
+def profile_window(torch, fn, reps=3):
+    """``fn``'s host ms a call unprofiled (synchronised, median of
+    ``reps``), then one ``torch.profiler`` window over ``reps`` calls:
+    (host ms, profiled wall ms, device-busy ms, device kernels) a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    by_name, count = device_kernels(prof)
+    return (float(np.median(host)), wall, sum(by_name.values()) / reps,
+            count / reps)
+
+
+def decode_profile(torch, runner, card):
+    """One decode call over all 12 rows (each at position 200 of its own
+    4 pages, greedy) at horizon 8 and at horizon 1: host, device-busy and
+    idle share a step."""
+    slots = runner.max_slots
+    table = np.zeros((slots, runner.table_width), np.int32)
+    table[:, :4] = 1 + np.arange(slots * 4).reshape(slots, 4)
+    toks = np.arange(1, slots + 1, dtype=np.int32)
+    lens = np.full((slots,), 200, np.int32)
+    zeros = np.zeros((slots,), np.int32)
+    for horizon in (8, 1):
+        host, wall, busy, kernels = profile_window(
+            torch, lambda: runner.decode(
+                toks, table, lens, zeros.astype(np.float32), zeros,
+                zeros.astype(np.float32), horizon=horizon, sampling=False))
+        log("profile serve_default decode call, {} rows, horizon {}: host "
+            "{:.3f} ms/step unprofiled; profiled {:.3f} ms/step, device "
+            "busy {:.3f} ms/step, idle share {:.3f}, {:.0f} device kernels/"
+            "step ({})".format(slots, horizon, host / horizon,
+                               wall / horizon, busy / horizon,
+                               1.0 - busy / wall, kernels / horizon, card))
+
+
+def prefill_profile(torch, runner, card, prompt_len=272, start=256):
+    """A 272-token prompt's whole prefill (one 512-slot chunk) against the
+    tail a 256-token shared prefix leaves (a 256-slot chunk at index 256
+    of the same allocation): host and device-busy ms a prefill."""
+    alloc = runner.prefill_alloc(prompt_len)
+    rs = np.random.RandomState(5)
+    vocab = runner.model.cfg.vocab_size
+    full_toks = rs.randint(1, vocab, size=(1, min(alloc,
+                                                  runner.prefill_chunk)))
+    tail_toks = rs.randint(1, vocab, size=(1, alloc - start))
+
+    def full():
+        runner.prefill_step(runner.new_prefill_cache(alloc), full_toks,
+                            prompt_len - 1, alloc)
+
+    def tail():
+        cache = runner.new_prefill_cache(alloc)
+        cache["position"] = start
+        for key, layer in cache.items():
+            if key != "position":
+                layer["cache_index"] = start
+        runner.prefill_step(cache, tail_toks, prompt_len - 1 - start, alloc)
+
+    for name, fn in (("whole prompt", full), ("shared-prefix tail", tail)):
+        host, wall, busy, kernels = profile_window(torch, fn)
+        log("profile serve_default prefill, {}: host {:.3f} ms unprofiled; "
+            "profiled {:.3f} ms, device busy {:.3f} ms, idle share {:.3f}, "
+            "{:.0f} device kernels ({})".format(
+                name, host, wall, busy, 1.0 - busy / wall, kernels, card))
+
+
+def submit_all(reqs, priority=0):
+    def run(engine):
+        handles = [(engine.submit(p, n, priority=priority), n)
+                   for p, n in reqs]
+        engine.run_until_idle()
+        return handles
+    return run
+
+
+def serve_default_phase(torch, pa, card):
+    """The engine at its defaults on ``bench_serving_continuous``'s load,
+    bf16 and int8 pools, each against the same load at horizon 1 (streams
+    bitwise equal); a prefix burst against a no-sharing run; a preemption
+    drill in swap and recompute mode against an uninterrupted run.
+    Returns B4's launches over the phase."""
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0, **SERVE_DEFAULT_LM)
+    variables = decoding.serving_variables(model.state_dict(),
+                                           torch.bfloat16)
+    vocab = model.cfg.vocab_size
+    rs = np.random.RandomState(0)
+    shapes = SERVE_DEFAULT_SHAPES
+    reqs = [(rs.randint(1, vocab, size=shapes[i % 4][0]).astype(np.int32),
+             shapes[i % 4][1]) for i in range(24)]
+    launches = 0
+    for kv in ("", "int8"):
+        streams = {}
+        for horizon in (8, 1):
+            engine = default_engine(model, variables, kv_cache_dtype=kv,
+                                    decode_horizon=horizon)
+            streams[horizon], _, d = serve_counted(torch, engine, pa,
+                                                   submit_all(reqs))
+            st = engine.stats()
+            if not kv and horizon == 8:
+                decode_profile(torch, engine.runner, card)
+            engine.close()
+            launches += d["launches"]
+            log("serve_default pool {:4s} horizon {}: requests 24 tokens {} "
+                "decode calls {} launches {} (calls x {} x {}) decode tok/s "
+                "{:.1f} step {:.3f} ms (call {:.3f} ms) ttft_p50 {:.2f} ms "
+                "prefix_hits {} ({})".format(
+                    kv or "bf16", horizon, sum(n for _, n in reqs),
+                    d["decode_steps"], d["launches"], horizon,
+                    model.cfg.num_layers,
+                    d["decode_tokens"] / d["decode_seconds"],
+                    d["decode_seconds"] / (d["decode_steps"] * horizon) * 1e3,
+                    d["decode_seconds"] / d["decode_steps"] * 1e3,
+                    st["ttft_ms_p50"], d["prefix_hits"], card))
+        if streams[8] != streams[1]:
+            bad = sum(a != b for a, b in zip(streams[8], streams[1]))
+            raise AssertionError("pool {}: {} of 24 horizon-8 streams differ "
+                                 "from horizon 1".format(kv or "bf16", bad))
+        log("serve_default pool {:4s}: 24 horizon-8 streams equal horizon 1 "
+            "bitwise".format(kv or "bf16"))
+    launches += prefix_burst(torch, pa, model, variables, rs, card)
+    launches += preemption_drill(torch, pa, model, variables, rs, card)
+    del model, variables
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefix_burst(torch, pa, model, variables, rs, card):
+    """8 requests on one 256-token prompt with distinct 16-token tails:
+    with sharing, 7 of them gather the 4 shared pages and prefill only
+    their tail; their streams against a ``prefix_share=False`` run, both
+    teacher-forced against solo decode up to near ties (the tail's prefill
+    runs GEMMs of other shapes, so bf16 streams may part at a near tie).
+    Each engine first serves a burst on another prefix, uncounted, so that
+    both counted runs find their shapes warm."""
+    vocab = model.cfg.vocab_size
+
+    def make_burst():
+        prefix = rs.randint(1, vocab, size=256)
+        return [(np.concatenate([prefix, rs.randint(1, vocab, size=16)])
+                 .astype(np.int32), 16) for _ in range(8)]
+
+    warm, burst = make_burst(), make_burst()
+    out = {}
+    launches = 0
+    for share in (True, False):
+        engine = default_engine(model, variables, prefix_share=share)
+        submit_all(warm)(engine)
+        streams, _, d = serve_counted(torch, engine, pa, submit_all(burst))
+        launches += d["launches"]
+        if share and d["prefix_hits"] < 7:
+            raise AssertionError("prefix burst: {} prefix hits, want >= 7"
+                                 .format(d["prefix_hits"]))
+        compared, stops, worst = _solo_teacher_forced(torch, model, burst,
+                                                      streams)
+        if share:
+            prefill_profile(torch, engine.runner, card)
+        engine.close()
+        out[share] = (streams, d)
+        log("serve_default burst prefix_share={}: prefix_hits {} prefill "
+            "{:.2f} ms, teacher-forced {} tokens, {} near-tie stops "
+            "(largest {:.1f} bf16 steps)".format(
+                share, d["prefix_hits"], d["prefill_seconds"] * 1e3,
+                compared, stops, worst))
+    equal = sum(a == b for a, b in zip(out[True][0], out[False][0]))
+    saved = (out[False][1]["prefill_seconds"]
+             - out[True][1]["prefill_seconds"]) * 1e3
+    log("serve_default burst: {} of 8 shared streams equal the unshared "
+        "ones; prefill saved {:.2f} ms ({:.2f} against {:.2f} ms) ({})"
+        .format(equal, saved, out[True][1]["prefill_seconds"] * 1e3,
+                out[False][1]["prefill_seconds"] * 1e3, card))
+    return launches
+
+
+def preemption_drill(torch, pa, model, variables, rs, card):
+    """Four low-priority requests fill a 12-page pool (3 pages each), then
+    two high-priority ones arrive and each evicts the newest low. Swap
+    mode: every stream bitwise the uninterrupted run's (the bytes come
+    back exactly and the decode batch keeps its shape); recompute mode:
+    the victims replay through the prefill and are held teacher-forced
+    against solo decode up to near ties, the rest bitwise. Then the swap
+    copy's host and device times a page."""
+    vocab = model.cfg.vocab_size
+    lows = [(rs.randint(1, vocab, size=128).astype(np.int32), 48)
+            for _ in range(4)]
+    highs = [(rs.randint(1, vocab, size=128).astype(np.int32), 32)
+             for _ in range(2)]
+
+    def drill(engine):
+        handles = [(engine.submit(p, n), n) for p, n in lows]
+        engine.step()
+        engine.step()
+        handles += [(engine.submit(p, n, priority=1), n) for p, n in highs]
+        engine.run_until_idle()
+        return handles
+
+    launches = 0
+    engine = default_engine(model, variables, preempt="off")
+    want, _, d = serve_counted(torch, engine, pa, drill)
+    engine.close()
+    launches += d["launches"]
+    if d["preemptions"]:
+        raise AssertionError("the uninterrupted run preempted")
+    for mode in ("swap", "recompute"):
+        engine = default_engine(model, variables, num_pages=1 + 12,
+                                preempt=mode)
+        streams, handles, d = serve_counted(torch, engine, pa, drill)
+        launches += d["launches"]
+        key = "preempt_swaps" if mode == "swap" else "preempt_recomputes"
+        if d["preemptions"] < 2 or d[key] != d["preemptions"]:
+            raise AssertionError("{} drill: {} preemptions, {} {}".format(
+                mode, d["preemptions"], d[key], key))
+        victims = [i for i, h in enumerate(handles) if h._req.preempt_count]
+        for i, (got, ref) in enumerate(zip(streams, want)):
+            if got != ref and (mode == "swap" or i not in victims):
+                raise AssertionError(
+                    "{} drill: stream {} differs from the uninterrupted "
+                    "run".format(mode, i))
+        note = "all 6 streams bitwise the uninterrupted run's"
+        if mode == "recompute":
+            compared, stops, worst = _solo_teacher_forced(
+                torch, model, [lows[i] for i in victims],
+                [streams[i] for i in victims])
+            note = ("bystanders and preemptors bitwise; victims "
+                    "teacher-forced {} tokens, {} near-tie stops (largest "
+                    "{:.1f} bf16 steps), {} of {} bitwise".format(
+                        compared, stops, worst,
+                        sum(streams[i] == want[i] for i in victims),
+                        len(victims)))
+        log("serve_default drill preempt={}: preemptions {} victims {}; {}"
+            .format(mode, d["preemptions"], victims, note))
+        if mode == "swap":
+            swap_timing(torch, engine, card)
+        engine.close()
+    return launches
+
+
+def swap_timing(torch, engine, card, n_pages=3, reps=5):
+    """Swap-out (``extract_pages``: device pages to host memory) and
+    swap-in (``restore_pages``) of ``n_pages`` pages, synchronised host
+    time, median of ``reps``; the pages hold a drained engine's stale
+    bytes and are written back unchanged."""
+    pages = list(range(1, 1 + n_pages))
+    out_ms, in_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = engine.runner.extract_pages(pages)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.runner.restore_pages(host, pages)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out_ms.append((t1 - t0) * 1e3)
+        in_ms.append((t2 - t1) * 1e3)
+    log("serve_default swap: {} bytes a page (every layer's K and V); "
+        "swap-out {:.3f} ms a page, swap-in {:.3f} ms a page ({} pages, "
+        "median of {}) ({})".format(
+            engine.pool.page_bytes, float(np.median(out_ms)) / n_pages,
+            float(np.median(in_ms)) / n_pages, n_pages, reps, card))
+
+
 def device_kernels(prof):
     """``({name: device ms}, count)`` of the device activities in a
     profiler window, leaving out user annotations (the optimizer's
@@ -720,7 +1084,8 @@ def profile_decode(torch, model, variables, steps=10):
     from tensorflowonspark_tpu_torch.serving import RUNNING, ServingEngine
 
     engine = ServingEngine(model, variables, max_slots=8, page_size=128,
-                           device="cuda")
+                           decode_horizon=1, prefix_share=False,
+                           preempt="off", device="cuda")
     rs = np.random.RandomState(3)
     handles = [engine.submit(rs.randint(1, model.cfg.vocab_size,
                                         size=int(rs.randint(32, 513))), 200)
@@ -1014,7 +1379,8 @@ def _serve_greedy(torch, model, variables, reqs, pa):
     from tensorflowonspark_tpu_torch.serving import FINISHED, ServingEngine
 
     engine = ServingEngine(model, variables, max_slots=8, page_size=128,
-                           decode_horizon=1, device="cuda")
+                           decode_horizon=1, prefix_share=False,
+                           preempt="off", device="cuda")
     pa.reset_launches()
     handles = [engine.submit(p, n) for p, n in reqs]
     engine.run_until_idle()
@@ -1048,7 +1414,8 @@ def _solo_teacher_forced(torch, model, reqs, streams):
             cache = decoding.init_cache(
                 model, 1, decoding._bucketed_cache_len(
                     len(p) + n, model.cfg.max_seq_len))
-            logits = model(torch.as_tensor(p[None], device="cuda").long(),
+            logits = model(torch.as_tensor(p[None],
+                                           device=model.device).long(),
                            decode=True, cache=cache)[0, -1].float()
             for j, tok in enumerate(toks):
                 solo_tok = int(torch.argmax(logits))
@@ -1067,7 +1434,7 @@ def _solo_teacher_forced(torch, model, reqs, streams):
                     worst = max(worst, ulps)
                     break
                 if j + 1 < len(toks):
-                    logits = model(torch.tensor([[tok]], device="cuda"),
+                    logits = model(torch.tensor([[tok]], device=model.device),
                                    decode=True, cache=cache)[0, -1].float()
     return compared, stops, worst
 
@@ -1684,7 +2051,8 @@ def toy_greedy_phase(torch):
     model = factory.get_model("transformer", dtype=torch.float32,
                               device="cuda", seed=0, **TOY)
     engine = ServingEngine(model, None, max_slots=4, page_size=16,
-                           num_pages=32, device="cuda")
+                           num_pages=32, decode_horizon=1,
+                           prefix_share=False, preempt="off", device="cuda")
 
     def prompt(n, seed):
         return np.random.RandomState(seed).randint(
@@ -1713,7 +2081,56 @@ def toy_greedy_phase(torch):
                 got, want))
     engine.close()
     log("greedy toy fp32: 4 engine streams equal solo generate bitwise")
+    toy_default_cases(model, prompt, solo)
     return model
+
+
+def toy_default_cases(model, prompt, solo):
+    """The engine's new features at the toy fp32 geometry on the card
+    (horizon 4, prefix sharing, swap): a request joining a decoding batch
+    with a budget no multiple of the horizon, two prefix sharers and a
+    whole-prompt duplicate (COW), and a swap and a recompute resume (three
+    100-token residents hold 24 of 31 pages; a priority-1 arrival evicts
+    the newest). Every stream equals solo ``generate`` token for token."""
+    from tensorflowonspark_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(model, None, max_slots=4, page_size=16,
+                           num_pages=32, decode_horizon=4, device="cuda")
+    cases = []
+    h = engine.submit(prompt(12, 1), 30)
+    engine.step()
+    cases.append((h, prompt(12, 1), 30))
+    cases.append((engine.submit(prompt(20, 2), 13), prompt(20, 2), 13))
+    engine.run_until_idle()
+    rs = np.random.RandomState(31)
+    pre = rs.randint(1, TOY["vocab_size"], size=32)
+    for p in [np.concatenate([pre, rs.randint(1, TOY["vocab_size"], size=3)])
+              .astype(np.int32) for _ in range(2)] + [pre.astype(np.int32)]:
+        cases.append((engine.submit(p, 10), p, 10))
+        engine.run_until_idle()
+    hits = engine.prefix_hits
+    for mode, seeds in (("swap", (80, 81, 82, 90)),
+                        ("recompute", (83, 84, 85, 91))):
+        engine.preempt = mode
+        for i, s in enumerate(seeds):
+            p = prompt(100, s)
+            cases.append((engine.submit(p, 10, priority=int(i == 3)), p, 10))
+            if i == 2:
+                engine.step()
+        engine.run_until_idle()
+    for h, p, n in cases:
+        got, want = h.result(timeout=5), solo(p, n)
+        if got != want:
+            raise AssertionError("toy default-engine stream {} != solo {}"
+                                 .format(got, want))
+    if hits < 2 or engine.pool.stats()["cow_copies_total"] < 1 \
+            or engine.preempt_swaps < 1 or engine.preempt_recomputes < 1 \
+            or engine.pool.pages_in_use:
+        raise AssertionError("toy default engine: {}".format(engine.stats()))
+    engine.close()
+    log("greedy toy fp32 horizon 4: a joining request, 2 prefix sharers + "
+        "a COW duplicate, a swap and a recompute resume: {} streams equal "
+        "solo generate bitwise".format(len(cases)))
 
 
 def full_width_teacher_forced(torch):
@@ -1727,7 +2144,8 @@ def full_width_teacher_forced(torch):
     model = factory.get_model("transformer", dtype=torch.float32,
                               device="cuda", seed=3, **GPT2_SMALL)
     engine = ServingEngine(model, None, max_slots=8, page_size=128,
-                           device="cuda")
+                           decode_horizon=1, prefix_share=False,
+                           preempt="off", device="cuda")
     rs = np.random.RandomState(7)
     reqs = [(rs.randint(1, GPT2_SMALL["vocab_size"],
                         size=int(rs.randint(32, 300))), 24)
@@ -1786,7 +2204,9 @@ def http_phase(torch, toy_model):
     from tensorflowonspark_tpu_torch.train.metrics import MetricsServer
 
     engine = ServingEngine(toy_model, None, max_slots=4, page_size=16,
-                           num_pages=32, device="cuda").start()
+                           num_pages=32, decode_horizon=1,
+                           prefix_share=False, preempt="off",
+                           device="cuda").start()
     server = MetricsServer(engine=engine)
     server.start()
     try:
@@ -1849,6 +2269,7 @@ def main():
     del flash_timed
     fa.reset_launches()
     launches = main_phase(torch, pa)
+    launches += serve_default_phase(torch, pa, card)
     if any(fa.launches.values()):
         raise AssertionError("serving launched flash kernels: {}".format(
             fa.launches))

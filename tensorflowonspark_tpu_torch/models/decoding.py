@@ -1,10 +1,11 @@
 """Autoregressive decoding (port of ``models/decoding.py``).
 
 The SOLO path: one batch of prompts, a private contiguous KV cache, a
-batched prefill (one forward writes the whole prompt's K/V) and then one
-token per step. It is the baseline the continuous-batching engine
-(:mod:`tensorflowonspark_tpu_torch.serving`) is held against: greedy
-engine streams equal this module's ``generate`` bitwise.
+batched prefill (one forward writes the whole prompt's K/V; ``stepwise``
+feeds it token by token) and then one token per step. It is the baseline
+the continuous-batching engine (:mod:`tensorflowonspark_tpu_torch.serving`)
+is held against: greedy engine streams equal this module's ``generate``
+bitwise.
 
 Sampling: greedy (``temperature=0``), temperature, top-k and top-p with
 the JAX package's filter semantics; ``eos_token`` freezes finished rows at
@@ -122,7 +123,9 @@ def generate(model, variables, prompt, max_new_tokens, rng=None,
     0). ``auto_cache=True`` allocates the cache at the power-of-two bucket
     (floor 128) covering ``prompt + max_new_tokens`` — the allocation the
     engine's prefill uses, which keeps the two bitwise comparable.
-    ``prefill="batched"`` is the only prefill of this slice.
+    ``prefill="batched"`` runs one forward over the whole prompt to fill
+    the cache; ``"stepwise"`` feeds it one token at a time (the JAX
+    package's parity mode).
     """
     load_variables(model, variables)
     cfg = model.cfg
@@ -140,10 +143,8 @@ def generate(model, variables, prompt, max_new_tokens, rng=None,
         raise ValueError(
             "prompt ({}) + max_new_tokens ({}) exceeds the decode cache "
             "length ({})".format(p, max_new_tokens, cache_len))
-    if prefill != "batched":
-        raise NotImplementedError(
-            "prefill={!r} is not ported yet; the port runs 'batched'".format(
-                prefill))
+    if prefill not in ("batched", "stepwise"):
+        raise ValueError("prefill must be 'batched' or 'stepwise'")
     if top_k:
         top_k = int(min(int(top_k), cfg.vocab_size))
         if top_k == cfg.vocab_size:
@@ -159,8 +160,13 @@ def generate(model, variables, prompt, max_new_tokens, rng=None,
     pad = eos if pad_token is None else int(pad_token)
 
     cache = init_cache(model, b, cache_len)
-    logits = model(prompt, decode=True, cache=cache)
-    tok = _sample(logits[:, -1], rng, temperature, top_k, top_p)
+    if prefill == "batched":
+        last_logits = model(prompt, decode=True, cache=cache)[:, -1]
+    else:
+        for t in range(p):
+            last_logits = model(prompt[:, t:t + 1], decode=True,
+                                cache=cache)[:, 0]
+    tok = _sample(last_logits, rng, temperature, top_k, top_p)
     done = tok == eos if eos >= 0 else None
     out = [tok]
     for _ in range(max_new_tokens - 1):

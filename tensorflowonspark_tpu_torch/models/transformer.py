@@ -54,14 +54,16 @@ from tensorflowonspark_tpu_torch.ops.paged_attention import (  # noqa: F401
 class TransformerConfig:
     """Same fields and validation as the JAX ``TransformerConfig``;
     ``dtype`` is a torch dtype. The port runs ``attention_impl`` ``"dense"``
-    and ``"pallas"`` (the flash kernels), ``decode_attention="dense"`` and
-    ``ring_layout="contiguous"``; the sequence-parallel implementations are
-    ROADMAP A10. ``paged_attention_impl`` takes only
-    ``"pallas"``, the kernel route: the paged step always launches the
-    ``ops.paged_attention`` kernel, and the lax composition the JAX
-    package also offers is not ported. The pool geometry (``page_size``,
-    ``num_pages``, ``kv_quant``) is read from the pool tensors a call
-    passes, so a model serves any pool without a clone."""
+    and ``"pallas"`` (the flash kernels), ``decode_attention`` ``"dense"``
+    and ``"chunked"`` and ``ring_layout="contiguous"``; the
+    sequence-parallel implementations are ROADMAP A10.
+    ``paged_attention_impl`` takes only ``"pallas"``, the kernel route: the
+    paged step always launches the ``ops.paged_attention`` kernel, and the
+    lax composition the JAX package also offers is not ported — the port
+    writes the pool in place, so it needs no deferred-write window, and
+    the kernel stays the only paged route on the card. The pool geometry
+    (``page_size``, ``num_pages``, ``kv_quant``) is read from the pool
+    tensors a call passes, so a model serves any pool without a clone."""
     vocab_size: int = 32000
     num_layers: int = 12
     num_heads: int = 12
@@ -139,6 +141,57 @@ def _kv_quantize(x):
     scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-30)
     q = torch.round(xf / scale[..., None]).to(torch.int8)
     return q, scale
+
+
+def _chunked_cache_attention(q, k_all, v_all, i, cache_len, chunk=128):
+    """Decode attention that walks the contiguous cache in ``chunk``-slot
+    pieces up to the valid prefix (the JAX package's
+    ``_chunked_cache_attention``): ``ceil((i + s_step) / chunk)`` pieces
+    combined with the online-softmax recurrence, a GQA cache expanded per
+    piece. A cache of at most one chunk takes the dense formulation (plain
+    softmax, probs cast, probs @ V), as the JAX function does, so short
+    caches equal the dense path bitwise.
+
+    ``q``: (b, s_step, h, d); ``k_all``/``v_all``: (b, cache_len, h_kv,
+    d); ``i``: the cache index of the call's first token. Returns (b,
+    s_step, h, d) in q's dtype."""
+    b, s_step, h, d = q.shape
+    dev = q.device
+    scale = pa_ops._scale(d)
+    q_pos = i + torch.arange(s_step, device=dev)[:, None]
+    if cache_len <= chunk:
+        k_c, v_c = attention_ops._expand_kv(q, k_all, v_all)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k_c).float() * scale
+        visible = torch.arange(cache_len, device=dev)[None, :] <= q_pos
+        logits = torch.where(visible[None, None], logits, _NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v_c)
+    m = torch.full((b, h, s_step), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, h, s_step), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, s_step, d), dtype=torch.float32, device=dev)
+    for c in range(-(-(i + s_step) // chunk)):
+        # A cache_len that is no chunk multiple clamps the last chunk's
+        # start back; the re-covered overlap is masked below so nothing
+        # counts twice in the sums.
+        start = min(c * chunk, cache_len - chunk)
+        k_c, v_c = attention_ops._expand_kv(
+            q, k_all[:, start:start + chunk], v_all[:, start:start + chunk])
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k_c).float() * scale
+        k_pos = start + torch.arange(chunk, device=dev)[None, :]
+        visible = ((k_pos <= q_pos) & (k_pos >= c * chunk))[None, None]
+        scores = torch.where(visible, scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        # Explicit where: a fully masked row has m_new == _NEG_INF, where
+        # exp(scores - m_new) would read 1.
+        p = torch.where(visible, torch.exp(scores - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v_c.dtype), v_c)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _packed_positions(segment_ids):
@@ -313,7 +366,8 @@ class Attention(nn.Module):
         ``ops.paged_attention`` kernel walks the pages. Without them the
         cache is a private contiguous one: the call's tokens (one decode
         step or a whole prompt chunk) land at ``cache_index`` and every
-        query j attends to slots ``<= cache_index + j``."""
+        query j attends to slots ``<= cache_index + j`` (walked in
+        128-slot chunks with ``decode_attention="chunked"``)."""
         cfg = self.cfg
         if cache is None:
             raise ValueError("decode mode needs a cache")
@@ -347,10 +401,6 @@ class Attention(nn.Module):
             return pa_ops.paged_attention(
                 q.contiguous(), k_pages, v_pages, pages, seq_lens,
                 page_size=ps, k_scales=k_scales, v_scales=v_scales)
-        if cfg.decode_attention != "dense":
-            raise NotImplementedError(
-                "decode_attention={!r} is not ported yet (ROADMAP "
-                "A7b)".format(cfg.decode_attention))
         cached_k, cached_v = cache["cached_key"], cache["cached_value"]
         cache_len = cached_k.shape[1]
         i = cache["cache_index"]
@@ -361,6 +411,9 @@ class Attention(nn.Module):
         cached_k[:, i:i + s_step] = k
         cached_v[:, i:i + s_step] = v
         cache["cache_index"] = i + s_step
+        if cfg.decode_attention == "chunked":
+            return _chunked_cache_attention(q, cached_k, cached_v, i,
+                                            cache_len)
         k_all, v_all = attention_ops._expand_kv(q, cached_k, cached_v)
         logits = (torch.einsum("bqhd,bkhd->bhqk", q, k_all).float()
                   * pa_ops._scale(d))
@@ -504,7 +557,11 @@ class TransformerLM(nn.Module):
                 raise ValueError(
                     "paged decode carries one token per row; got "
                     "{}".format(seq_len))
-            x = x + self.pos_embed[seq_lens.long()][:, None, :].to(cfg.dtype)
+            # Positions past the table clamp, as the JAX gather does: only
+            # a decode horizon's junk steps past a row's budget reach them,
+            # and their outputs are never emitted.
+            pos = torch.clamp_max(seq_lens.long(), cfg.max_seq_len - 1)
+            x = x + self.pos_embed[pos][:, None, :].to(cfg.dtype)
         elif decode:
             pos = cache["position"]
             if pos + seq_len > cfg.max_seq_len:

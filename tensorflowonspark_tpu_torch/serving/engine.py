@@ -10,17 +10,28 @@ One :meth:`ServingEngine.step` is the whole scheduling policy:
    long prompt stalls the decode batch by at most one chunk per step. The
    finished prefill scatters into pool pages, its first token samples
    from the last-position logits, and the request joins the decode batch;
-3. **decode** — one step over all slots: every RUNNING row advances one
-   token through the paged-attention kernel; rows that finish free their
-   pages and slot the moment the step returns.
+3. **decode** — one call over all slots: every RUNNING row advances the
+   full ``decode_horizon`` tokens, each step through the paged-attention
+   kernel (a row that exhausts its budget or hits eos mid-call decodes
+   junk into the ``horizon - 1`` slack slots its reservation includes —
+   cheaper than throttling the whole batch to the smallest remaining
+   budget); rows that finish free their pages and slot the moment the
+   call returns, and their post-terminal tokens are dropped.
+
+A blocked higher-priority admission may **preempt** a strictly
+lower-priority resident (``preempt="swap"``: its pages go to host memory
+and come back byte for byte; ``"recompute"``: they are dropped and
+rebuilt by prefill replay). With ``prefix_share`` admission shares
+already-resident full prompt pages (copy-on-write for a whole-prompt
+match) and skips their prefill.
 
 Tokens stream to per-request handles as they exist; TTFT and end-to-end
 latency stay on the handles and in :meth:`ServingEngine.stats`.
 
 Outside this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item when turned on; the defaults are the "off" values):
-``prefix_share``, ``preempt``, ``draft_model``/``speculative_tokens``,
-``role``/``handoff_fn`` and ``decode_horizon > 1``.
+``draft_model``/``draft_variables``/``speculative_tokens`` and
+``role``/``handoff_fn``.
 """
 
 import collections
@@ -36,7 +47,7 @@ from tensorflowonspark_tpu_torch.serving import scheduler as sched_mod
 from tensorflowonspark_tpu_torch.serving.cache import PagePool
 from tensorflowonspark_tpu_torch.serving.runner import ModelRunner
 from tensorflowonspark_tpu_torch.serving.scheduler import (
-    CANCELLED, FAILED, FINISHED, RUNNING, Request, Scheduler,
+    CANCELLED, FAILED, FINISHED, PREEMPTED, RUNNING, Request, Scheduler,
 )
 
 logger = logging.getLogger(__name__)
@@ -153,7 +164,24 @@ class ServingEngine:
 
     ``num_pages`` defaults to full occupancy with no backpressure (every
     slot serving a ``max_model_len`` request); the sizing rule is ``1 +
-    sum_active ceil((prompt_i + max_new_i) / page_size)``.
+    sum_active ceil((prompt_i + max_new_i + decode_horizon - 1) /
+    page_size)`` — minus whatever prefix sharing deduplicates.
+
+    ``decode_horizon`` (default 8): decode steps per call, one host sync a
+    call; every step still writes the pool in place and launches the
+    paged-attention kernel. ``prefix_share`` (default True): admission
+    retains already-resident pages holding an identical full-page prompt
+    prefix instead of allocating, the matched prefix's prefill is skipped,
+    and the last page copies on write when a whole prompt matched.
+    ``preempt`` (default ``"swap"``): what a blocked higher-priority
+    ``submit(priority=)`` does to a strictly lower-priority resident —
+    ``"swap"`` copies its cached pages (int8 bytes and scales included) to
+    host memory and restores them byte-exact at re-admission;
+    ``"recompute"`` drops them and replays prompt + generated through the
+    chunked prefill; ``"off"`` never evicts (priority still orders
+    admission). Either resume keeps a greedy stream equal to the
+    uninterrupted one (swap bitwise).
+
     ``kv_cache_dtype="int8"`` stores the pool quantized (per-token f32
     scales beside it); prefill stays full precision and the kernel
     dequantizes in registers.
@@ -161,22 +189,27 @@ class ServingEngine:
 
     def __init__(self, model, variables=None, *, max_slots=8, page_size=128,
                  num_pages=None, max_model_len=None, prefill_chunk=512,
-                 prefill_floor=128, decode_horizon=1, max_queue=256,
-                 rng_seed=0, prefix_share=False, kv_cache_dtype="",
-                 preempt="off", draft_model=None, draft_variables=None,
+                 prefill_floor=128, decode_horizon=8, max_queue=256,
+                 rng_seed=0, prefix_share=True, kv_cache_dtype="",
+                 preempt="swap", draft_model=None, draft_variables=None,
                  speculative_tokens=0, role="both", handoff_fn=None,
                  device="cuda"):
-        if prefix_share:
-            _not_ported("prefix_share", "A7b, prefix sharing")
-        if str(preempt or "off") != "off":
-            _not_ported("preempt", "A7b, preemption")
         if draft_model is not None or draft_variables is not None \
                 or speculative_tokens:
             _not_ported("speculative decoding", "A7b, speculative verify")
         if str(role or "both") != "both" or handoff_fn is not None:
             _not_ported("role/handoff_fn", "A7b, disaggregated handoff")
-        if int(decode_horizon) != 1:
-            _not_ported("decode_horizon > 1", "A7b, decode horizon")
+        preempt = str(preempt or "off")
+        if preempt not in ("swap", "recompute", "off"):
+            raise ValueError(
+                "preempt must be 'swap', 'recompute' or 'off', got "
+                "{!r}".format(preempt))
+        self.preempt = preempt
+        self.decode_horizon = max(1, int(decode_horizon))
+        # A decode call runs every row the full horizon, so a row ending
+        # mid-call writes up to horizon - 1 junk slots past its budget:
+        # the reservation (and the table row) covers them.
+        slack = self.decode_horizon - 1
         self.device = device_info.resolve_device(device)
         model.to(self.device)
         cfg = model.cfg
@@ -192,20 +225,22 @@ class ServingEngine:
         self.kv_cache_dtype = kv_cache_dtype
         if num_pages is None:
             num_pages = 1 + int(max_slots) * PagePool.pages_needed(
-                max_model_len, page_size)
+                max_model_len + slack, page_size)
         self.pool = PagePool(num_pages, page_size)
-        self.scheduler = Scheduler(self.pool, max_slots)
+        self.scheduler = Scheduler(self.pool, max_slots,
+                                   reserve_slack=slack,
+                                   prefix_share=bool(prefix_share))
         self.runner = ModelRunner(
             model, variables, max_slots=max_slots, page_size=page_size,
             num_pages=num_pages, max_model_len=max_model_len,
             prefill_chunk=prefill_chunk, prefill_floor=prefill_floor,
-            kv_quant=kv_cache_dtype, rng_seed=rng_seed)
+            extra_table_tokens=slack, kv_quant=kv_cache_dtype,
+            rng_seed=rng_seed)
         self.pool.page_bytes = self.runner.pool_bytes // num_pages
         self.vocab_size = int(cfg.vocab_size)
         self.num_layers = int(cfg.num_layers)
         self.max_slots = int(max_slots)
         self.max_model_len = max_model_len
-        self.decode_horizon = 1
         self.max_queue = int(max_queue)
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
@@ -221,9 +256,14 @@ class ServingEngine:
         self._host_rng = np.random.default_rng(int(rng_seed))
         self._thread = None
         self._stop = threading.Event()
-        self.decode_steps = 0
-        self.decode_tokens = 0
-        self.decode_seconds = 0.0   # host time of decode steps (synced)
+        self.decode_steps = 0       # decode calls (horizon steps each)
+        self.decode_tokens = 0      # tokens those calls emitted
+        self.decode_seconds = 0.0   # host time of decode calls (synced)
+        self.prefill_seconds = 0.0  # host time of prefill chunks
+        self.prefix_hits = 0
+        self.prefix_tokens_shared = 0   # prefill tokens skipped via sharing
+        self.preempt_swaps = 0          # victims swapped to host memory
+        self.preempt_recomputes = 0     # victims dropped for prefill replay
         self.requests_accepted = 0
         self.requests_finished = 0
         self.requests_cancelled = 0
@@ -241,8 +281,10 @@ class ServingEngine:
         """Queue one generation request; returns a :class:`RequestHandle`
         streaming its tokens. ``top_k``/``top_p`` filter temperature
         sampling per request (ignored for greedy rows); ``priority``
-        (higher first) orders admission. Raises ValueError for a request
-        that can never run and :class:`QueueFull` past ``max_queue``."""
+        (higher first) orders admission and lets the request preempt a
+        strictly lower-priority resident (``preempt=`` mode). Raises
+        ValueError for a request that can never run and :class:`QueueFull`
+        past ``max_queue``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must contain at least one token")
@@ -332,7 +374,10 @@ class ServingEngine:
             req = self._cancels.pop()
             if req.state in sched_mod.TERMINAL:
                 continue
-            if req.state == sched_mod.QUEUED:
+            if req.state in (sched_mod.QUEUED, PREEMPTED):
+                # A preempted request lives in the waiting queue too; a
+                # cancel mid-swap pulls it out before release drops its
+                # host copy — nothing survives, device or host.
                 self.scheduler.drop_queued(req)
             if req is self._prefill_req:
                 self._prefill_req = None
@@ -343,23 +388,80 @@ class ServingEngine:
     def _advance_prefill(self):
         """Admit (when idle) and advance the in-flight prefill by one
         chunk; on the final chunk, scatter to pages and join the decode
-        batch with the first sampled token."""
+        batch with the first sampled token. A blocked admission may
+        preempt one victim per call; a preempted request re-admits here
+        too — swap mode restores its host page copy and rejoins directly,
+        recompute mode replays prompt + generated through the chunk flow
+        below (no first token is re-sampled either way: the pending
+        decode input is its newest generated token)."""
         if self._prefill_req is None:
             admitted = self.scheduler.next_admission()
             if admitted is None:
-                return False
+                return self._maybe_preempt()
             self._publish()
+            if admitted.swap_pages is not None:
+                self._swap_in(admitted)
+                return True
+            if admitted.generated and admitted.prefix_len >= \
+                    admitted.cache_len:
+                # Recompute resume whose whole cached extent re-matched
+                # the prefix index: nothing to replay, rejoin directly.
+                self._rejoin(admitted)
+                return True
             self._prefill_req = admitted
-        req = self._prefill_req
+        t0 = time.perf_counter()
+        try:
+            return self._prefill_chunk(self._prefill_req)
+        finally:
+            self.prefill_seconds += time.perf_counter() - t0
+
+    def _prefill_chunk(self, req):
         runner = self.runner
-        src = req.prompt
+        if req.prefill_cache is None and req.generated:
+            # Recompute resume: the "prompt" this prefill rebuilds is
+            # every token whose K/V the cache held at preemption.
+            req.replay = req.replay_tokens()
+        src = req.replay if req.replay is not None else req.prompt
         p = int(src.shape[0])
         if req.prefill_cache is None:
             req.prefill_alloc = runner.prefill_alloc(p)
-            req.prefill_cache = runner.new_prefill_cache(req.prefill_alloc)
+            if req.cow_src is not None:
+                # Copy-on-write, device half: the reservation's page
+                # ``shared_pages`` is a fresh private page standing in for
+                # the shared one the tail token overwrites — fill it with
+                # that page's content, then drop the retained source
+                # reference (kept alive across the admission->copy
+                # window).
+                runner.copy_pages([req.cow_src],
+                                  [req.pages[req.shared_pages]])
+                self.pool.free([req.cow_src])
+                req.cow_src = None
+            if req.prefix_len > 0:
+                # Prefix sharing: the retained pages (and the COW copy)
+                # already hold positions [0, prefix_len) — gather them
+                # into the private cache and prefill only the tail.
+                req.prefill_start = req.prefix_len
+                req.prefill_pos = req.prefix_len
+                req.prefill_cache = runner.gather_prefix(
+                    req.pages, req.prefix_len, req.prefill_alloc)
+                self.prefix_hits += 1
+                self.prefix_tokens_shared += req.prefix_len
+            else:
+                req.prefill_start = 0
+                req.prefill_cache = runner.new_prefill_cache(
+                    req.prefill_alloc)
         alloc = req.prefill_alloc
         start = req.prefill_pos
-        chunk_len = min(alloc, runner.prefill_chunk)
+        if req.prefill_start and start >= p - 1:
+            # COW tail: re-run ONLY the prompt's last token (a whole-
+            # prompt prefix match; everything else is pool-resident).
+            chunk_len = 1
+        else:
+            chunk_len = min(alloc, runner.prefill_chunk)
+            if start:
+                # A shared-prefix tail starts mid-cache: the chunk must
+                # fit the remaining allocation.
+                chunk_len = min(chunk_len, alloc - start)
         tokens = np.zeros((1, chunk_len), np.int32)
         real = min(chunk_len, p - start)
         tokens[0, :real] = src[start:start + real]
@@ -370,13 +472,40 @@ class ServingEngine:
         req.prefill_pos = start + chunk_len
         if not is_last:
             return True
-        # Prefill complete: first token from the prompt's last logits,
-        # K/V into this request's pages, join the decode batch.
-        first = self._sample_host(last_logits.cpu().numpy(),
-                                  req.temperature, req.top_k, req.top_p)
-        runner.scatter(req.prefill_cache, req.pages, p, alloc)
+        resuming = req.replay is not None
+        # Prefill complete: first token from the prompt's last logits
+        # (fresh requests only — a resume's pending input is its newest
+        # generated token), K/V into this request's pages, join the
+        # decode batch.
+        if not resuming:
+            first = self._sample_host(last_logits.cpu().numpy(),
+                                      req.temperature, req.top_k, req.top_p)
+        runner.scatter(req.prefill_cache, req.pages, p, alloc,
+                       start=req.prefill_start)
+        # Publish this prompt's own full pages in the prefix index so
+        # later arrivals can share them (first writer wins). Pages filled
+        # by DECODE tokens never register: a replay's keys still cover
+        # only full PROMPT pages.
+        for j in range(req.shared_pages, len(req.prefix_keys)):
+            self.pool.register_prefix(req.prefix_keys[j], req.pages[j])
         req.prefill_cache = None
+        req.replay = None
         self._prefill_req = None
+        if resuming:
+            self._rejoin(req)
+            return True
+        self._set_row(req)
+        req.state = RUNNING
+        req.t_first = time.perf_counter()
+        self._ttft.append(req.t_first - req.t_submit)
+        self._emit_token(req, first)
+        if req.state == RUNNING:  # not finished by eos/budget already
+            self._toks[req.slot] = req.generated[-1]
+            self._lens[req.slot] = req.cache_len
+            self._publish()
+        return True
+
+    def _set_row(self, req):
         slot = req.slot
         row = np.zeros((self.runner.table_width,), np.int32)
         row[:len(req.pages)] = req.pages
@@ -384,35 +513,105 @@ class ServingEngine:
         self._temps[slot] = req.temperature
         self._top_ks[slot] = req.top_k
         self._top_ps[slot] = req.top_p
-        req.state = RUNNING
-        req.t_first = time.perf_counter()
-        self._ttft.append(req.t_first - req.t_submit)
-        self._emit_token(req, first)
-        if req.state == RUNNING:  # not finished by eos/budget already
-            self._toks[slot] = req.generated[-1]
-            self._lens[slot] = req.cache_len
-            self._publish()
+
+    # -- preemption ----------------------------------------------------------
+
+    def _maybe_preempt(self):
+        """One preemption attempt for the blocked best-waiting request:
+        pick the victim (strictly lower priority; lowest class first,
+        newest within it), swap its cached pages to host memory (or drop
+        them for prefill replay) and release everything through the
+        scheduler's choke point. One victim per engine step, so a
+        multi-victim reservation converges while decode keeps running.
+        Returns True when a victim was evicted."""
+        if self.preempt == "off":
+            return False
+        best = self.scheduler.best_waiting()
+        if best is None:
+            return False
+        victim = self.scheduler.preemption_victim(best.priority)
+        if victim is None:
+            return False
+        swap = (self.preempt == "swap" and victim.state == RUNNING
+                and bool(victim.generated))
+        if swap:
+            # Host copy of every page with real content — the cached
+            # extent, int8 bytes and scales included — taken BEFORE
+            # release, while the pages are still this request's.
+            n = self.pool.required(victim.cache_len)
+            victim.swap_pages = self.runner.extract_pages(victim.pages[:n])
+            victim.swap_count = n
+        if victim is self._prefill_req:
+            self._prefill_req = None
+        if not self.scheduler.release(victim, PREEMPTED):
+            victim.swap_pages = None  # raced a terminal transition
+            victim.swap_count = 0
+            return False
+        if swap:
+            self.preempt_swaps += 1
+        else:
+            self.preempt_recomputes += 1
+        self._clear_free_slots()
+        self._publish()
         return True
+
+    def _swap_in(self, req):
+        """Swap-mode resume: restore the host page copy byte-exact into
+        the fresh (private) reservation and rejoin the decode batch — no
+        prefill, no re-sampled token."""
+        self.runner.restore_pages(req.swap_pages,
+                                  req.pages[:req.swap_count])
+        req.swap_pages = None
+        req.swap_count = 0
+        # The restored leading pages hold the prompt's full pages byte for
+        # byte: publish their chain keys (a no-op where the original
+        # entries survive — first writer wins). Decode writes only
+        # positions >= cache_len, past every full prompt page, so the
+        # registered content stays immutable.
+        for key, page in zip(req.prefix_keys, req.pages):
+            self.pool.register_prefix(key, page)
+        self._rejoin(req)
+
+    def _rejoin(self, req):
+        """Put a resumed request back in the decode batch: its cache again
+        holds prompt + generated[:-1] and the pending input is its newest
+        generated token — the state it was preempted in, so the continued
+        greedy stream is the uninterrupted one."""
+        self._set_row(req)
+        req.state = RUNNING
+        self._toks[req.slot] = req.generated[-1]
+        self._lens[req.slot] = req.cache_len
+        self._publish()
+
+    # -- decode --------------------------------------------------------------
 
     def _decode_once(self):
         running = [r for r in self.scheduler.slots
                    if r is not None and r.state == RUNNING]
         if not running:
             return False
+        # Always the full horizon: a row that finishes mid-call decodes
+        # junk into its reserved slack instead of throttling every other
+        # row to the smallest remaining budget.
+        horizon = self.decode_horizon
         self.decode_steps += 1
         sampling = any(r.temperature > 0.0 for r in running)
         t0 = time.perf_counter()
         out = self.runner.decode(
             self._toks, self._table, self._lens, self._temps,
-            self._top_ks, self._top_ps, sampling=sampling,
+            self._top_ks, self._top_ps, horizon=horizon, sampling=sampling,
             filtered=sampling and any(
                 r.temperature > 0.0 and (r.top_k or r.top_p)
                 for r in running))
-        # decode() returns host values, so the step has finished here.
+        # decode() returns host values, so the call has finished here.
         self.decode_seconds += time.perf_counter() - t0
-        self.decode_tokens += len(running)
         for req in running:
-            self._emit_token(req, int(out[req.slot, 0]))
+            row = out[req.slot]
+            for j in range(horizon):
+                self._emit_token(req, int(row[j]))
+                self.decode_tokens += 1
+                if req.state != RUNNING:
+                    break
             if req.state == RUNNING:
                 self._toks[req.slot] = req.generated[-1]
                 self._lens[req.slot] = req.cache_len
@@ -568,9 +767,16 @@ class ServingEngine:
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
             "decode_seconds": self.decode_seconds,
+            "prefill_seconds": self.prefill_seconds,
             "decode_horizon": self.decode_horizon,
             "max_model_len": self.max_model_len,
             "kv_cache_dtype": self.kv_cache_dtype or "fp",
+            "prefix_share": self.scheduler.prefix_share,
+            "prefix_hits": self.prefix_hits,
+            "prefix_tokens_shared": self.prefix_tokens_shared,
+            "preempt_mode": self.preempt,
+            "preempt_swaps": self.preempt_swaps,
+            "preempt_recomputes": self.preempt_recomputes,
             "peak_active": self.peak_active,
             "ttft_ms_p50": ttft["p50"],
             "ttft_ms_p95": ttft["p95"],

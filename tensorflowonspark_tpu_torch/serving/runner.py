@@ -7,22 +7,35 @@ Owns the paged device pool and runs the engine's device work:
   same masking), in chunks of ``prefill_chunk`` tokens. Allocation is
   bucketed (power of two, floor ``prefill_floor``, up to one chunk; then
   chunk multiples).
+* **gather** — the prefix-sharing inverse of scatter: fills a fresh
+  private prefill cache from the pool pages a request RETAINED at
+  admission (dequantizing an int8 pool) and advances its index to the
+  shared extent, so the tail chunks prefill against it as a chunked
+  prefill resumes against its own earlier chunks.
 * **scatter** — moves a finished prefill's K/V out of the private cache
-  into the request's pool pages; padding positions go to the trash page. Quantizes on the way in when the pool
-  is int8.
+  into the request's pool pages; positions below ``start`` (the shared
+  prefix, already pool-resident) and padding positions go to the trash
+  page. Quantizes on the way in when the pool is int8.
+* **copy** — the device half of copy-on-write: duplicates whole pages
+  (values and scales); the ledger half is ``PagePool.admit``/``cow``.
+* **extract / restore** — the swap half of preemption: whole pages (int8
+  bytes and scales included) to host memory and back, byte for byte.
 * **decode** — the continuous-batching step: ``max_slots`` rows, each at
   its own position, K/V appended into pool pages through the page table
   and the ``ops.paged_attention`` kernel walking them; per-row greedy or
   temperature sampling with optional per-row top-k/top-p filters (the
   filter semantics of ``models.decoding._sample``, vectorized per row),
-  drawing from a ``torch.Generator`` on the device.
+  drawing from a ``torch.Generator`` on the device. ``horizon`` steps run
+  in one call with one host sync at its end.
 
 The pool layout is the JAX package's: per layer ``k_pages``/``v_pages``
 ``(num_pages, page_size, h_kv, d)`` in the model dtype or int8, plus
 ``k_scales``/``v_scales`` ``(num_pages, page_size, h_kv)`` f32 when int8.
 Writes land in place (PyTorch writes pool pages without copying the
-pool), so the multi-step window the JAX runner needs on XLA:CPU has no
-counterpart here, and one decode call is one step (``horizon=1``).
+pool), so a horizon of k is k single-token steps, each writing its token
+into the pool before the kernel reads it: the deferred-write window the
+JAX runner needs (XLA cannot scatter in place) has no counterpart here,
+and the paged kernel stays the only paged-attention route.
 """
 
 import numpy as np
@@ -30,7 +43,7 @@ import torch
 
 from tensorflowonspark_tpu_torch.models import decoding
 from tensorflowonspark_tpu_torch.models.transformer import (
-    _NEG_INF, _kv_quantize,
+    _NEG_INF, _kv_dequantize, _kv_quantize,
 )
 from tensorflowonspark_tpu_torch.serving.cache import PagePool
 
@@ -44,7 +57,8 @@ class ModelRunner:
 
     def __init__(self, model, variables, *, max_slots, page_size,
                  num_pages, max_model_len=None, prefill_chunk=512,
-                 prefill_floor=128, kv_quant="", rng_seed=0):
+                 prefill_floor=128, extra_table_tokens=0, kv_quant="",
+                 rng_seed=0):
         decoding.load_variables(model, variables)
         cfg = model.cfg
         self.model = model
@@ -62,10 +76,12 @@ class ModelRunner:
         self.prefill_floor = max(1, int(prefill_floor))
         self.max_model_len = int(min(
             max_model_len or cfg.max_seq_len, cfg.max_seq_len))
-        # Enough table entries for the longest request; same rounding rule
-        # as the scheduler.
-        self.table_width = PagePool.pages_needed(self.max_model_len,
-                                                 self.page_size)
+        # Enough table entries for the longest request PLUS the engine's
+        # reservation slack (a max-length request holds ceil((max_model_len
+        # + horizon - 1) / page_size) pages, each in its table row); same
+        # rounding rule as the scheduler.
+        self.table_width = PagePool.pages_needed(
+            self.max_model_len + int(extra_table_tokens), self.page_size)
         self.cache = self._init_paged_cache()
         self.pool_bytes = int(sum(
             t.numel() * t.element_size()
@@ -133,25 +149,63 @@ class ModelRunner:
         logits = self.model(toks, decode=True, cache=cache)
         return cache, logits[0, int(last_idx)].float()
 
-    # -- scatter -------------------------------------------------------------
+    # -- gather (prefix sharing) ---------------------------------------------
 
-    @torch.no_grad()
-    def scatter(self, pcache, page_row, true_len, alloc):
-        """Copy cache slots ``[0, true_len)`` of a finished prefill into
-        the request's pool pages (``page_row``: its page ids); padding
-        slots go to the trash page. Quantizes on the way in when the pool
-        is int8."""
-        alloc = int(alloc)
+    def _slot_ids(self, page_row, alloc):
+        """Flat pool slot of each private-cache position ``[0, alloc)`` of
+        a request whose pages are ``page_row``; positions past the table
+        (an allocation larger than max_model_len) clamp to its last
+        entry — the callers mask or trash them."""
         ps = self.page_size
         row = np.zeros((self.table_width,), np.int64)
         row[:len(page_row)] = page_row
-        pos = np.arange(alloc)
-        # Slots past the table (an allocation larger than max_model_len)
-        # are padding; clamp their lookup, their destination is trash.
-        page = row[np.minimum(pos // ps, self.table_width - 1)]
-        dest = np.where(pos < int(true_len), page * ps + pos % ps, 0)
+        pos = np.arange(int(alloc))
+        return row[np.minimum(pos // ps, self.table_width - 1)] * ps + pos % ps
+
+    @torch.no_grad()
+    def gather_prefix(self, page_row, extent, alloc):
+        """A private prefill cache whose first ``extent`` slots hold the
+        pool-resident K/V of the request's RETAINED prefix pages, with its
+        index and position advanced to ``extent`` — the tail chunks then
+        run against it exactly as a chunked prefill resumes against its
+        own earlier chunks (the shared prefix's prefill never runs).
+        Dequantizes when the pool is int8, so the tail reads the values
+        the decode walk would."""
+        extent = int(extent)
+        pcache = self.new_prefill_cache(alloc)
+        src = torch.as_tensor(self._slot_ids(page_row, alloc)[:extent],
+                              device=self.device)
+        n = self.num_pages * self.page_size
+        for key, layer in self.cache.items():
+            for name, dst in (("k", "cached_key"), ("v", "cached_value")):
+                pages = layer[name + "_pages"]
+                rows = pages.view((n,) + pages.shape[2:]).index_select(0, src)
+                scales = layer.get(name + "_scales")
+                out = pcache[key][dst]
+                if scales is not None:
+                    rows = _kv_dequantize(
+                        rows, scales.view(n, -1).index_select(0, src),
+                        out.dtype)
+                out[0, :extent] = rows.to(out.dtype)
+            pcache[key]["cache_index"] = extent
+        pcache["position"] = extent
+        return pcache
+
+    # -- scatter -------------------------------------------------------------
+
+    @torch.no_grad()
+    def scatter(self, pcache, page_row, true_len, alloc, start=0):
+        """Copy cache slots ``[start, true_len)`` of a finished prefill
+        into the request's pool pages (``page_row``: its page ids);
+        positions below ``start`` (the shared prefix — those pages are
+        other holders' too and already hold the K/V) and padding slots go
+        to the trash page. Quantizes on the way in when the pool is
+        int8."""
+        pos = np.arange(int(alloc))
+        dest = np.where((pos >= int(start)) & (pos < int(true_len)),
+                        self._slot_ids(page_row, alloc), 0)
         dest = torch.as_tensor(dest, device=self.device)
-        n = self.num_pages * ps
+        n = self.num_pages * self.page_size
         for key, layer in self.cache.items():
             k_rows = pcache[key]["cached_key"][0]
             v_rows = pcache[key]["cached_value"][0]
@@ -166,41 +220,106 @@ class ModelRunner:
             layer["v_pages"].view(n, h_kv, d).index_put_(
                 (dest,), v_rows.to(layer["v_pages"].dtype))
 
+    # -- copy-on-write and swap ----------------------------------------------
+
+    def _page_index(self, pages):
+        return torch.as_tensor(np.asarray(pages, np.int64),
+                               device=self.device)
+
+    @torch.no_grad()
+    def copy_pages(self, src_pages, dst_pages):
+        """Duplicate whole pool pages (values AND scales) — the device
+        half of copy-on-write: the ledger has already given the writer a
+        fresh page; this fills it with the shared page's content so the
+        writer's partial-page scatter lands on a private copy."""
+        if len(src_pages) != len(dst_pages):
+            raise ValueError("src/dst page lists must match")
+        if not src_pages:
+            return
+        src, dst = self._page_index(src_pages), self._page_index(dst_pages)
+        for layer in self.cache.values():
+            for t in layer.values():
+                t.index_copy_(0, dst, t.index_select(0, src))
+
+    @torch.no_grad()
+    def extract_pages(self, pages):
+        """Host copy of whole pool pages — the swap-out half of
+        preemption: the victim's cached K/V (int8 bytes AND scales when
+        the pool is quantized) leave the device so its pages can serve a
+        higher-priority request; :meth:`restore_pages` writes the exact
+        bytes back at re-admission, which is why a swapped-and-resumed
+        greedy stream is bitwise the uninterrupted one. Returns ``{layer:
+        {pool key: (n, ...) CPU tensor}}``. Read-only on the pool."""
+        if not pages:
+            return {}
+        idx = self._page_index(pages)
+        return {key: {name: t.index_select(0, idx).cpu()
+                      for name, t in layer.items()}
+                for key, layer in self.cache.items()}
+
+    @torch.no_grad()
+    def restore_pages(self, host_tree, pages):
+        """Swap-in: write an :meth:`extract_pages` copy into (freshly
+        allocated, private) pool pages — values and scales land byte for
+        byte as extracted, at the new page ids."""
+        if not pages:
+            return
+        idx = self._page_index(pages)
+        for key, layer in self.cache.items():
+            for name, t in host_tree[key].items():
+                layer[name].index_copy_(0, idx, t.to(self.device))
+
     # -- decode --------------------------------------------------------------
 
     @torch.no_grad()
-    def decode(self, toks, table, lens, temps, top_ks, top_ps,
+    def decode(self, toks, table, lens, temps, top_ks, top_ps, horizon=1,
                sampling=True, filtered=False):
-        """One continuous decode step over every slot.
+        """``horizon`` continuous decode steps over every slot, in one
+        call.
 
         ``toks``: (max_slots,) each row's input token; ``table``:
         (max_slots, table_width) page table; ``lens``: (max_slots,) tokens
         already in each row's cache (the input token's position);
         ``temps``: per-row temperature (0 = greedy); ``top_ks``/``top_ps``:
-        per-row filters (0 = off). Sampling draws from the runner's
-        ``torch.Generator`` on the device, seeded from ``rng_seed``.
-        Returns (max_slots, 1) int32 numpy. ``sampling=False`` skips the
-        sampler (no row samples), ``filtered=False`` the per-row sort."""
+        per-row filters (0 = off). Step j feeds each row the token step
+        j - 1 produced at position ``lens + j`` — both stay on the device —
+        so every step writes its token's K/V into the pool before the
+        kernel reads it. Sampling draws from the runner's
+        ``torch.Generator`` on the device, one draw a step, as ``horizon``
+        calls of one step would. Returns (max_slots, horizon) int32 numpy:
+        the host syncs once, at the end. The caller must ensure every
+        active row's reservation covers ``horizon - 1`` tokens past its
+        budget (inactive rows write the trash page). ``sampling=False``
+        skips the sampler (no row samples), ``filtered=False`` the per-row
+        sort."""
         dev = self.device
-        toks = torch.as_tensor(np.asarray(toks, np.int32), device=dev)
+        tok = torch.as_tensor(np.asarray(toks, np.int32), device=dev)
         table = torch.as_tensor(np.asarray(table, np.int32), device=dev)
         lens = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
-        logits = self.model(toks[:, None].long(), decode=True, pages=table,
-                            seq_lens=lens, cache=self.cache)
-        logits = logits[:, 0].float()
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-        if not sampling:
-            return greedy[:, None].cpu().numpy()
-        temps = torch.as_tensor(np.asarray(temps, np.float32), device=dev)
-        tks = torch.as_tensor(np.asarray(top_ks, np.int64), device=dev)
-        tps = torch.as_tensor(np.asarray(top_ps, np.float32), device=dev)
-        scaled = logits / torch.clamp_min(temps, 1e-6)[:, None]
-        if filtered:
-            scaled = _filter_rows(scaled, tks, tps)
-        noise = decoding._gumbel(scaled.shape, self.rng, dev)
-        sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
-        out = torch.where(temps <= 0.0, greedy, sampled)
-        return out[:, None].cpu().numpy()
+        if sampling:
+            temps = torch.as_tensor(np.asarray(temps, np.float32),
+                                    device=dev)
+            tks = torch.as_tensor(np.asarray(top_ks, np.int64), device=dev)
+            tps = torch.as_tensor(np.asarray(top_ps, np.float32),
+                                  device=dev)
+        out = []
+        for _ in range(int(horizon)):
+            logits = self.model(tok[:, None].long(), decode=True,
+                                pages=table, seq_lens=lens,
+                                cache=self.cache)
+            logits = logits[:, 0].float()
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            if sampling:
+                scaled = logits / torch.clamp_min(temps, 1e-6)[:, None]
+                if filtered:
+                    scaled = _filter_rows(scaled, tks, tps)
+                noise = decoding._gumbel(scaled.shape, self.rng, dev)
+                sampled = torch.argmax(scaled + noise, dim=-1).to(
+                    torch.int32)
+                tok = torch.where(temps <= 0.0, tok, sampled)
+            out.append(tok)
+            lens = lens + 1
+        return torch.stack(out, dim=1).cpu().numpy()
 
 
 def _filter_rows(scaled, tks, tps):

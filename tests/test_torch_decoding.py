@@ -5,7 +5,8 @@ Greedy ``generate`` emits exactly JAX ``decoding.generate(auto_cache=True)``
 across ``jax.random`` and ``torch.Generator``, so the filter semantics are
 pinned instead: both ``_sample``s get the same logits and the same numpy
 Gumbel noise (JAX's categorical is argmax(logits + Gumbel)) and must pick
-the same tokens.
+the same tokens. ``prefill="stepwise"``, a ``decode_attention="chunked"``
+model (solo and under the engine) are held against JAX the same way.
 """
 
 import flax.linen as nn
@@ -15,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from tensorflowonspark_tpu import serving as jax_serving
 from tensorflowonspark_tpu.models import decoding as jax_decoding
 from tensorflowonspark_tpu.models import factory as jax_factory
-from tensorflowonspark_tpu_torch import convert
+from tensorflowonspark_tpu_torch import convert, serving
 from tensorflowonspark_tpu_torch.models import decoding, factory
+from torch_serving_common import one_torch_thread  # noqa: F401
 
 LM_KW = dict(vocab_size=64, num_layers=2, num_heads=4, embed_dim=32,
              mlp_dim=64, max_seq_len=128, remat=False)
@@ -117,6 +120,85 @@ def test_generate_validation_is_loud():
         decoding.generate(tm, None, np.zeros((1, 0), np.int32), 4)
     with pytest.raises(ValueError):
         decoding.generate(tm, None, _prompt((1, 4), 5), 4, top_p=1.5)
-    with pytest.raises(NotImplementedError):
-        decoding.generate(tm, None, _prompt((1, 4), 5), 4,
-                          prefill="stepwise")
+    jm, variables, _ = _pair()
+    with pytest.raises(ValueError, match="prefill must be"):
+        decoding.generate(tm, None, _prompt((1, 4), 5), 4, prefill="bogus")
+    with pytest.raises(ValueError, match="prefill must be"):
+        jax_decoding.generate(jm, variables, _prompt((1, 4), 5), 4,
+                              prefill="bogus")
+
+
+CHUNKED_KW = dict(LM_KW, max_seq_len=256, decode_attention="chunked")
+
+
+def _chunked_pair():
+    """The JAX and port models with ``decode_attention="chunked"`` and a
+    256-token context (two 128-slot chunks), on one set of weights."""
+    if "chunked" not in _STATE:
+        jm = jax_factory.get_model("transformer", dtype=jnp.float32,
+                                   **CHUNKED_KW)
+        params = nn.meta.unbox(jax.jit(jm.init)(
+            jax.random.PRNGKey(2), jnp.zeros((1, 8), jnp.int32))["params"])
+        tm = factory.get_model("transformer", dtype=torch.float32,
+                               device="cpu", **CHUNKED_KW)
+        decoding.load_variables(
+            tm, convert.params_from_flax(jax.device_get(params), tm.cfg))
+        _STATE["chunked"] = (jm, {"params": params}, tm)
+    return _STATE["chunked"]
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_chunked_decode_generate_matches_jax():
+    """``decode_attention="chunked"``: a prompt of 150 with 40 new tokens
+    runs in the 256 bucket, so the prefill and every step walk two chunks;
+    greedy tokens equal JAX's."""
+    jm, variables, tm = _chunked_pair()
+    prompt = _prompt((2, 150), 11)
+    ref = np.asarray(jax_decoding.generate(jm, variables, prompt, 40,
+                                           auto_cache=True))
+    got = decoding.generate(tm, None, prompt, 40, auto_cache=True)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_stepwise_prefill_generate_matches_jax():
+    """``prefill="stepwise"`` (the prompt fed token by token) emits JAX's
+    stepwise greedy tokens, and here also the batched prefill's."""
+    jm, variables, tm = _pair()
+    prompt = _prompt((2, 7), 12)
+    ref = np.asarray(jax_decoding.generate(jm, variables, prompt, 10,
+                                           prefill="stepwise",
+                                           auto_cache=True))
+    got = decoding.generate(tm, None, prompt, 10, prefill="stepwise",
+                            auto_cache=True)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        got.numpy(), decoding.generate(tm, None, prompt, 10,
+                                       auto_cache=True).numpy())
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_engine_over_chunked_model_matches_jax_engine():
+    """The engine's private prefill cache runs the chunked walk (a
+    150-token prompt prefills into the 256 allocation in two 128-slot
+    chunks); streams equal the JAX engine's over the same chunked model
+    and the port's solo ``generate``, at the engines' defaults (horizon
+    8, prefix sharing, swap preemption)."""
+    jm, variables, tm = _chunked_pair()
+    loads = [(_prompt((150,), 13), 20), (_prompt((40,), 14), 30),
+             (_prompt((9,), 15), 12)]
+    eng = serving.ServingEngine(tm, None, max_slots=3, page_size=16,
+                                num_pages=40, device="cpu")
+    jeng = jax_serving.ServingEngine(jm, variables, max_slots=3,
+                                     page_size=16, num_pages=40)
+    assert eng.runner.prefill_alloc(150) == 256
+    handles = [eng.submit(p, n) for p, n in loads]
+    jhandles = [jeng.submit(p, n) for p, n in loads]
+    eng.run_until_idle()
+    jeng.run_until_idle()
+    for (p, n), h, jh in zip(loads, handles, jhandles):
+        got = h.result(timeout=5)
+        assert got == jh.result(timeout=5)
+        assert got == decoding.generate(
+            tm, None, p[None], n, auto_cache=True)[0, len(p):].tolist()
+    assert eng.pool.pages_in_use == 0

@@ -59,7 +59,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "tensorflowonspark_tpu_torch.serving.engine" in doc["imported"]
     for name in ("ops.paged_attention", "ops.flash_attention",
                  "ops.attention", "ops.fused_resnet_block", "models.resnet",
-                 "models.factory", "convert", "initializers", "fs", "util",
+                 "models.factory", "models.transformer", "models.decoding",
+                 "serving.scheduler", "serving.runner", "serving.cache",
+                 "convert", "initializers", "fs", "util",
                  "train.trainer", "train.losses", "train.checkpoint",
                  "train.prefetch", "train.tbevents", "train.metrics"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]

@@ -49,7 +49,11 @@ def _models():
 
 
 def _engine(**kw):
-    args = dict(max_slots=4, page_size=16, num_pages=32, device="cpu")
+    # The horizon-1, no-sharing, no-preemption engine these tests pinned
+    # before the defaults became the JAX engine's; the new features have
+    # their own files (tests/test_torch_serving_{horizon,prefix,preempt}).
+    args = dict(max_slots=4, page_size=16, num_pages=32, decode_horizon=1,
+                prefix_share=False, preempt="off", device="cpu")
     args.update(kw)
     return serving.ServingEngine(_models()["tm"], None, **args)
 
@@ -285,9 +289,19 @@ def test_engine_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(prefix_share=True), dict(preempt="swap"),
-    dict(speculative_tokens=2), dict(role="prefill"),
-    dict(decode_horizon=4)], ids=lambda kw: next(iter(kw)))
+    dict(speculative_tokens=2), dict(draft_model=object()),
+    dict(draft_variables={}), dict(role="prefill"),
+    dict(handoff_fn=lambda req, payload: True)],
+    ids=lambda kw: next(iter(kw)))
 def test_arguments_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
         _engine(**kw)
+
+
+def test_preempt_mode_is_validated_like_jax():
+    with pytest.raises(ValueError, match="preempt must be"):
+        _engine(preempt="bogus")
+    with pytest.raises(ValueError, match="preempt must be"):
+        jax_serving.ServingEngine(
+            _models()["jm"], _models()["variables"], max_slots=1,
+            page_size=16, num_pages=4, preempt="bogus")

@@ -88,6 +88,7 @@ def _run_engines(variant):
         eng = serving.ServingEngine(
             m["tm"], None, max_slots=4, page_size=16, num_pages=32,
             prefill_chunk=prefill_chunk, kv_cache_dtype=kv_cache_dtype,
+            decode_horizon=1, prefix_share=False, preempt="off",
             device="cpu")
         chunks = []
         step = eng.runner.prefill_step
