@@ -70,14 +70,34 @@ calls and fails (non-zero exit) if any phase fails:
                b256 224x224 bf16, SGD 0.1 momentum 0.9: 4 steps on one
                batch, finite and falling losses, running statistics moved,
                images/s) and a profiled window;
-6. greedy   — engine streams equal solo ``generate`` bitwise at the toy
+6. cluster  — the README's Quickstart on the port: ``cluster.run`` over
+               ``LocalBackend`` executors in FEED mode, ``c.train``,
+               ``c.inference``, ``c.shutdown``. (a) one executor trains
+               GPT-2-small width (b8 x s1024 bf16, ``attention_impl=
+               "pallas"``, AdamW 3e-4) 6 steps through ``sync_batches``,
+               B1-B3 launched 12 times a step in the executor, every
+               step's loss equal to the driver's in-process trainer on the
+               same batch; (c) ``c.inference`` answers one greedy token per
+               item, by partition, equal to in-process ``predict`` (B1 12
+               launches a batch); (b) two executors share the card, data=2
+               over gloo (NCCL refuses two ranks on one card), 2 layers at
+               GPT-2-small width: replicas bitwise equal after every step,
+               one rank on a lockstep zero batch, losses and the update
+               against one in-process trainer on the concatenated global
+               batches; (d) the executor's step (CUDA events) against the
+               in-process step, the feed wait a step, each rank's peak
+               memory, and ``cluster.run`` to the first step;
+7. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry (horizon 1; and horizon 4 with a joining
                request, prefix sharers, a COW duplicate, a swap and a
                recompute resume), and teacher-forced at full width in
                fp32;
-7. http     — ``POST /v1/generate`` from a separate process over TCP.
+8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
-The last two lines of standard output are the ``kernels`` JSON record and
+The B1-B3 rows' ``launches`` add the executors' launches of the cluster
+phase (each executor resets its counts before its loop and reports them)
+to the train phase's. The last two lines of standard output are the
+``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. In the record, ``ms`` and ``library_ms``
 are device times (:func:`device_ms`: the call's kernels alone, timed with
 the card held busy until the host has queued the call); ``call_ms`` and
@@ -2042,6 +2062,478 @@ def resnet_phase(torch, frb, device_info, card):
 # -- greedy equality -----------------------------------------------------------
 
 
+# -- the cluster runtime: cluster.run over spawned executors ------------------
+
+# (a): one executor, GPT-2-small width, the main training path's geometry
+# (b8 x s1024: the sequence is the model's max_seq_len).
+CLUSTER_STEPS = 6
+CLUSTER_BATCH = 8
+# (b): two executors sharing the one card, data=2, at GPT-2-small width
+# and a reduced depth of 2 layers (two processes' activations, weights and
+# AdamW state on one card beside the driver's). Partitions of 8, 8, 8, 8
+# and 4 rows: rank 0 takes three (20 rows), rank 1 two (16 rows), so rank
+# 1 trains its third step on a lockstep zero batch (mask 0).
+CLUSTER_DP_LAYERS = 2
+CLUSTER_DP_PARTS = (8, 8, 8, 8, 4)
+# The data-parallel run against one in-process trainer with grad_accum=2
+# over the concatenated global batches: each microbatch is one rank's 8
+# rows, so its bf16 matmuls are the rank's own, and the weights of the
+# two paths (mask sums over the global sum, against the rank's mask sum
+# and a division after the all-reduce) are powers of two on full
+# batches. Each step's loss, relative; the update (final minus initial
+# parameters), relative in norm over the elements whose reference step-1
+# gradient lies above CLUSTER_ADAM_NEAR_EPS; below it (~10x Adam's eps)
+# Adam turns a last-bit gradient difference into one of order lr, so
+# those elements are held to 2 lr a step (a sign flip), as
+# tests/test_torch_cluster.py holds them to the JAX trainer. The same
+# update reading of a replay with plain DDP averaging (each rank's local
+# mean, the ranks' gradients averaged: a lockstep zero batch halves the
+# step) must lie above the limit, or the check could not see that fault.
+# Readings (NVIDIA H100 80GB HBM3, 700 W): loss 0, update 0, near-eps
+# elements 0 (0.34% of them); plain DDP averaging 4.98e-2. The update
+# limit sits 50x below the fault and leaves room for a run whose
+# non-blocking drain hands a rank a partial batch (weights then no
+# powers of two).
+CLUSTER_DP_LOSS_RTOL = 2e-5
+CLUSTER_DP_UPDATE_RTOL = 1e-3
+CLUSTER_ADAM_NEAR_EPS = 1e-7
+CLUSTER_LR = 3e-4
+# The inference batches of (c): two partitions of one batch each.
+CLUSTER_INFER_PARTS = 2
+
+
+def _cluster_rows(lm, n, seed):
+    """``n`` seeded rows of ``max_seq_len + 1`` tokens: a row is one feed
+    item, the inputs its first tokens, the labels its last."""
+    rng = np.random.RandomState(seed)
+    return [r.tolist() for r in rng.randint(
+        1, lm["vocab_size"], size=(n, lm["max_seq_len"] + 1))]
+
+
+def _timer(torch):
+    """A stop function for a timing started now: it returns the
+    milliseconds since, by CUDA events (the step's device time)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+
+    def stop():
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    return stop
+
+
+def _cluster_batch(arrays, mask):
+    """A feed batch ``(rows, mask)`` as the LM batch of the Quickstart: a
+    per-token loss mask from the feed's per-row mask."""
+    arrays = np.asarray(arrays)
+    return {"x": arrays[:, :-1].astype(np.int64),
+            "y": arrays[:, 1:].astype(np.int64),
+            "mask": np.repeat(np.asarray(mask, np.float32)[:, None],
+                              arrays.shape[1] - 1, 1)}
+
+
+def _params_equal_to_rank0(torch, dist, state):
+    """Whether this rank's parameters equal rank 0's bit for bit (rank 0's
+    broadcast, compared here)."""
+    flat = torch.cat([p.detach().reshape(-1).float()
+                      for p in state.params.values()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    return bool(torch.equal(ref, flat))
+
+
+def cluster_node(args, ctx):
+    """The node program of the cluster phase (the README's Quickstart on
+    the port): join the group, build the LM, train on ``sync_batches``
+    with ``Trainer.train_step``, then (one executor) answer inference
+    batches. Writes what the driver checks to ``args["outdir"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig, multihost
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    # Wall-clock marks of the bring-up (one host clock with the driver's).
+    marks = {"enter": time.time()}
+    joined = ctx.initialize_distributed()
+    marks["joined"] = time.time()
+    rank = multihost.process_index()
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device=ctx.device, seed=0,
+                              **dict(args["lm"], attention_impl="pallas"))
+    tr = Trainer(model, optimizer=trainer.adamw(CLUSTER_LR),
+                 mesh=MeshConfig(data=-1).build(), device=ctx.device)
+    state = tr.init()
+    marks["built"] = time.time()
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    feed = ctx.get_data_feed(train_mode=True)
+    example = np.zeros((1, args["lm"]["max_seq_len"] + 1), np.int64)
+    doc = {"rank": rank, "joined": joined, "device": str(ctx.device),
+           "backend": getattr(ctx, "distributed_backend", None),
+           "backend_reason": getattr(ctx, "distributed_backend_reason",
+                                     None),
+           "losses": [], "step_ms": [], "wait_ms": [], "equal": [],
+           "marks": marks}
+    batches = []
+    fa.reset_launches()
+    it = iter(feed.sync_batches(CLUSTER_BATCH, example=example))
+    while len(batches) < args["steps"]:
+        t_wait = time.perf_counter()
+        try:
+            arrays, mask = next(it)
+        except StopIteration:
+            break
+        doc["wait_ms"].append((time.perf_counter() - t_wait) * 1e3)
+        batch = _cluster_batch(arrays, mask)
+        batches.append(batch)
+        marks.setdefault("first_step", time.time())
+        stop = _timer(torch)
+        state, m = tr.train_step(state, batch)
+        doc["step_ms"].append(stop())
+        doc["losses"].append(float(m["loss"]))
+        if multihost.is_multiprocess():
+            doc["equal"].append(_params_equal_to_rank0(torch, dist, state))
+    it.close()
+    doc["train_launches"] = dict(fa.launches)
+    doc["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+    np.savez(os.path.join(args["outdir"], "batches{}.npz".format(rank)),
+             **{"{}_{}".format(k, i): v for i, b in enumerate(batches)
+                for k, v in b.items()})
+    if rank == 0 and args.get("save_params"):
+        torch.save({k: v.detach().float().cpu()
+                    for k, v in state.params.items()},
+                   os.path.join(args["outdir"], "params.pt"))
+    if args.get("infer"):
+        # (c): one prediction per item: the greedy next token after the
+        # item's last input position.
+        fa.reset_launches()
+        df = ctx.get_data_feed(train_mode=False)
+        while not df.should_stop():
+            rows = df.next_batch(CLUSTER_BATCH)
+            if rows:
+                x = np.asarray(rows)[:, :-1].astype(np.int64)
+                logits = tr.predict(state, x)
+                df.batch_results(
+                    [int(t) for t in logits[:, -1].argmax(-1).cpu()])
+        doc["infer_launches"] = dict(fa.launches)
+    with open(os.path.join(args["outdir"], "node{}.json".format(rank)),
+              "w") as f:
+        json.dump(doc, f)
+    if multihost.is_multiprocess():
+        multihost.shutdown()
+
+
+def _lm_trainer(torch, lm, grad_accum=1):
+    """The driver's in-process trainer, from the executors' initial
+    weights (seed 0): ``(trainer, state, initial f32 parameters)``."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0,
+                              **dict(lm, attention_impl="pallas"))
+    tr = Trainer(model, optimizer=trainer.adamw(CLUSTER_LR),
+                 grad_accum=grad_accum)
+    state = tr.init()
+    initial = {k: v.detach().float().clone()
+               for k, v in state.params.items()}
+    return tr, state, initial
+
+
+def _replay(torch, lm, batch_sets, grad_accum=1):
+    """One in-process trainer over ``batch_sets`` (each step's batches,
+    concatenated, one microbatch each under ``grad_accum``): its losses,
+    per-step milliseconds, initial parameters, step-1 gradients, trainer
+    and final state."""
+    tr, state, initial = _lm_trainer(torch, lm, grad_accum)
+    losses, ms, grads1 = [], [], None
+    for parts in batch_sets:
+        batch = {k: np.concatenate([b[k] for b in parts]) for k in parts[0]}
+        stop = _timer(torch)
+        state, m = tr.train_step(state, batch)
+        ms.append(stop())
+        losses.append(float(m["loss"]))
+        if grads1 is None:
+            grads1 = {k: p.grad.detach().float().clone()
+                      for k, p in state.params.items()}
+    return losses, ms, initial, grads1, tr, state
+
+
+def _ddp_mean_replay(torch, lm, batch_sets):
+    """The fault the data-parallel step is held against: plain DDP, where
+    each rank back-propagates its local masked mean and the ranks'
+    gradients are averaged. Returns the final parameters."""
+    tr, state, _ = _lm_trainer(torch, lm)
+    tr.model.train()
+    for parts in batch_sets:
+        state.optimizer.zero_grad(set_to_none=True)
+        for b in parts:
+            t = {k: torch.as_tensor(v, device=tr.device)
+                 for k, v in b.items()}
+            (tr.loss_fn(tr.model(t["x"]), t) / len(parts)).backward()
+        state.optimizer.step()
+    return {k: v.detach().float() for k, v in state.params.items()}
+
+
+def _update_errors(initial, got, want, near):
+    """The update ``got - initial`` against ``want - initial``: relative in
+    norm over the elements not in ``near``, and the largest absolute
+    difference over those in it."""
+    num = den = 0.0
+    near_max = 0.0
+    for name, w in want.items():
+        diff = got[name] - w
+        far = ~near[name]
+        num += float(diff[far].square().sum())
+        den += float((w - initial[name])[far].square().sum())
+        if bool(near[name].any()):
+            near_max = max(near_max, float(diff[near[name]].abs().max()))
+    return (num / den) ** 0.5, near_max
+
+
+def _load_batches(path, steps):
+    z = np.load(path)
+    return [{k: z["{}_{}".format(k, i)] for k in ("x", "y", "mask")}
+            for i in range(steps)]
+
+
+def _run_cluster(torch, n, args, parts, infer_parts=None):
+    """``cluster.run`` -> ``train`` (-> ``inference``) -> ``shutdown`` on
+    a ``LocalBackend(n)``; returns the nodes' documents, the inference
+    results, and the bring-up: seconds from ``cluster.run`` to its return
+    (``ready``) and to each node's marks, the earliest node's (``enter``:
+    the node program starts in its compute child; ``joined``: the process
+    group; ``built``: model and trainer; ``first_step``: the first batch
+    in hand)."""
+    from tensorflowonspark_tpu_torch import backend, cluster
+
+    pool = backend.LocalBackend(n, base_dir=os.path.join(args["outdir"],
+                                                         "executors"))
+    results = None
+    try:
+        t_run = time.time()
+        c = cluster.run(pool, cluster_node, args, num_executors=n,
+                        input_mode=cluster.InputMode.FEED,
+                        reservation_timeout=300)
+        ready = time.time() - t_run
+        try:
+            c.train(backend.Partitioned(parts), timeout=600)
+            if infer_parts is not None:
+                results = c.inference(backend.Partitioned(infer_parts),
+                                      timeout=600)
+        finally:
+            c.shutdown(timeout=600)
+    finally:
+        pool.stop()
+    docs = []
+    for r in range(n):
+        with open(os.path.join(args["outdir"], "node{}.json".format(r))) as f:
+            docs.append(json.load(f))
+    bring_up = {"ready": ready}
+    for mark in ("enter", "joined", "built", "first_step"):
+        bring_up[mark] = min(d["marks"][mark] for d in docs) - t_run
+    return docs, results, bring_up
+
+
+def _bring_up_text(bring_up):
+    return ", ".join("{} {:.1f} s".format(k, v) for k, v in bring_up.items())
+
+
+def cluster_phase(torch, fa, card):
+    """``cluster.run`` -> ``train`` -> ``inference`` -> ``shutdown`` over
+    spawned executors: (a) one executor at GPT-2-small width, B1-B3 from
+    the executor, step 1 (and every step) against the driver's in-process
+    trainer on the same batch; (b) two executors on the one card, data=2,
+    replicas bitwise equal after every step, against one in-process
+    trainer on the concatenated global batches, one rank on a zero batch;
+    (c) ``c.inference`` against in-process ``predict``; (d) the report.
+    Returns the executors' launches of each flash kernel."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.parallel import multihost
+
+    lm = GPT2_SMALL
+    layers = lm["num_layers"]
+    total = dict.fromkeys(fa.launches, 0)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="tfos-cluster-")
+    try:
+        # (a) + (c): one executor.
+        out = os.path.join(root, "one")
+        os.makedirs(out)
+        rows = _cluster_rows(lm, CLUSTER_STEPS * CLUSTER_BATCH, seed=11)
+        infer_rows = _cluster_rows(lm, CLUSTER_INFER_PARTS * CLUSTER_BATCH,
+                                   seed=12)
+        parts = [rows[i:i + 2 * CLUSTER_BATCH]
+                 for i in range(0, len(rows), 2 * CLUSTER_BATCH)]
+        infer_parts = [infer_rows[i:i + CLUSTER_BATCH]
+                       for i in range(0, len(infer_rows), CLUSTER_BATCH)]
+        args = {"outdir": out, "steps": CLUSTER_STEPS, "lm": lm,
+                "infer": True}
+        (doc,), results, bring_up = _run_cluster(torch, 1, args, parts,
+                                                 infer_parts)
+        want = dict.fromkeys(fa.launches, CLUSTER_STEPS * layers)
+        if len(doc["losses"]) != CLUSTER_STEPS or \
+                doc["train_launches"] != want:
+            raise AssertionError("one executor: {} steps, launches {}; "
+                                 "want {} and {}".format(
+                                     len(doc["losses"]),
+                                     doc["train_launches"], CLUSTER_STEPS,
+                                     want))
+        losses = doc["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError("executor losses not finite and falling: "
+                                 "{}".format(losses))
+        batches = _load_batches(os.path.join(out, "batches0.npz"),
+                                CLUSTER_STEPS)
+        ref_losses, ref_ms, _, _, tr, state = _replay(
+            torch, lm, [[b] for b in batches])
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        log("cluster (a) 1 executor, {} layers, width {}, b{} s{} bf16 "
+            "pallas adamw({:g}), {} steps over sync_batches: losses {}; in-process "
+            "trainer on the same batches {}; differences {} (step 1 limit: "
+            "rel {:g}); B1-B3 launches in the executor {}".format(
+                layers, lm["embed_dim"], CLUSTER_BATCH, lm["max_seq_len"],
+                CLUSTER_LR, CLUSTER_STEPS,
+                ["{:.4f}".format(x) for x in losses],
+                ["{:.4f}".format(x) for x in ref_losses],
+                ["{:.3g}".format(d) for d in diffs], TRAIN_LOSS_RTOL,
+                doc["train_launches"]))
+        if not diffs[0] <= TRAIN_LOSS_RTOL * abs(ref_losses[0]):
+            raise AssertionError("executor step 1 loss {} vs in-process "
+                                 "{}".format(losses[0], ref_losses[0]))
+        # (c): one prediction per item, by partition, against predict.
+        want_pred = []
+        for part in infer_parts:
+            x = np.asarray(part)[:, :-1].astype(np.int64)
+            logits = tr.predict(state, x)
+            want_pred.append([int(t) for t in
+                              logits[:, -1].argmax(-1).cpu()])
+        if results != want_pred:
+            raise AssertionError("c.inference {} != in-process predict "
+                                 "{}".format(results, want_pred))
+        infer_want = dict(flash_fwd=CLUSTER_INFER_PARTS * layers,
+                          flash_bwd_dq=0, flash_bwd_dkv=0)
+        if doc["infer_launches"] != infer_want:
+            raise AssertionError("inference launches {}, want {}".format(
+                doc["infer_launches"], infer_want))
+        log("cluster (c) c.inference: {} partitions x {} items, one "
+            "prediction per item, equal to in-process predict; B1 "
+            "launches {}".format(len(results), CLUSTER_BATCH,
+                                 doc["infer_launches"]["flash_fwd"]))
+        for name in total:
+            total[name] += doc["train_launches"][name] + \
+                doc["infer_launches"][name]
+        del tr, state
+        torch.cuda.empty_cache()
+        log("cluster (d) executor step {:.2f} ms (CUDA events, median of "
+            "steps 2-{}) vs in-process {:.2f} ms; feed wait {:.2f} ms a "
+            "step (median of steps 2-{}); peak memory {:.2f} GiB; "
+            "from cluster.run: {}; on {}".format(
+                float(np.median(doc["step_ms"][1:])), CLUSTER_STEPS,
+                float(np.median(ref_ms[1:])),
+                float(np.median(doc["wait_ms"][1:])), CLUSTER_STEPS,
+                doc["peak_bytes"] / 2 ** 30, _bring_up_text(bring_up),
+                card))
+
+        # (b): two executors on the one card, data=2.
+        out = os.path.join(root, "two")
+        os.makedirs(out)
+        dp_lm = dict(lm, num_layers=CLUSTER_DP_LAYERS)
+        rows = _cluster_rows(lm, sum(CLUSTER_DP_PARTS), seed=13)
+        parts, at = [], 0
+        for n in CLUSTER_DP_PARTS:
+            parts.append(rows[at:at + n])
+            at += n
+        args = {"outdir": out, "steps": 10 ** 6, "lm": dp_lm,
+                "save_params": True}
+        docs, _, bring_up = _run_cluster(torch, 2, args, parts)
+        steps = len(docs[0]["losses"])
+        per_rank = [_load_batches(os.path.join(out, "batches{}.npz".format(
+            r)), steps) for r in (0, 1)]
+        zero_rank_steps = [sum(float(b["mask"].sum()) == 0 for b in pr)
+                           for pr in per_rank]
+        trained_rows = sum(float(b["mask"][:, 0].sum())
+                           for pr in per_rank for b in pr)
+        checks = {
+            "steps agree": len(docs[1]["losses"]) == steps >= 3,
+            "losses agree": docs[0]["losses"] == docs[1]["losses"],
+            "replicas bitwise equal every step": all(
+                d["equal"] == [True] * steps for d in docs),
+            "every row trained once": trained_rows == len(rows),
+            "a rank trained on a zero batch": any(zero_rank_steps),
+            "backend gloo": [d["backend"] for d in docs] == ["gloo"] * 2,
+        }
+        global_steps = list(zip(*per_rank))
+        ref_losses, _, initial, grads1, _, ref_state = _replay(
+            torch, dp_lm, global_steps, grad_accum=2)
+        want_params = {k: v.detach().float()
+                       for k, v in ref_state.params.items()}
+        del ref_state
+        near = {k: g.abs() < CLUSTER_ADAM_NEAR_EPS for k, g in grads1.items()}
+        del grads1
+        got = {k: v.to("cuda")
+               for k, v in torch.load(os.path.join(out, "params.pt"),
+                                      weights_only=True).items()}
+        update_rel, near_max = _update_errors(initial, got, want_params, near)
+        del want_params
+        torch.cuda.empty_cache()
+        fault_rel, _ = _update_errors(
+            initial, got, _ddp_mean_replay(torch, dp_lm, global_steps), near)
+        near_share = (sum(int(m.sum()) for m in near.values())
+                      / sum(m.numel() for m in near.values()))
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(docs[0]["losses"], ref_losses))
+        checks["losses within {:g} of the in-process trainer's".format(
+            CLUSTER_DP_LOSS_RTOL)] = loss_rel <= CLUSTER_DP_LOSS_RTOL
+        checks["update within {:g} of the in-process trainer's".format(
+            CLUSTER_DP_UPDATE_RTOL)] = update_rel <= CLUSTER_DP_UPDATE_RTOL
+        checks["near-eps elements within 2 lr a step"] = \
+            near_max <= 2 * steps * CLUSTER_LR
+        checks["plain DDP averaging beyond the update limit"] = \
+            fault_rel > CLUSTER_DP_UPDATE_RTOL
+        del got, initial, near
+        torch.cuda.empty_cache()
+        want = dict.fromkeys(fa.launches, steps * CLUSTER_DP_LAYERS)
+        for d in docs:
+            checks["rank {} launches".format(d["rank"])] = \
+                d["train_launches"] == want
+            for name in total:
+                total[name] += d["train_launches"][name]
+        log("cluster (b) 2 executors on one device, data=2, {} layers, b8 "
+            "a rank: backend {} ({}); {} steps, "
+            "losses {}; in-process trainer (grad_accum=2) on the global "
+            "batches {} (max rel {:.3g}); update rel error {:.3g} over the "
+            "elements above the near-eps gradient, {:.3g} abs at most on "
+            "the {:.3g} share below it; plain DDP averaging's update rel "
+            "error {:.3g}; zero-batch steps per "
+            "rank {}; launches per rank {}; peak memory per rank {} GiB; "
+            "step {} ms per rank (median); from cluster.run: "
+            "{}".format(
+                CLUSTER_DP_LAYERS, docs[0]["backend"],
+                docs[0]["backend_reason"], steps,
+                ["{:.4f}".format(x) for x in docs[0]["losses"]],
+                ["{:.4f}".format(x) for x in ref_losses], loss_rel,
+                update_rel, near_max, near_share, fault_rel, zero_rank_steps,
+                [d["train_launches"] for d in docs],
+                ["{:.2f}".format(d["peak_bytes"] / 2 ** 30) for d in docs],
+                ["{:.2f}".format(float(np.median(d["step_ms"])))
+                 for d in docs], _bring_up_text(bring_up)))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("cluster (b) failed: {}".format(failed))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if multihost.is_multiprocess():
+        raise AssertionError("the driver joined a process group")
+    return total
+
+
 def toy_greedy_phase(torch):
     """Toy fp32 geometry on the card: engine streams (solo, joined
     mid-batch, max-length) equal solo ``generate`` bitwise."""
@@ -2282,6 +2774,7 @@ def main():
     if any(fa.launches.values()):
         raise AssertionError("the resnet phase launched flash kernels: "
                              "{}".format(fa.launches))
+    cluster_launches = cluster_phase(torch, fa, card)
     toy_model = toy_greedy_phase(torch)
     full_width_teacher_forced(torch)
     http_phase(torch, toy_model)
@@ -2298,7 +2791,8 @@ def main():
             source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
-            launches=flash_launches[name], **flash_times[name]))
+            launches=flash_launches[name] + cluster_launches[name],
+            **flash_times[name]))
     # B5's row: one launch of a stage-1 block, the mean of its two (K1
     # without, K3 with the prologue); B6's: the stage-1 block's K2.
     k1, k3 = fused_timings[("stage1", "K1")], fused_timings[("stage1", "K3")]

@@ -18,6 +18,13 @@ written under a temporary name that is not a number and renamed to
 names only, so temporary and ``.force-backup-<step>`` directories are
 never steps. When to save and which steps ``max_to_keep`` deletes follow
 orbax's ``CheckpointManager`` (:class:`_StepStore`).
+
+Under a multi-process runtime (``torch.distributed``, data parallel) the
+save is collective, as the JAX package's is: every rank calls
+:meth:`CheckpointManager.save` with its (identical) replica, every rank
+makes the same save decision, rank 0 alone writes the step and its
+marker, and a barrier on the CPU group stands on each side of the commit,
+so that no rank goes on to read a half-committed step.
 """
 
 import contextlib
@@ -30,11 +37,14 @@ import os
 import shutil
 import tempfile
 import threading
+import time
 import uuid
 
 import torch
 
 from tensorflowonspark_tpu_torch import fs as fs_lib
+from tensorflowonspark_tpu_torch import telemetry
+from tensorflowonspark_tpu_torch.parallel import multihost
 
 logger = logging.getLogger(__name__)
 
@@ -174,17 +184,21 @@ class _StepStore:
     """
 
     def __init__(self, directory, max_to_keep, save_interval_steps,
-                 async_checkpointing):
+                 async_checkpointing, writer=True):
         self._dir = directory
         self._max_to_keep = max_to_keep
         self._interval = int(save_interval_steps)
         self._async = async_checkpointing
+        # A non-writer (a rank other than 0 of a collective save) keeps
+        # the same step list and decisions but touches no file.
+        self._writer = writer
         self._thread = None
         self._error = None
-        for name in os.listdir(directory):
-            if name.startswith(_TMP_PREFIX):  # a save cut short
-                shutil.rmtree(os.path.join(directory, name),
-                              ignore_errors=True)
+        if writer:
+            for name in os.listdir(directory):
+                if name.startswith(_TMP_PREFIX):  # a save cut short
+                    shutil.rmtree(os.path.join(directory, name),
+                                  ignore_errors=True)
         self.reload()
 
     def reload(self):
@@ -213,7 +227,7 @@ class _StepStore:
         if step in self._steps:
             raise StepAlreadyExistsError(
                 "Checkpoint for step {} already exists.".format(step))
-        objs = snapshot()
+        objs = snapshot() if self._writer else None
         if not self._async:
             self._write(step, objs)  # a failed write leaves the list alone
         self._steps.append(step)
@@ -231,6 +245,8 @@ class _StepStore:
         return True
 
     def _write(self, step, objs):
+        if not self._writer:
+            return
         tmp = os.path.join(self._dir, "{}{}-{}".format(
             _TMP_PREFIX, step, uuid.uuid4().hex[:8]))
         try:
@@ -243,6 +259,8 @@ class _StepStore:
             raise
 
     def _delete_dirs(self, steps):
+        if not self._writer:
+            return
         for old in steps:
             shutil.rmtree(os.path.join(self._dir, str(old)),
                           ignore_errors=True)
@@ -267,7 +285,8 @@ class _StepStore:
         if step not in self._steps:
             raise FileNotFoundError(
                 "Requested deleting a non-existent step: {}.".format(step))
-        shutil.rmtree(os.path.join(self._dir, str(step)))
+        if self._writer:
+            shutil.rmtree(os.path.join(self._dir, str(step)))
         self._steps.remove(step)
 
 
@@ -305,12 +324,18 @@ class CheckpointManager:
     to host memory and returns; the files are written on a thread, and
     the marker only once :meth:`wait` or :meth:`close` has seen the write
     finish.
+
+    In a multi-process runtime every rank constructs the manager over the
+    same directory and calls :meth:`save`, :meth:`wait` and :meth:`close`
+    together (the collective save of the module docstring).
     """
 
     def __init__(self, directory, max_to_keep=3, save_interval_steps=1,
                  async_checkpointing=False):
         directory = os.fspath(directory)
         self._remote = None
+        self._multi = multihost.is_multiprocess()
+        self._writer = multihost.process_index() == 0
         if fs_lib.is_local(directory):
             self._dir = os.path.abspath(fs_lib.local_path(directory))
             os.makedirs(self._dir, exist_ok=True)
@@ -321,14 +346,21 @@ class CheckpointManager:
             self._dir = os.path.join(
                 tempfile.gettempdir(), "tfos-torch-ckpt-mirrors", digest)
             os.makedirs(self._dir, exist_ok=True)
-            with self._mirror_lock():
-                self._reconcile_mirror()
+            if self._writer:
+                with self._mirror_lock():
+                    self._reconcile_mirror()
+        # Every rank lists the steps only once rank 0 has cleaned the dir.
+        self._barrier()
         self._async = bool(async_checkpointing)
         self._own_saves = set()  # steps THIS manager wrote (see save)
         self._force_synced = set()  # force-rewritten steps (_sync_remote)
         self._pending_commit = set()  # async saves awaiting durability
         self._mgr = _StepStore(self._dir, max_to_keep, save_interval_steps,
-                               self._async)
+                               self._async, writer=self._writer)
+
+    def _barrier(self):
+        if self._multi:
+            multihost.barrier()
 
     def save(self, state, step=None, force=False):
         """Save ``state`` as ``step`` (default ``state.step``); returns
@@ -337,6 +369,19 @@ class CheckpointManager:
         ``force``, a step this manager already wrote is a no-op (same
         step, same state), and one written by someone else is rewritten."""
         step = int(step if step is not None else state.step)
+        with telemetry.span("checkpoint/save", step=step,
+                            force=bool(force)) as sp:
+            t0 = time.monotonic()
+            saved = self._save(state, step, force)
+            if saved:
+                # Async saves: the enqueue and snapshot cost; the durable
+                # tail is checkpoint_commit_seconds.
+                telemetry.observe("checkpoint_save_seconds",
+                                  time.monotonic() - t0)
+            sp.set(saved=bool(saved))
+        return saved
+
+    def _save(self, state, step, force):
         if force and step in self._mgr.all_steps():
             if step in self._own_saves:
                 return False
@@ -344,7 +389,7 @@ class CheckpointManager:
             # the delete and the finished rewrite keeps its only copy.
             step_dir = os.path.join(self._dir, str(step))
             backup = os.path.join(self._dir, ".force-backup-{}".format(step))
-            if os.path.isdir(step_dir):
+            if self._writer and os.path.isdir(step_dir):
                 shutil.rmtree(backup, ignore_errors=True)
                 shutil.copytree(step_dir, backup)
             self._mgr.delete(step)
@@ -367,7 +412,8 @@ class CheckpointManager:
             self._own_saves.add(step)
             if rewriting:
                 self._mgr.wait_until_finished()
-                shutil.rmtree(backup, ignore_errors=True)
+                if self._writer:
+                    shutil.rmtree(backup, ignore_errors=True)
                 # Same-path, often same-size files: the incremental remote
                 # sync would keep the stale copy. Armed only now, so a
                 # failed save leaves the remote copy as the fallback.
@@ -380,11 +426,23 @@ class CheckpointManager:
             else:
                 # Mirrored remotes are durable only after upload.
                 self._mgr.wait_until_finished()
-                self._commit(step)
-                self._sync_remote()
+                self._commit_collective(step, sync=True)
                 logger.info("checkpoint saved at step %d -> %s",
                             step, self._remote or self._dir)
         return saved
+
+    def _commit_collective(self, step, sync):
+        """Commit ``step`` between two barriers: rank 0 writes the marker
+        (and uploads a mirrored remote when ``sync``); the other ranks
+        wait on both sides. Single-process: just the commit."""
+        self._barrier()
+        if self._writer:
+            self._commit(step)
+            if sync:
+                self._sync_remote()
+        self._barrier()
+        # The durable line a relaunch resumes from, on every heartbeat.
+        telemetry.set_gauge("checkpoint_last_step", int(step))
 
     def _commit(self, step):
         """Write the step's commit marker (manifest of file sizes) and GC
@@ -392,14 +450,19 @@ class CheckpointManager:
         step_dir = os.path.join(self._dir, str(step))
         if not os.path.isdir(step_dir):
             return
-        doc = {"step": int(step), "files": _step_manifest(step_dir)}
-        marker = os.path.join(self._dir, _marker_name(step))
-        # Per-writer tmp name: concurrent writers of one shared dir must
-        # not consume each other's file mid-write.
-        tmp = "{}.tmp.{}.{}".format(marker, os.getpid(), uuid.uuid4().hex[:8])
-        with open(tmp, "w") as f:
-            json.dump(doc, f)
-        os.replace(tmp, marker)  # atomic: a torn marker never validates
+        with telemetry.span("checkpoint/commit", step=int(step)):
+            t0 = time.monotonic()
+            doc = {"step": int(step), "files": _step_manifest(step_dir)}
+            marker = os.path.join(self._dir, _marker_name(step))
+            # Per-writer tmp name: concurrent writers of one shared dir
+            # must not consume each other's file mid-write.
+            tmp = "{}.tmp.{}.{}".format(marker, os.getpid(),
+                                        uuid.uuid4().hex[:8])
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, marker)  # atomic: a torn marker never validates
+            telemetry.observe("checkpoint_commit_seconds",
+                              time.monotonic() - t0)
         for name in os.listdir(self._dir):
             stale = _marker_step(name)
             if stale is not None and stale != int(step) and not os.path.isdir(
@@ -414,13 +477,13 @@ class CheckpointManager:
         if self._pending_commit:
             self._mgr.wait_until_finished()
             for step in sorted(self._pending_commit):
-                self._commit(step)
+                self._commit_collective(step, sync=False)
             self._pending_commit.clear()
 
     def _restore_backup(self, step, backup):
         """Undo a force-rewrite's delete: put the backup back as the step
         dir, drop the backup, re-scan the steps."""
-        if os.path.isdir(backup):
+        if self._writer and os.path.isdir(backup):
             shutil.rmtree(os.path.join(self._dir, str(step)),
                           ignore_errors=True)
             shutil.copytree(backup, os.path.join(self._dir, str(step)))
@@ -460,7 +523,7 @@ class CheckpointManager:
                 fcntl.flock(lock, fcntl.LOCK_UN)
 
     def _sync_remote(self):
-        if self._remote is None:
+        if self._remote is None or not self._writer:
             return
         with self._mirror_lock():
             # Incremental: a checkpoint file is written once, so (relative
@@ -552,7 +615,7 @@ class CheckpointManager:
                                stale, exc_info=True)
                 continue
             marker = os.path.join(self._dir, _marker_name(stale))
-            if os.path.exists(marker):
+            if self._writer and os.path.exists(marker):
                 try:
                     os.unlink(marker)
                 except OSError:  # pragma: no cover - concurrent GC
@@ -571,7 +634,12 @@ class CheckpointManager:
         Only when nothing is committed and the newest (marker-less) step
         cannot be read does the run start fresh; a committed step that
         cannot be read raises."""
+        with telemetry.span("checkpoint/restore") as sp:
+            return self._restore(state, sp)
+
+    def _restore(self, state, sp):
         step = self._restore_step()
+        sp.set(step=step)
         if step is None:
             return state
         tensors = list(state.params.values())

@@ -9,7 +9,12 @@ one host transfer.
 
 :class:`MetricsServer` is the subset that serves: ``POST /v1/generate``
 and ``GET /v1/serving`` in front of a
-:class:`~tensorflowonspark_tpu_torch.serving.ServingEngine`.
+:class:`~tensorflowonspark_tpu_torch.serving.ServingEngine`, and the
+node's telemetry: ``GET /metrics`` (the process's counters, gauges and
+histograms in Prometheus text, plus ``tfos_node_*`` gauges from
+``stats_fn``) and ``GET /statusz`` (JSON: node stats, metrics, status
+entries, recent spans, and whatever ``status_fn`` adds). A cluster's chief
+runs one under ``cluster.run(tensorboard=True)``.
 ``POST /v1/generate`` takes the JAX endpoint's body fields (``prompt``,
 ``max_new_tokens``, ``temperature``, ``top_k``, ``top_p``, ``priority``,
 ``eos_token``, ``stream``, ``traceparent``) and answers the same way:
@@ -31,6 +36,7 @@ import uuid
 import torch
 
 from tensorflowonspark_tpu_torch import fs as fs_lib
+from tensorflowonspark_tpu_torch import telemetry
 from tensorflowonspark_tpu_torch.train import tbevents
 
 logger = logging.getLogger(__name__)
@@ -219,6 +225,10 @@ def _handle_summary(handle):
     }
 
 
+# Recent spans a /statusz answer carries.
+STATUSZ_SPANS = 50
+
+
 class _ServingHandler(http.server.BaseHTTPRequestHandler):
     server_version = "tfos-torch-serving"
     # HTTP/1.1 for chunked transfer on the streaming endpoint; every
@@ -232,6 +242,11 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
 
     def do_GET(self):
         path = urllib.parse.urlparse(self.path).path
+        if path in ("/metrics", "/statusz"):
+            body, ctype = (self._metrics() if path == "/metrics"
+                           else self._statusz())
+            self._send(200, ctype, body.encode("utf-8"))
+            return
         if path != "/v1/serving":
             self._send(404, "text/plain", b"not found\n")
             return
@@ -242,6 +257,41 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
             return
         self._send(200, "application/json",
                    json.dumps(engine.stats(), default=str).encode("utf-8"))
+
+    def _fn(self, name):
+        fn = getattr(self.server, name, None)
+        if fn is None:
+            return {}
+        try:
+            return fn() or {}
+        except Exception:  # a dead manager must not fail the scrape
+            logger.debug("%s failed", name, exc_info=True)
+            return {}
+
+    def _metrics(self):
+        text = telemetry.prometheus_text()
+        # In FEED mode this server runs in the executor while the compute
+        # child makes the numbers: stats_fn bridges them (the child
+        # publishes node_stats to the manager KV with every heartbeat).
+        stats = self._fn("stats_fn")
+        for key in sorted(stats):
+            value = stats[key]
+            if isinstance(value, (int, float)):
+                name = "tfos_node_" + telemetry._sanitize(str(key))
+                text += "# TYPE {} gauge\n{} {}\n".format(
+                    name, name, telemetry._fmt_value(value))
+        text += "# TYPE tfos_up gauge\ntfos_up 1\n"
+        return text, "text/plain; version=0.0.4"
+
+    def _statusz(self):
+        rec = telemetry.get_recorder()
+        doc = {"node": None if rec is None else rec.node_id,
+               "stats": telemetry.node_stats(),
+               "metrics": telemetry.metrics_snapshot(),
+               "status": telemetry.get_status(),
+               "spans": telemetry.recent_spans(STATUSZ_SPANS)}
+        doc.update(self._fn("status_fn"))
+        return json.dumps(doc, default=str), "application/json"
 
     def do_POST(self):
         path = urllib.parse.urlparse(self.path).path
@@ -372,16 +422,22 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
 class MetricsServer:
     """The serving HTTP plane: ``POST /v1/generate`` and ``GET
     /v1/serving`` over an attached engine (started with
-    ``engine.start()``). Binds loopback by default; ``port=0`` picks a
-    free port (:attr:`port`). Unlike the JAX server it serves no metrics
-    directory, so it takes keyword arguments only."""
+    ``engine.start()``), and the node telemetry routes ``/metrics`` and
+    ``/statusz``. Binds loopback by default; ``port=0`` picks a free port
+    (:attr:`port`). Unlike the JAX server it serves no metrics directory,
+    so it takes keyword arguments only. ``status_fn`` and ``stats_fn`` are
+    zero-argument callables returning dicts (the manager-published state
+    and node stats of a FEED-mode compute child)."""
 
-    def __init__(self, *, host=None, port=0, engine=None):
+    def __init__(self, *, host=None, port=0, engine=None, status_fn=None,
+                 stats_fn=None):
         self._httpd = http.server.ThreadingHTTPServer(
             (host if host is not None else "127.0.0.1", port),
             _ServingHandler)
         self._httpd.daemon_threads = True
         self._httpd.engine = engine
+        self._httpd.status_fn = status_fn
+        self._httpd.stats_fn = stats_fn
         self._thread = None
 
     @property

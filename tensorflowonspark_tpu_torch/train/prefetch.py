@@ -34,7 +34,7 @@ import weakref
 import numpy as np
 import torch
 
-from tensorflowonspark_tpu_torch import device_info, util
+from tensorflowonspark_tpu_torch import device_info, telemetry, util
 
 logger = logging.getLogger(__name__)
 
@@ -140,6 +140,7 @@ class DevicePrefetch:
                 self._done = True
                 raise
             return self.placer(batch)
+        t0 = time.perf_counter()
         while True:
             try:
                 item = self._q.get(timeout=0.2)
@@ -149,12 +150,18 @@ class DevicePrefetch:
                         not self._thread.is_alive() and self._q.empty()):
                     self._done = True
                     raise StopIteration
+        # Queue occupancy and consumer stall: a depth near 0 under a rising
+        # wait is the "producer cannot keep up" signal of cluster_stats.
+        telemetry.set_gauge("prefetch_depth", self._q.qsize())
+        telemetry.inc("prefetch_consumer_wait_seconds",
+                      time.perf_counter() - t0)
         if item is _END:
             self._done = True
             raise StopIteration
         if isinstance(item, BaseException):
             self._done = True
             raise item
+        telemetry.inc("prefetch_batches_total")
         placed, ready = item
         if ready is not None:
             stream = torch.cuda.current_stream(self._device)
@@ -221,14 +228,25 @@ def _produce(source, placer, device, q, stop):
         for batch in source:
             if stop.is_set():
                 return
+            t_place = time.perf_counter()
             if stream is None:
                 item = (placer(batch), None)
             else:
                 with torch.cuda.stream(stream):
                     placed = placer(batch)
                     item = (placed, stream.record_event())
-            if not put(item):
+            telemetry.observe("prefetch_place_seconds",
+                              time.perf_counter() - t_place)
+            t0 = time.perf_counter()
+            ok = put(item)
+            stalled = time.perf_counter() - t0
+            if stalled > 0.001:
+                # Blocked on a full queue: the device is the bottleneck.
+                telemetry.inc("prefetch_producer_stall_seconds", stalled)
+                telemetry.inc("prefetch_producer_stalls")
+            if not ok:
                 return
+            telemetry.set_gauge("prefetch_depth", q.qsize())
         put(_END, always=True)
     except BaseException as e:  # surfaces in the consumer
         put(e, always=True)

@@ -9,19 +9,29 @@ Gradient accumulation is a Python loop over microbatches where the JAX
 package scans; a model's buffers (BatchNorm's running statistics) move in
 place with each forward, in microbatch order, as the scan carries
 ``model_state``. :meth:`Trainer.fit` is the overlapped loop: device
-prefetch, asynchronous metrics and checkpoints. Sharded training
-(``mesh``/``rules``) is ROADMAP A10 and the persistent compile cache A12;
-``donate`` has no meaning without XLA buffers.
+prefetch, asynchronous metrics and checkpoints.
+
+``mesh=MeshConfig(data=-1).build()`` trains data-parallel over the
+``torch.distributed`` process group, one replica a process (see
+:meth:`Trainer.train_step`); any other mesh axis, ``rules``, and a model
+with BatchNorm under ``data > 1`` (the JAX package takes its statistics
+over the global batch) are the later part of ROADMAP A10. The persistent
+compile cache is ROADMAP A12; ``donate`` has no meaning without XLA
+buffers.
 """
 
 import dataclasses
 import inspect
 import logging
+import time
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch import device_info, telemetry
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+from tensorflowonspark_tpu_torch.parallel import multihost
 from tensorflowonspark_tpu_torch.train import checkpoint as checkpoint_lib
 from tensorflowonspark_tpu_torch.train import losses as losses_lib
 from tensorflowonspark_tpu_torch.train import metrics as metrics_lib
@@ -84,17 +94,49 @@ class Trainer:
     ``optimizer`` is a factory ``params -> torch.optim.Optimizer`` (default
     :func:`adam` at 1e-3, the counterpart of ``optax.adam(1e-3)``).
     ``device`` defaults to the card and raises without one unless
-    ``device="cpu"`` is passed.
+    ``device="cpu"`` is passed; under a process group it is this rank's
+    device (``ctx.device`` after ``ctx.initialize_distributed()``).
+
+    ``mesh``: a :class:`~tensorflowonspark_tpu_torch.parallel.mesh.DataMesh`
+    (``MeshConfig(data=-1).build()``, the default as in the JAX package)
+    or its ``MeshConfig``. With a data axis above 1 every process holds
+    one replica and feeds its own local batch; :meth:`init` broadcasts
+    rank 0's weights, and :meth:`train_step` all-reduces the gradients so
+    that the step is the JAX step on the global batch. ``eval_step`` and
+    ``predict`` run on the rank's own batch.
     """
 
     def __init__(self, model, optimizer=None, mesh=None, rules=None,
                  loss_fn=None, input_key="x", label_key="y",
                  model_kwargs=None, grad_accum=1, remat=False,
                  input_fn=None, compile_cache=None, device="cuda"):
-        if mesh is not None or rules is not None:
+        if rules is not None:
             raise NotImplementedError(
-                "mesh/rules: sharded training is not ported yet (ROADMAP "
-                "A10); the port's Trainer trains on one device")
+                "rules: logical-axis sharding is the later part of ROADMAP "
+                "A10; the port's mesh has a data axis only")
+        if mesh is None:
+            mesh = mesh_lib.MeshConfig().build()
+        elif isinstance(mesh, mesh_lib.MeshConfig):
+            mesh = mesh.build()
+        if not isinstance(mesh, mesh_lib.DataMesh):
+            raise NotImplementedError(
+                "mesh {!r}: only the data-parallel mesh of "
+                "MeshConfig(data=...).build() is ported; sharded meshes are "
+                "the later part of ROADMAP A10".format(type(mesh).__name__))
+        self.mesh = mesh
+        # The data-parallel degree: one replica a process.
+        self.data_parallel = mesh.data
+        if self.data_parallel != multihost.process_count():
+            raise ValueError(
+                "mesh data axis {} does not match the {} process(es) of "
+                "the group".format(self.data_parallel,
+                                   multihost.process_count()))
+        if self.data_parallel > 1 and any(
+                "BatchNorm" in type(m).__name__ for m in model.modules()):
+            raise NotImplementedError(
+                "BatchNorm under data > 1: the JAX package takes the "
+                "statistics over the global batch; the port does not yet "
+                "(ROADMAP A10, global-batch BatchNorm)")
         if compile_cache is not None:
             raise NotImplementedError(
                 "compile_cache is not ported (ROADMAP A12)")
@@ -147,6 +189,14 @@ class Trainer:
         elif seed is not None:
             self.model.reset_parameters(seed)
         self.model.to(self.device)
+        if self.data_parallel > 1:
+            # Identical replicas: every rank takes rank 0's weights and
+            # buffers (the optimizer state is made fresh below, alike).
+            by_dtype = {}
+            for t in self.model.state_dict().values():
+                by_dtype.setdefault(t.dtype, []).append(t)
+            for tensors in by_dtype.values():
+                _broadcast_from_rank0(tensors)
         named = dict(self.model.named_parameters())
         return TrainState(step=0, params=named,
                           optimizer=self.optimizer_factory(
@@ -222,13 +272,29 @@ class Trainer:
         Returns ``(state, {"loss", "aux_loss"})`` with 0-d device tensors;
         ``aux_loss`` is 0, since the ported models add no auxiliary losses
         (MoE is ROADMAP A11). After the step each parameter's ``.grad``
-        holds the gradient it applied."""
+        holds the gradient it applied.
+
+        Data-parallel (a mesh with ``data > 1``), ``batch`` is this rank's
+        local batch and the step is the JAX step on the global batch, the
+        ranks' batches concatenated: the masked mean over the global batch
+        divides by ``max(global mask sum, 1)``. Each rank back-propagates
+        its masked *sum* (its masked mean times its mask sum, each
+        microbatch's as a weight under ``grad_accum``); one SUM all-reduce
+        carries the gradients, the weighted losses and the mask sums; the
+        sums of gradients and losses are divided by the global mask sum
+        (``max(., 1)``, or ``1e-6`` under ``grad_accum`` as the JAX scan
+        clamps). A rank on a lockstep zero batch (mask all 0) adds nothing
+        and counts nothing, where averaging local means (plain DDP) would
+        count its zero mean and halve the step. Without a mask each
+        (micro)batch weighs 1."""
         batch = self._normalize_batch(self._place(batch))
         state.optimizer.zero_grad(set_to_none=True)
         was_training = self.model.training
         self.model.train()
         try:
-            if self.grad_accum == 1:
+            if self.data_parallel > 1:
+                loss = self._data_parallel_backward(state, batch)
+            elif self.grad_accum == 1:
                 loss = self._backward(batch)
             else:
                 loss = self._accumulate(self._microbatches(batch))
@@ -238,6 +304,35 @@ class Trainer:
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         return (dataclasses.replace(state, step=state.step + 1),
                 {"loss": loss, "aux_loss": zero})
+
+    def _weight(self, batch):
+        if "mask" in batch:
+            return batch["mask"].sum().float()
+        return torch.ones((), dtype=torch.float32, device=self.device)
+
+    def _data_parallel_backward(self, state, batch):
+        micro = ([batch] if self.grad_accum == 1
+                 else self._microbatches(batch))
+        local_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        local_w = torch.zeros((), dtype=torch.float32, device=self.device)
+        for mb in micro:
+            w = self._weight(mb)
+            local_loss = local_loss + self._backward(mb, w) * w
+            local_w = local_w + w
+        params = list(state.params.values())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [local_loss.reshape(1), local_w.reshape(1)])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        total = torch.clamp_min(flat[-1],
+                                1.0 if self.grad_accum == 1 else 1e-6)
+        offset = 0
+        for p, g in zip(params, grads):
+            n = g.numel()
+            p.grad = (flat[offset:offset + n] / total).view_as(p).to(p.dtype)
+            offset += n
+        return flat[-2] / total
 
     def _accumulate(self, micro):
         """Backward through each microbatch with weight w_i / sum(w): w_i is
@@ -281,7 +376,7 @@ class Trainer:
 
     # -- training loop ------------------------------------------------------
 
-    def fit(self, state, batches, steps=None, hooks=(), depth=2,
+    def fit(self, state, batches, steps=None, hooks=(), depth=None,
             flush_every=16, metrics=None, checkpoint=None,
             checkpoint_every=0):
         """Overlapped training loop: device prefetch and async metrics.
@@ -292,7 +387,11 @@ class Trainer:
         A plain iterable is wrapped in a DevicePrefetch of ``depth``
         batches sharing :attr:`batch_placer`, so the copy of batch N+1 to
         the card overlaps the step on batch N; ``depth=0`` places on this
-        thread.
+        thread. ``depth`` defaults to 2 in one process and to 0 under a
+        multi-process group: a source that runs collectives of its own
+        (``sync_batches``'s end-of-feed agreement) must not run them from
+        a second thread beside the step's. Pass ``depth`` to overlap a
+        collective-free source.
 
         Step metrics stay on the device and reach the host in one transfer
         every ``flush_every`` steps (:class:`~tensorflowonspark_tpu_torch
@@ -313,7 +412,17 @@ class Trainer:
         steps (0: only at exit) and once, forced, when the loop exits,
         an exit by exception included, so a relaunch resumes from the
         last completed step.
+
+        Each step reports to the telemetry plane as the JAX loop does: the
+        ``train_step`` gauge and steps/s (``telemetry.step_tick``, which
+        a node's heartbeats carry to ``cluster_stats()``), the
+        ``train_step_seconds`` and ``train_data_wait_seconds`` histograms,
+        and ``train/step`` and ``train/data_wait`` spans when a recorder
+        is configured. ``train/step`` times the host's call: the launch
+        of the step's kernels, not the card's compute.
         """
+        if depth is None:
+            depth = 0 if multihost.is_multiprocess() else 2
         own = not isinstance(batches, prefetch_lib.DevicePrefetch)
         buf = (metrics if metrics is not None
                else metrics_lib.AsyncStepMetrics(flush_every=flush_every))
@@ -344,11 +453,31 @@ class Trainer:
         # raised: ``fit_exc`` (not sys.exc_info(), which is set when fit is
         # called inside an outer except block) says whether fit failed.
         fit_exc = None
+        perf = time.perf_counter
+        it = iter(pf)
         try:
-            for batch in pf:
+            while True:
+                t_wait = perf()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                wait = perf() - t_wait
+                t_step = perf()
                 state, m = self.train_step(state, batch)
-                buf.push(step0 + n, m)
+                dur = perf() - t_step
+                step_no = step0 + n
+                buf.push(step_no, m)
                 n += 1
+                telemetry.step_tick(step_no + 1, wait=wait)
+                telemetry.observe("train_step_seconds", dur)
+                telemetry.observe("train_data_wait_seconds", wait)
+                # A data-wait slice only when it shows on a timeline.
+                if wait >= 1e-3:
+                    telemetry.record_span("train/data_wait", wait,
+                                          step=step_no)
+                telemetry.record_span("train/step", dur, step=step_no,
+                                      wait=round(wait, 6))
                 if ckpt is not None and checkpoint_every and \
                         n % checkpoint_every == 0:
                     ckpt.save(state)
@@ -389,6 +518,19 @@ class Trainer:
             if cleanup_errors and fit_exc is None:
                 raise cleanup_errors[0]
         return state, buf.history
+
+
+def _broadcast_from_rank0(tensors):
+    """Rank 0's values of ``tensors`` (one dtype) on every rank, in place:
+    one broadcast of one flat buffer."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    dist.broadcast(flat, src=0)
+    offset = 0
+    with torch.no_grad():
+        for t in tensors:
+            n = t.numel()
+            t.copy_(flat[offset:offset + n].view_as(t))
+            offset += n
 
 
 def _enable_model_remat(model):

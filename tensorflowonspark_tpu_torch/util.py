@@ -1,7 +1,27 @@
-"""Host utilities of the port (its copy of ``queue_put_bounded`` from
-``tensorflowonspark_tpu/util.py``)."""
+"""Host utilities of the port: its copy of what the port uses of
+``tensorflowonspark_tpu/util.py`` (queue and backoff helpers, the host
+address, executor ids, the parent-death signal).
 
+One deliberate difference: :func:`get_ip_address` never opens a socket
+towards another host. The JAX package finds its routable address by a UDP
+``connect`` to a public resolver; the port's backends are single-host
+(``LocalBackend``; the remote backend is ROADMAP A10), so the address is
+loopback unless ``TPU_FRAMEWORK_HOST`` names another.
+"""
+
+import os
 import queue as _queue_mod
+import random as _random_mod
+
+HOST_ENV = "TPU_FRAMEWORK_HOST"
+
+
+def backoff_delay(attempt, base, cap, jitter, rng=_random_mod):
+    """Exponential backoff with jitter: ``min(base * 2**attempt, cap)``
+    scaled by ``1 ± jitter``, floored at 0 (the reservation client's redial
+    loop). Jitter keeps a fleet from retrying in lockstep."""
+    delay = min(base * (2 ** attempt), cap)
+    return max(0.0, delay * (1.0 + rng.uniform(-jitter, jitter)))
 
 
 def queue_put_bounded(q, item, stopped, always=False, timeout=0.2,
@@ -28,3 +48,50 @@ def queue_put_bounded(q, item, stopped, always=False, timeout=0.2,
             tries += 1
             if tries >= stopped_tries:
                 return False
+
+
+def get_ip_address():
+    """The address this host advertises to the cluster: ``$TPU_FRAMEWORK_HOST``
+    when set, else loopback."""
+    return os.environ.get(HOST_ENV) or "127.0.0.1"
+
+
+_EXECUTOR_ID_FILE = "executor_id"
+
+
+def write_executor_id(num, working_dir=None):
+    """Persist this executor's id: feeder tasks read it back to find the
+    state manager the executor started at bring-up."""
+    path = os.path.join(working_dir or os.getcwd(), _EXECUTOR_ID_FILE)
+    with open(path, "w") as f:
+        f.write(str(num))
+
+
+def read_executor_id(working_dir=None):
+    """Read back the executor id written by :func:`write_executor_id`."""
+    path = os.path.join(working_dir or os.getcwd(), _EXECUTOR_ID_FILE)
+    with open(path) as f:
+        return int(f.read())
+
+
+def set_pdeathsig(sig=None):
+    """Linux parent-death signal: kill this process when the thread that
+    spawned it exits. ``daemon=True`` covers only the parent's clean exit
+    (multiprocessing's atexit hook); a SIGKILLed parent runs no atexit, and
+    its orphaned children would live on, blocked inside whatever collective
+    wedged them. No-op off Linux.
+
+    The trigger is the spawning *thread*'s exit, not the process's: call
+    this only in children whose spawning thread lives as long as the parent
+    process does (the main thread, or an executor's task loop).
+    """
+    import ctypes
+    import signal
+
+    if sig is None:
+        sig = signal.SIGKILL
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        libc.prctl(1, int(sig), 0, 0, 0)  # 1 = PR_SET_PDEATHSIG
+    except (OSError, AttributeError):  # pragma: no cover - non-Linux
+        pass

@@ -7,8 +7,10 @@ check runs in a fresh interpreter: import every module of
 nor ``tensorflowonspark_tpu`` (the exact name or a dotted child — the
 port's own name shares that prefix) may be loaded. A static scan of the
 sources (the package, ``chip_smoke.py`` and the port's
-``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``) backs it
-up for imports a run might not reach.
+``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``, and the
+node programs the cluster tests hand to spawned executors) backs it up for
+imports a run might not reach. A spawned executor of a port cluster, and
+its node program, load neither either.
 """
 
 import ast
@@ -63,7 +65,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "serving.scheduler", "serving.runner", "serving.cache",
                  "convert", "initializers", "fs", "util",
                  "train.trainer", "train.losses", "train.checkpoint",
-                 "train.prefetch", "train.tbevents", "train.metrics"):
+                 "train.prefetch", "train.tbevents", "train.metrics",
+                 "backend", "cluster", "feed", "manager", "marker", "node",
+                 "paths", "reservation", "telemetry", "telemetry_store",
+                 "parallel.mesh", "parallel.multihost"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -73,7 +78,8 @@ def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "torch_block_ab.py"),
              os.path.join(ROOT, "scripts", "torch_flash_ab.py"),
-             os.path.join(ROOT, "scripts", "torch_paged_ab.py")]
+             os.path.join(ROOT, "scripts", "torch_paged_ab.py"),
+             os.path.join(ROOT, "tests", "torch_cluster_programs.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -94,3 +100,25 @@ def test_sources_import_nothing_forbidden(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, "{}:{} imports {}".format(path, node.lineno, bad)
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_spawned_cluster_executors_load_no_jax(tmp_path):
+    """A FILES-mode port cluster: the executor process that runs the node
+    program (spawned by ``LocalBackend``, fed a pickled task) reports the
+    forbidden modules it has loaded."""
+    import torch_cluster_programs as progs
+    from tensorflowonspark_tpu_torch import backend, cluster
+
+    pool = backend.LocalBackend(1, base_dir=str(tmp_path / "exec"))
+    try:
+        c = cluster.run(pool, progs.write_square_files,
+                        {"outdir": str(tmp_path)}, num_executors=1,
+                        input_mode=cluster.InputMode.FILES,
+                        reservation_timeout=60)
+        c.shutdown(timeout=60)
+    finally:
+        pool.stop()
+    with open(os.path.join(tmp_path, "node_0.json")) as f:
+        doc = json.load(f)
+    assert doc["value"] == 4.0 and doc["forbidden"] == []
