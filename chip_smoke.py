@@ -87,6 +87,33 @@ calls and fails (non-zero exit) if any phase fails:
                batches; (d) the executor's step (CUDA events) against the
                in-process step, the feed wait a step, each rank's peak
                memory, and ``cluster.run`` to the first step;
+   recover  — supervised relaunch, elastic membership and remote agents:
+               (a) ``cluster.run(..., restart_policy=RestartPolicy(
+               max_restarts=1), checkpoint_dir=...)`` trains GPT-2-small
+               (the cluster phase's geometry) 6 steps with a commit every
+               2 and ``FaultPlan.crash_at_step(4)``: one restart, the
+               relaunch resumes at committed step 4 and discards the fed
+               batches already trained, B1-B3 48 + 24 launches over the
+               two incarnations, the committed step-6 weights bitwise
+               those of an in-process trainer on the same 6 batches, and
+               the card's free memory before the relaunch builds its
+               model within 1 GiB of the reading before the first
+               attempt; (b) a hang at step 2 (2 layers, heartbeats
+               dropped) classified hung within 5 s, the hung child and its
+               CUDA context gone before the relaunch, resumed at step 2;
+               (c) two executors under ``elastic=dict(min_nodes=1,
+               rejoin_delay=1.0)``, each training its own 2-layer model,
+               a spot preemption after step 3 with a grace of twice (b)'s
+               step and commit: no restart, a departure, a rejoin from a
+               committed step above 0, world size 2 at the end, B1-B3 in
+               both incarnations; (d) the Quickstart over
+               ``RemoteBackend(2)`` and two ``tools/agent.py`` agents
+               (data=2 over gloo, 2 layers): 3 steps, then
+               ``c.inference`` equal to in-process ``predict`` on the
+               trained weights; (e) seconds from each fault to its
+               detection, to the end of teardown and to the relaunch's
+               first step, restore seconds, the memory readings, the grace
+               and the agents' bring-up;
 7. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry (horizon 1; and horizon 4 with a joining
                request, prefix sharers, a COW duplicate, a swap and a
@@ -95,8 +122,10 @@ calls and fails (non-zero exit) if any phase fails:
 8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The B1-B3 rows' ``launches`` add the executors' launches of the cluster
-phase (each executor resets its counts before its loop and reports them)
-to the train phase's. The last two lines of standard output are the
+and recover phases (each executor resets its counts before its loop and
+reports them; a recover incarnation appends its counts to its audit log
+at every step, since a crashed one returns nothing) to the train
+phase's. The last two lines of standard output are the
 ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. In the record, ``ms`` and ``library_ms``
 are device times (:func:`device_ms`: the call's kernels alone, timed with
@@ -2534,6 +2563,571 @@ def cluster_phase(torch, fa, card):
     return total
 
 
+# -- recovery: supervised relaunch, elastic membership, remote agents ---------
+
+# (a): GPT-2-small at full width, the cluster phase's geometry, one executor
+# under RestartPolicy(max_restarts=1): 6 steps, a commit every 2 (a step
+# directory of weights and AdamW moments is 1.49 GB, so max_to_keep is 2),
+# the crash fired after step 4 commits.
+RECOVER_STEPS = 6
+RECOVER_INTERVAL = 2
+RECOVER_CRASH_AT = 4
+# (b)-(d): GPT-2-small width at a reduced depth of 2 layers.
+RECOVER_LAYERS = 2
+# (b): the hang fires after step 2 commits; beats every 0.5 s and 8 missed
+# beats make a hang dead within 4 s of its last beat, 4.25 s with the
+# supervisor's 0.25 s poll: detection under 5 s.
+RECOVER_HANG_AT = 2
+RECOVER_HANG_STEPS = 4
+RECOVER_HANG_HB = dict(heartbeat_interval=0.5, heartbeat_miss_budget=8)
+# Free card memory before a relaunch builds its model, against the reading
+# before the first attempt. A child whose CUDA context outlived the kill
+# would hold its weights, moments and activations: ~10 GiB at (a)'s width.
+RECOVER_MEM_SLACK = 1 << 30
+# (c): two executors, each its own 2-layer model, one batch a partition;
+# the preemption fires after step 3 commits, with a grace of
+# RECOVER_GRACE_STEPS x (step + commit) as measured in (b).
+RECOVER_ELASTIC_PARTS = 40
+RECOVER_PREEMPT_AT = 3
+RECOVER_GRACE_STEPS = 2.0
+# (d): two agents, data=2 over gloo, 3 steps, then one batch each.
+RECOVER_AGENT_STEPS = 3
+
+
+def _audit(path, **doc):
+    """Append one JSON line (with the wall clock and pid) to an audit log:
+    what a crashed incarnation leaves for the driver to read."""
+    doc.update(t=time.time(), pid=os.getpid())
+    with open(path, "a") as f:
+        f.write(json.dumps(doc) + "\n")
+
+
+def _read_audit(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _incarnations(lines):
+    """Audit lines split at each ``resume``: one list per incarnation."""
+    out = []
+    for line in lines:
+        if line["kind"] == "resume":
+            out.append([])
+        out[-1].append(line)
+    return out
+
+
+def _recover_lm(torch, args, device):
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device=device, seed=0,
+                              **dict(args["lm"], attention_impl="pallas"))
+    return Trainer(model, optimizer=trainer.adamw(CLUSTER_LR), device=device)
+
+
+def recover_node(args, ctx):
+    """Node program of (a) and (b): restore the latest committed step,
+    discard the feed's batches of the steps already committed (a relaunch
+    is fed the whole dataset again), train, save at the interval, and poll
+    the fault plan after each step. Every step appends its loss, its time,
+    its commit time and this incarnation's B1-B3 launches so far to the
+    audit log: a crashed incarnation returns nothing to the driver."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.testing.faults import FaultPlan
+    from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
+
+    ctx.initialize_distributed()
+    tr = _recover_lm(torch, args, ctx.device)
+    state = tr.init()
+    ckpt = CheckpointManager(args["ckpt_dir"], max_to_keep=2,
+                             save_interval_steps=args["interval"])
+    t0 = time.perf_counter()
+    state = ckpt.restore(state)
+    torch.cuda.synchronize()
+    _audit(args["log"], kind="resume", step=state.step,
+           restore_s=time.perf_counter() - t0)
+    plan = FaultPlan(args["plan_dir"])
+    fa.reset_launches()
+    feed = ctx.get_data_feed(train_mode=True)
+    example = np.zeros((1, args["lm"]["max_seq_len"] + 1), np.int64)
+    skip = state.step
+    for arrays, mask in feed.sync_batches(CLUSTER_BATCH, example=example):
+        if skip:
+            skip -= 1
+            continue
+        stop = _timer(torch)
+        state, m = tr.train_step(state, _cluster_batch(arrays, mask))
+        step_ms = stop()
+        loss = float(m["loss"])
+        t1 = time.perf_counter()
+        saved = ckpt.save(state)
+        _audit(args["log"], kind="step", step=state.step, loss=loss,
+               step_ms=step_ms, saved=saved,
+               commit_s=time.perf_counter() - t1 if saved else None,
+               launches=dict(fa.launches))
+        plan.on_step(state.step, checkpoint_dir=args["ckpt_dir"])
+    ckpt.close()
+
+
+def recover_elastic_node(args, ctx):
+    """Node program of (c), the port's ``elastic_linreg_fun`` with the
+    2-layer LM: its own checkpoint tree per node, a commit every step, the
+    resize barrier (back to the last committed step) at each directive,
+    and the same audit lines as :func:`recover_node`."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.testing.faults import FaultPlan
+    from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
+
+    node_dir = os.path.join(args["ckpt_dir"], "node{}".format(
+        ctx.executor_id))
+    log = os.path.join(args["log_dir"], "node{}.log".format(ctx.executor_id))
+    # Independent replicas, each on the card: no process group to join.
+    tr = _recover_lm(torch, args, "cuda")
+    ckpt = CheckpointManager(node_dir, max_to_keep=2)
+    t0 = time.perf_counter()
+    state = ckpt.restore(tr.init())
+    torch.cuda.synchronize()
+    _audit(log, kind="resume", step=state.step,
+           restore_s=time.perf_counter() - t0)
+    plan = FaultPlan(args["plan_dir"])
+    fa.reset_launches()
+    feed = ctx.get_data_feed(train_mode=True)
+    while not feed.should_stop():
+        directive = ctx.poll_resize()
+        if directive:
+            state = ckpt.restore(state)
+            _audit(log, kind="reshape", step=state.step,
+                   epoch=directive.get("epoch"),
+                   world_size=directive.get("world_size"))
+        arrays, mask = feed.next_batch_arrays(CLUSTER_BATCH, pad_to_full=True)
+        if not int(mask.sum()):
+            continue
+        stop = _timer(torch)
+        state, m = tr.train_step(state, _cluster_batch(arrays, mask))
+        step_ms = stop()
+        loss = float(m["loss"])
+        t1 = time.perf_counter()
+        ckpt.save(state, force=True)
+        _audit(log, kind="step", step=state.step, loss=loss, step_ms=step_ms,
+               saved=True, commit_s=time.perf_counter() - t1,
+               launches=dict(fa.launches))
+        plan.on_step(state.step, checkpoint_dir=node_dir)
+    ckpt.close()
+
+
+class _MemoryReadingBackend:
+    """A ``LocalBackend`` that reads the card's free memory each time a
+    cluster submits its node bring-up: before an attempt's compute child
+    builds its model. A reading after the first waits (up to ``wait``
+    seconds) for the memory to come within ``RECOVER_MEM_SLACK`` of the
+    first; the wait is reported. Everything else is the pool's."""
+
+    def __init__(self, torch, pool, wait=10.0):
+        self._torch = torch
+        self.pool = pool
+        self.num_executors = pool.num_executors
+        self.wait = wait
+        self.readings = []  # (free bytes, seconds waited)
+
+    def foreach_partition(self, partitions, fn, **kw):
+        from tensorflowonspark_tpu_torch import node
+
+        if isinstance(fn, node.NodeRunner):
+            free = self._torch.cuda.mem_get_info()[0]
+            t0 = time.perf_counter()
+            waited = 0.0
+            while self.readings and waited < self.wait and \
+                    free < self.readings[0][0] - RECOVER_MEM_SLACK:
+                time.sleep(0.1)
+                free = self._torch.cuda.mem_get_info()[0]
+                waited = time.perf_counter() - t0
+            self.readings.append((free, waited))
+        return self.pool.foreach_partition(partitions, fn, **kw)
+
+    def stop(self):
+        self.pool.stop()
+
+
+def _teardowns(telemetry):
+    """The driver's ``supervise/teardown`` spans, oldest first: ``(wall
+    start, wall end)``."""
+    return [(s["ts"], s["ts"] + s["dur"]) for s in telemetry.recent_spans(500)
+            if s["name"] == "supervise/teardown"]
+
+
+def _supervised(torch, telemetry, root, name, lm, steps, interval, arm, hb):
+    """One supervised job of :func:`recover_node` on one executor: returns
+    the report, the audit lines, the memory readings, the first teardown
+    span, the checkpoint directory and the rows fed."""
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.supervisor import RestartPolicy
+    from tensorflowonspark_tpu_torch.testing import faults
+
+    out = os.path.join(root, name)
+    os.makedirs(out)
+    plan = faults.FaultPlan(os.path.join(out, "faults"))
+    arm(plan)
+    args = {"lm": lm, "ckpt_dir": os.path.join(out, "ckpt"),
+            "plan_dir": plan.plan_dir, "log": os.path.join(out, "audit.log"),
+            "interval": interval}
+    rows = _cluster_rows(lm, steps * CLUSTER_BATCH, seed=21)
+    parts = [rows[i:i + 2 * CLUSTER_BATCH]
+             for i in range(0, len(rows), 2 * CLUSTER_BATCH)]
+    torch.cuda.empty_cache()
+    spans_before = len(_teardowns(telemetry))
+    pool = _MemoryReadingBackend(torch, backend.LocalBackend(
+        1, base_dir=os.path.join(out, "executors")))
+    try:
+        sup = cluster.run(pool, recover_node, args, num_executors=1,
+                          input_mode=cluster.InputMode.FEED,
+                          reservation_timeout=300,
+                          restart_policy=RestartPolicy(max_restarts=1,
+                                                       backoff=0.5),
+                          checkpoint_dir=args["ckpt_dir"], **hb)
+        report = sup.train(backend.Partitioned(parts), timeout=600)
+    finally:
+        pool.stop()
+    teardown = _teardowns(telemetry)[spans_before:][:1]
+    return (report, _read_audit(args["log"]), pool.readings,
+            teardown[0] if teardown else None, args["ckpt_dir"], rows)
+
+
+def _fault_times(incs, teardown):
+    """Seconds from the fault (the faulting step's audit line, written just
+    before the plan fired) to its detection (the teardown's start), to the
+    end of the teardown and to the relaunch's first step."""
+    fault = incs[0][-1]["t"]
+    return {"detect": teardown[0] - fault, "teardown": teardown[1] - fault,
+            "first_step": incs[1][1]["t"] - fault}
+
+
+def _launch_sum(fa, last_lines):
+    total = dict.fromkeys(fa.launches, 0)
+    for line in last_lines:
+        for k in total:
+            total[k] += line["launches"][k]
+    return total
+
+
+def _mem_text(readings):
+    return ", ".join("{:.2f} GiB free (waited {:.2f} s)".format(
+        free / 2 ** 30, w) for free, w in readings)
+
+
+def _mem_ok(readings):
+    return len(readings) == 2 and \
+        readings[1][0] >= readings[0][0] - RECOVER_MEM_SLACK
+
+
+def recover_phase(torch, fa, card):
+    """Supervised relaunch, elastic membership and remote agents on the
+    card: (a) a crash at GPT-2-small width, the relaunch's weights bitwise
+    those of an uninterrupted in-process run; (b) a hang, detected from the
+    heartbeats; (c) a spot preemption absorbed in place by an elastic
+    cluster; (d) the Quickstart over two ``tools/agent.py`` agents; (e) the
+    report. Returns the B1-B3 launches of the phase."""
+    import shutil
+    import subprocess as sp
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import (backend, backend_remote,
+                                             cluster, telemetry)
+    from tensorflowonspark_tpu_torch.supervisor import RestartPolicy
+    from tensorflowonspark_tpu_torch.testing import faults
+    from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
+
+    telemetry.configure(node_id="driver")
+    total = dict.fromkeys(fa.launches, 0)
+    lm_small = dict(GPT2_SMALL, num_layers=RECOVER_LAYERS)
+    root = tempfile.mkdtemp(prefix="tfos-recover-")
+    try:
+        # (a) crash at full width.
+        layers = GPT2_SMALL["num_layers"]
+        report, lines, mem, teardown, ckpt_dir, rows = _supervised(
+            torch, telemetry, root, "crash", GPT2_SMALL, RECOVER_STEPS,
+            RECOVER_INTERVAL,
+            lambda plan: plan.crash_at_step(RECOVER_CRASH_AT), {})
+        incs = _incarnations(lines)
+        per_inc = [inc[-1]["launches"] for inc in incs]
+        batches = [_cluster_batch(rows[i:i + CLUSTER_BATCH],
+                                  np.ones(CLUSTER_BATCH, bool))
+                   for i in range(0, len(rows), CLUSTER_BATCH)]
+        tr = _recover_lm(torch, {"lm": GPT2_SMALL}, "cuda")
+        state = tr.init()
+        ref_losses = []
+        for b in batches:
+            state, m = tr.train_step(state, b)
+            ref_losses.append(float(m["loss"]))
+        saved = CheckpointManager(ckpt_dir).restore_variables()
+        differ = [k for k, v in state.params.items()
+                  if not _equal(v.detach().float(), saved[k])]
+        losses = [line["loss"] for inc in incs for line in inc[1:]]
+        times = _fault_times(incs, teardown)
+        restore_s = incs[1][0]["restore_s"]
+        del tr, state, saved
+        torch.cuda.empty_cache()
+        checks = {
+            "restarts 1": report["restarts"] == 1,
+            "resumed at committed step {}".format(RECOVER_CRASH_AT):
+                [inc[0]["step"] for inc in incs] == [0, RECOVER_CRASH_AT]
+                and report["failures"][0]["committed_step"]
+                == RECOVER_CRASH_AT,
+            "failure classified crashed":
+                report["failures"][0]["kind"] == "crashed",
+            "committed step {} bitwise the in-process run's".format(
+                RECOVER_STEPS): not differ and
+                report["committed_step"] == RECOVER_STEPS,
+            "losses those of the in-process run": losses == ref_losses,
+            "launches {} and {} a kernel".format(
+                RECOVER_CRASH_AT * layers,
+                (RECOVER_STEPS - RECOVER_CRASH_AT) * layers): per_inc == [
+                    dict.fromkeys(fa.launches, RECOVER_CRASH_AT * layers),
+                    dict.fromkeys(fa.launches, (RECOVER_STEPS
+                                                - RECOVER_CRASH_AT) * layers)],
+            "card memory back before the relaunch": _mem_ok(mem),
+        }
+        launches_a = _launch_sum(fa, [inc[-1] for inc in incs])
+        log("recover (a) crash at step {} of {}, {} layers, width {}, b{} "
+            "s{} bf16 pallas adamw({:g}), commit every {} steps: restarts "
+            "{}, failure {} at committed step {}; incarnations resumed at "
+            "{}; B1-B3 launches per incarnation {} (sum {}); losses {}; "
+            "step-{} weights differing from the in-process run: {}; restore "
+            "{:.2f} s; card memory before each attempt: {}; seconds from "
+            "the fault to detection {:.2f}, to the end of teardown {:.2f}, "
+            "to the relaunch's first step {:.2f}; on {}".format(
+                RECOVER_CRASH_AT, RECOVER_STEPS, layers,
+                GPT2_SMALL["embed_dim"], CLUSTER_BATCH,
+                GPT2_SMALL["max_seq_len"], CLUSTER_LR, RECOVER_INTERVAL,
+                report["restarts"], report["failures"][0]["kind"],
+                report["failures"][0]["committed_step"],
+                [inc[0]["step"] for inc in incs],
+                [inc[-1]["launches"]["flash_fwd"] for inc in incs],
+                launches_a, ["{:.4f}".format(x) for x in losses],
+                RECOVER_STEPS, differ or "none", restore_s, _mem_text(mem),
+                times["detect"], times["teardown"], times["first_step"],
+                card))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("recover (a) failed: {}".format(failed))
+        for k in total:
+            total[k] += launches_a[k]
+
+        # (b) hang at 2 layers.
+        def arm_hang(plan):
+            plan.hang_at_step(RECOVER_HANG_AT)
+            plan.drop_heartbeats_after(RECOVER_HANG_AT)
+
+        report, lines, mem, teardown, _, _ = _supervised(
+            torch, telemetry, root, "hang", lm_small, RECOVER_HANG_STEPS,
+            RECOVER_INTERVAL, arm_hang, RECOVER_HANG_HB)
+        incs = _incarnations(lines)
+        times = _fault_times(incs, teardown)
+        steps_b = [line for inc in incs for line in inc[1:]]
+        # Steady steps: an incarnation's first pays its lazy CUDA set-up.
+        step_s = max(line["step_ms"] for inc in incs
+                     for line in inc[2:]) / 1e3
+        commit_s = max(line["commit_s"] for line in steps_b
+                       if line["saved"])
+        checks = {
+            "restarts 1": report["restarts"] == 1,
+            "failure classified hung":
+                report["failures"][0]["kind"] == "hung",
+            "detected within 5 s": times["detect"] < 5.0,
+            "resumed at step {} and finished".format(RECOVER_HANG_AT):
+                [inc[0]["step"] for inc in incs] == [0, RECOVER_HANG_AT]
+                and report["committed_step"] == RECOVER_HANG_STEPS,
+            "card memory back before the relaunch": _mem_ok(mem),
+        }
+        launches_b = _launch_sum(fa, [inc[-1] for inc in incs])
+        log("recover (b) hang at step {} of {}, {} layers, heartbeats every "
+            "{} s, {} missed: failure {}, restarts {}; incarnations resumed "
+            "at {}; B1-B3 launches {}; steady step {:.3f} s (CUDA events) "
+            "and commit {:.3f} s (host clock) at most; restore {:.2f} s; "
+            "card memory "
+            "before each attempt: {}; seconds from the fault to detection "
+            "{:.2f}, to the end of teardown {:.2f}, to the relaunch's first "
+            "step {:.2f}".format(
+                RECOVER_HANG_AT, RECOVER_HANG_STEPS, RECOVER_LAYERS,
+                RECOVER_HANG_HB["heartbeat_interval"],
+                RECOVER_HANG_HB["heartbeat_miss_budget"],
+                report["failures"][0]["kind"], report["restarts"],
+                [inc[0]["step"] for inc in incs], launches_b, step_s,
+                commit_s, incs[1][0]["restore_s"], _mem_text(mem),
+                times["detect"], times["teardown"], times["first_step"]))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("recover (b) failed: {}".format(failed))
+        for k in total:
+            total[k] += launches_b[k]
+
+        # (c) elastic preemption at 2 layers.
+        grace = RECOVER_GRACE_STEPS * (step_s + commit_s)
+        out = os.path.join(root, "elastic")
+        log_dir = os.path.join(out, "logs")
+        os.makedirs(log_dir)
+        plan = faults.FaultPlan(os.path.join(out, "faults"))
+        plan.preempt_node(RECOVER_PREEMPT_AT, grace=grace)
+        rows = _cluster_rows(lm_small, RECOVER_ELASTIC_PARTS * CLUSTER_BATCH,
+                             seed=22)
+        parts = [rows[i:i + CLUSTER_BATCH]
+                 for i in range(0, len(rows), CLUSTER_BATCH)]
+        args = {"lm": lm_small, "ckpt_dir": os.path.join(out, "ckpt"),
+                "plan_dir": plan.plan_dir, "log_dir": log_dir}
+        pool = backend.LocalBackend(2, base_dir=os.path.join(out, "exec"))
+        try:
+            sup = cluster.run(
+                pool, recover_elastic_node, args, num_executors=2,
+                input_mode=cluster.InputMode.FEED, reservation_timeout=300,
+                restart_policy=RestartPolicy(max_restarts=1, backoff=0.5),
+                checkpoint_dir=args["ckpt_dir"],
+                elastic=dict(min_nodes=1, rejoin_delay=1.0))
+            report = sup.train(backend.Partitioned(parts), timeout=600)
+        finally:
+            pool.stop()
+        member = report.get("membership", {})
+        logs = {name: _incarnations(_read_audit(os.path.join(log_dir, name)))
+                for name in sorted(os.listdir(log_dir))}
+        preempted = [incs for incs in logs.values() if len(incs) >= 2]
+        launches_c = _launch_sum(fa, [
+            [line for line in inc if line["kind"] == "step"][-1]
+            for incs in logs.values() for inc in incs
+            if any(line["kind"] == "step" for line in inc)])
+        reshapes = sum(line["kind"] == "reshape" for incs in logs.values()
+                       for inc in incs for line in inc)
+        checks = {
+            "preemption fired": plan.fired(faults.PREEMPT) == 1,
+            "restarts 0": report["restarts"] == 0,
+            "departures >= 1": member.get("departures", 0) >= 1,
+            "rejoins >= 1": member.get("rejoins", 0) >= 1,
+            "epoch >= 2": member.get("epoch", 0) >= 2,
+            "world size 2 at shutdown": member.get("world_size") == 2,
+            "the replacement resumed above step 0": bool(preempted) and
+                preempted[0][1][0]["step"] > 0,
+            "B1-B3 in both incarnations of the preempted node":
+                bool(preempted) and all(
+                    any(line["kind"] == "step" and
+                        min(line["launches"].values()) > 0 for line in inc)
+                    for inc in preempted[0][:2]),
+        }
+        log("recover (c) elastic, 2 executors, {} layers, min_nodes 1, "
+            "rejoin delay 1 s; preemption after step {} with a grace of "
+            "{:.2f} s ({:g} x (step + commit) of (b)): restarts {}, "
+            "membership {}; node incarnations resumed at {}; reshape "
+            "barriers {}; B1-B3 launches {}".format(
+                RECOVER_LAYERS, RECOVER_PREEMPT_AT, grace,
+                RECOVER_GRACE_STEPS, report["restarts"],
+                {k: member.get(k) for k in ("epoch", "world_size",
+                                            "departures", "rejoins",
+                                            "replacements")},
+                {name: [inc[0]["step"] for inc in incs]
+                 for name, incs in logs.items()}, reshapes, launches_c))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("recover (c) failed: {}".format(failed))
+        for k in total:
+            total[k] += launches_c[k]
+
+        # (d) the Quickstart over two remote agents.
+        out = os.path.join(root, "agents")
+        os.makedirs(out)
+        pool = backend_remote.RemoteBackend(2, listen=("127.0.0.1", 0))
+        env = dict(os.environ, TPU_FRAMEWORK_AGENT_KEY=pool.authkey.hex(),
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        agents = [sp.Popen(
+            [sys.executable, "-m", "tensorflowonspark_tpu_torch.tools.agent",
+             "--driver", "127.0.0.1:{}".format(pool.address[1]),
+             "--base_dir", os.path.join(out, "agents")], env=env)
+            for _ in range(2)]
+        try:
+            pool.wait_for_agents(timeout=120)
+            agents_s = time.perf_counter() - t0
+            rows = _cluster_rows(lm_small,
+                                 2 * RECOVER_AGENT_STEPS * CLUSTER_BATCH,
+                                 seed=23)
+            half = len(rows) // 2
+            infer_rows = _cluster_rows(lm_small, 2 * CLUSTER_BATCH, seed=24)
+            infer_parts = [infer_rows[:CLUSTER_BATCH],
+                           infer_rows[CLUSTER_BATCH:]]
+            args = {"outdir": out, "steps": RECOVER_AGENT_STEPS,
+                    "lm": lm_small, "infer": True, "save_params": True}
+            t_run = time.perf_counter()
+            c = cluster.run(pool, cluster_node, args, num_executors=2,
+                            input_mode=cluster.InputMode.FEED,
+                            reservation_timeout=300)
+            ready_s = time.perf_counter() - t_run
+            try:
+                c.train(backend.Partitioned([rows[:half], rows[half:]]),
+                        timeout=600)
+                results = c.inference(backend.Partitioned(infer_parts),
+                                      timeout=600)
+            finally:
+                c.shutdown(timeout=600)
+        finally:
+            pool.stop()
+            for a in agents:
+                try:
+                    a.wait(timeout=30)
+                except sp.TimeoutExpired:
+                    a.kill()
+                    a.wait(timeout=30)
+        docs = []
+        for r in range(2):
+            with open(os.path.join(out, "node{}.json".format(r))) as f:
+                docs.append(json.load(f))
+        tr = _recover_lm(torch, {"lm": lm_small}, "cuda")
+        state = tr.init(params=torch.load(os.path.join(out, "params.pt"),
+                                          weights_only=True))
+        want_pred = []
+        for part in infer_parts:
+            logits = tr.predict(state, np.asarray(part)[:, :-1].astype(
+                np.int64))
+            want_pred.append([int(t) for t in logits[:, -1].argmax(-1).cpu()])
+        del tr, state
+        torch.cuda.empty_cache()
+        launches_d = dict.fromkeys(fa.launches, 0)
+        for d in docs:
+            for k in launches_d:
+                launches_d[k] += d["train_launches"][k] + \
+                    d["infer_launches"][k]
+        want_train = dict.fromkeys(fa.launches,
+                                   RECOVER_AGENT_STEPS * RECOVER_LAYERS)
+        checks = {
+            "predictions those of in-process predict": results == want_pred,
+            "replicas bitwise equal every step": all(
+                d["equal"] == [True] * RECOVER_AGENT_STEPS for d in docs),
+            "each agent's executor launched B1-B3": all(
+                d["train_launches"] == want_train for d in docs),
+            "each agent's executor launched B1 in inference": all(
+                d["infer_launches"]["flash_fwd"] == RECOVER_LAYERS
+                for d in docs),
+        }
+        log("recover (d) Quickstart over 2 tools/agent.py agents, {} layers, "
+            "data=2 over {}: agents up in {:.2f} s, cluster.run {:.2f} s; "
+            "{} steps, losses {}; c.inference {} equal to in-process "
+            "predict {}; B1-B3 launches per agent {}".format(
+                RECOVER_LAYERS, docs[0]["backend"], agents_s, ready_s,
+                RECOVER_AGENT_STEPS,
+                ["{:.4f}".format(x) for x in docs[0]["losses"]], results,
+                want_pred, [{k: d["train_launches"][k] + d["infer_launches"]
+                             [k] for k in launches_d} for d in docs]))
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("recover (d) failed: {}".format(failed))
+        for k in total:
+            total[k] += launches_d[k]
+    finally:
+        telemetry.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def toy_greedy_phase(torch):
     """Toy fp32 geometry on the card: engine streams (solo, joined
     mid-batch, max-length) equal solo ``generate`` bitwise."""
@@ -2736,6 +3330,8 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # One host: every cluster of the run advertises loopback.
+    os.environ.setdefault("TPU_FRAMEWORK_HOST", "127.0.0.1")
     from tensorflowonspark_tpu_torch import device_info
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
@@ -2775,6 +3371,7 @@ def main():
         raise AssertionError("the resnet phase launched flash kernels: "
                              "{}".format(fa.launches))
     cluster_launches = cluster_phase(torch, fa, card)
+    recover_launches = recover_phase(torch, fa, card)
     toy_model = toy_greedy_phase(torch)
     full_width_teacher_forced(torch)
     http_phase(torch, toy_model)
@@ -2791,7 +3388,8 @@ def main():
             source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
-            launches=flash_launches[name] + cluster_launches[name],
+            launches=flash_launches[name] + cluster_launches[name]
+            + recover_launches[name],
             **flash_times[name]))
     # B5's row: one launch of a stage-1 block, the mean of its two (K1
     # without, K3 with the prologue); B6's: the stage-1 block's K2.

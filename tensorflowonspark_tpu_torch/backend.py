@@ -1,6 +1,5 @@
 """Execution backend: the "Spark executor" tier (the port's copy of the
-JAX package's ``backend.py``; ``backend_remote.py`` is the later part of
-ROADMAP A10).
+JAX package's ``backend.py``).
 
 The reference ran inside Spark executors and used ``foreachPartition`` /
 ``mapPartitions`` closures as its unit of remote execution
@@ -18,8 +17,11 @@ same contract without Spark: a pool of **persistent executor processes**
 * A task raising ``RetryTask`` is resubmitted to a *different* executor —
   the analog of Spark rescheduling a failed task (``TFSparkNode.py:166-167``).
 
-Multi-host: the same task protocol rides the rendezvous control plane; a
-``RemoteBackend`` over per-host agents plugs in here.
+Multi-host: :class:`~tensorflowonspark_tpu_torch.backend_remote
+.RemoteBackend` carries the same task protocol to per-host agents. Both
+serve the supervision layer as they are: a pool outlives a failed
+attempt (a relaunch reuses its executors), and ``assign=`` pins a reap or
+an elastic respawn to the executor slot that hosts the node.
 """
 
 import logging

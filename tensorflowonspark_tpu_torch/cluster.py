@@ -10,11 +10,16 @@ input queues; ``inference()`` returns per-partition results;
 ``shutdown()`` tears everything down with the same busy-node
 control-channel trick the reference used for parameter servers.
 
-Not ported, each raising ``NotImplementedError``: supervised relaunch
-(``restart_policy``/``checkpoint_dir``, ``supervisor.py``) and elastic
-membership (``elastic``, ``elastic.py``), the later part of ROADMAP A10;
-incident capture (``incident_dir``) and SLO monitoring (``slos``), ROADMAP
-A12.
+``restart_policy`` makes ``run`` return a
+:class:`~tensorflowonspark_tpu_torch.supervisor.SupervisedCluster`
+(relaunch from the latest committed checkpoint); ``elastic`` an
+:class:`~tensorflowonspark_tpu_torch.elastic.ElasticCluster` (a dead node
+departs and is replaced in place). Any backend with the
+``foreach_partition`` surface serves: ``LocalBackend`` or
+:class:`~tensorflowonspark_tpu_torch.backend_remote.RemoteBackend`.
+
+Not ported, each raising ``NotImplementedError``: incident capture
+(``incident_dir``) and SLO monitoring (``slos``), ROADMAP A12.
 """
 
 import logging
@@ -62,7 +67,16 @@ class Cluster:
         self._executor_map = executor_map or {}
 
     def _backend_slot(self, executor_id):
+        """The backend executor index that hosts node ``executor_id``
+        (feeders, reaps and elastic respawns are pinned there)."""
         return self._executor_map.get(executor_id, executor_id)
+
+    def capture_incident(self, reason="manual", **attrs):
+        """The JAX cluster's black-box capture, which the elastic controller
+        calls before it retires a node: a no-op returning None, as the JAX
+        one is without ``incident_dir`` (incident capture is ROADMAP
+        A12)."""
+        return None
 
     # -- data movement ------------------------------------------------------
 
@@ -281,26 +295,73 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
     heartbeat history store is always on (bounded memory;
     ``cluster.history`` and ``cluster.goodput()`` read it).
 
-    Not ported: ``restart_policy`` and ``checkpoint_dir`` (the supervision
-    layer, ``supervisor.py``) and ``elastic`` (``elastic.py``) raise
-    naming the later part of ROADMAP A10; ``incident_dir`` and ``slos``
-    raise naming ROADMAP A12.
+    ``restart_policy`` (a :class:`~tensorflowonspark_tpu_torch.supervisor
+    .RestartPolicy`) returns a :class:`~tensorflowonspark_tpu_torch
+    .supervisor.SupervisedCluster`: each ``train``/``inference`` call is
+    one supervised job, relaunched on a crashed or hung node from the
+    latest committed step under ``checkpoint_dir`` (the supervisor's
+    probe; it needs a policy). The node program restores from there
+    itself.
+
+    ``elastic`` (True / kwargs dict / :class:`~tensorflowonspark_tpu_torch
+    .elastic.ElasticConfig`; FEED mode only, no ps nodes) returns an
+    :class:`~tensorflowonspark_tpu_torch.elastic.ElasticCluster`: a dead
+    node is *departed* from the membership instead of tearing the job
+    down — survivors get a resize directive on their next heartbeat
+    (``ctx.poll_resize()``), a replacement is respawned onto the freed
+    executor slot, and ``train()`` feeds waves sized to the live
+    membership. Composes with ``restart_policy``: the supervisor only
+    tears down when membership falls below ``min_nodes``.
+
+    Not ported: ``incident_dir`` and ``slos`` raise naming ROADMAP A12.
     """
-    if restart_policy is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "restart_policy/checkpoint_dir: the supervision layer "
-            "(supervisor.py) is the later part of ROADMAP A10; checkpoint "
-            "from the node program with train.checkpoint.CheckpointManager")
-    if elastic:
-        raise NotImplementedError(
-            "elastic: elastic membership (elastic.py) is the later part of "
-            "ROADMAP A10")
     if incident_dir is not None:
         raise NotImplementedError(
             "incident_dir: incident capture (incident.py) is ROADMAP A12")
     if slos:
         raise NotImplementedError(
             "slos: SLO monitoring over the history store is ROADMAP A12")
+    if restart_policy is None and checkpoint_dir is not None:
+        raise ValueError(
+            "checkpoint_dir is only consumed by the supervision layer; "
+            "pass restart_policy=RestartPolicy(...) with it (plain "
+            "clusters checkpoint from the node program instead)"
+        )
+    if restart_policy is not None:
+        from tensorflowonspark_tpu_torch import supervisor as supervisor_mod
+
+        return supervisor_mod.SupervisedCluster(
+            backend, map_fun, tf_args,
+            restart_policy=restart_policy, checkpoint_dir=checkpoint_dir,
+            run_kwargs=dict(
+                num_executors=num_executors, num_ps=num_ps,
+                input_mode=input_mode, master_node=master_node,
+                default_fs=default_fs,
+                reservation_timeout=reservation_timeout, queues=queues,
+                tensorboard=tensorboard, log_dir=log_dir,
+                driver_ps_nodes=driver_ps_nodes,
+                heartbeat_interval=heartbeat_interval,
+                heartbeat_miss_budget=heartbeat_miss_budget,
+                telemetry_dir=telemetry_dir, elastic=elastic,
+            ),
+        )
+
+    elastic_cfg = None
+    if elastic:
+        from tensorflowonspark_tpu_torch import elastic as elastic_mod
+
+        elastic_cfg = elastic_mod.ElasticConfig.normalize(elastic)
+        if input_mode != InputMode.FEED:
+            raise ValueError(
+                "elastic clusters require InputMode.FEED (FILES-mode "
+                "nodes own their shards for the whole job; there is no "
+                "wave boundary to reshape at)"
+            )
+        if num_ps > 0 or driver_ps_nodes:
+            raise ValueError(
+                "elastic clusters do not support ps/service nodes: a "
+                "service node's lifetime is the job, it cannot depart"
+            )
 
     num_executors = num_executors or backend.num_executors
     executors_needed = num_executors - (num_ps if driver_ps_nodes else 0)
@@ -327,13 +388,15 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
         raise ValueError("cluster has no worker nodes")
 
     # History plane: heartbeat stats are retained in the process-wide
-    # store (ensure, not configure: consecutive clusters of one driver
-    # keep ONE store).
+    # store (ensure, not configure: a supervised relaunch must keep ONE
+    # store so the goodput curve spans the restart).
     telemetry_store.ensure()
 
     server = reservation.Server(
         num_executors, heartbeat_interval=heartbeat_interval,
         heartbeat_miss_budget=heartbeat_miss_budget,
+        elastic=elastic_cfg is not None,
+        min_nodes=elastic_cfg.min_nodes if elastic_cfg is not None else 1,
     )
     server_addr = server.start()
 
@@ -384,12 +447,30 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
                 name="driver-ps-{}".format(eid), daemon=True,
             ).start()
 
+    node_jobs = []
+    if elastic_cfg is not None:
+        # One single-partition bring-up job PER node slot: the backend
+        # fails every job with pending partitions on a dead executor, so
+        # batching all slots into one job would couple the survivors'
+        # bring-up to the first casualty. Per-slot jobs keep each node's
+        # bring-up an independent failure domain (and respawns reuse the
+        # same shape).
+        for k, eid in enumerate(backend_ids):
+            node_jobs.append(backend.foreach_partition(
+                [[eid]], runner, block=False,
+                assign=lambda idx, s=k % backend.num_executors: s,
+            ))
+
     def launch():
         try:
-            backend.foreach_partition(
-                [[i] for i in backend_ids], runner, block=True,
-                assign=lambda idx: idx % backend.num_executors,
-            )
+            if elastic_cfg is not None:
+                for job in node_jobs:
+                    job.wait(reservation_timeout)
+            else:
+                backend.foreach_partition(
+                    [[i] for i in backend_ids], runner, block=True,
+                    assign=lambda idx: idx % backend.num_executors,
+                )
         except Exception as e:  # noqa: BLE001 - recorded for the driver
             logger.exception("node launch failed")
             status["error"] = str(e)
@@ -414,12 +495,23 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
     executor_map = {
         eid: k % backend.num_executors for k, eid in enumerate(backend_ids)
     }
-    return Cluster(
+    if elastic_cfg is None:
+        return Cluster(
+            backend, cluster_info, cluster_meta, server, input_mode,
+            node_job=None if input_mode == InputMode.FEED
+            else _JobProxy(launch_thread),
+            status=status, queues=queues, executor_map=executor_map,
+        )
+    cluster_obj = elastic_mod.ElasticCluster(
         backend, cluster_info, cluster_meta, server, input_mode,
-        node_job=None if input_mode == InputMode.FEED
-        else _JobProxy(launch_thread),
-        status=status, queues=queues, executor_map=executor_map,
+        node_job=None, status=status, queues=queues,
+        executor_map=executor_map, runner=runner, node_jobs=node_jobs,
+        elastic_config=elastic_cfg,
     )
+    cluster_obj.controller = elastic_mod.ElasticController(
+        cluster_obj, elastic_cfg)
+    cluster_obj.controller.start()
+    return cluster_obj
 
 
 class _JobProxy:

@@ -10,7 +10,10 @@ torch.Tensor}``:
 * ``resnet_params_from_flax(variables, model)`` for the port's ResNets:
   ``params`` and ``batch_stats`` together, conv kernels HWIO -> OIHW;
 * ``fused_block_params_from_jax(params)`` for
-  ``ops.fused_resnet_block``'s parameter dict, dtype and layout kept.
+  ``ops.fused_resnet_block``'s parameter dict, dtype and layout kept;
+* ``dense_params_from_flax(params, model)`` for the port's ``MLP`` and
+  ``LinearRegression``, whose ``Dense_<i>`` layers keep flax's names and
+  layouts: a renaming.
 
 All check names and shapes: a tree of another depth or width fails
 loudly instead of loading half a model.
@@ -134,4 +137,22 @@ def fused_block_params_from_jax(params):
             raise ValueError("{} has shape {}, want {}".format(
                 name, tuple(np.shape(params[name])), shape))
         out[name] = _tensor(params[name])
+    return out
+
+
+def dense_params_from_flax(params, model):
+    """The port's ``state_dict`` (f32 CPU tensors) for the flax ``params``
+    of an ``MLP`` or ``LinearRegression``; ``model`` is the port's module
+    of the same widths."""
+    flat = _flat(params)
+    want = {name.replace(".", "/"): (name, tuple(t.shape))
+            for name, t in model.state_dict().items()}
+    _check_names(flat, want, "flax Dense params and the model")
+    out = {}
+    for key, (name, shape) in want.items():
+        arr = np.array(flat[key], dtype=np.float32, order="C")
+        if arr.shape != shape:
+            raise ValueError("{} has shape {}, the model wants {}".format(
+                key, arr.shape, shape))
+        out[name] = torch.from_numpy(arr)
     return out

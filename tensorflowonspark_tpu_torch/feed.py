@@ -55,6 +55,17 @@ class DataFeed:
         # batch: an empty batch must reproduce it, not degrade to
         # np.asarray([])'s float64 (see next_batch_arrays).
         self._empty_template = None
+        # Queue proxies by name, made once: each get_queue builds a new
+        # proxy over three fresh authenticated manager connections, which
+        # a call per batch (as in the JAX package) made the feed's main
+        # cost per batch.
+        self._queues = {}
+
+    def _queue(self, name):
+        q = self._queues.get(name)
+        if q is None:
+            q = self._queues[name] = self.mgr.get_queue(name)
+        return q
 
     # -- input side ---------------------------------------------------------
 
@@ -75,7 +86,7 @@ class DataFeed:
             batch = {name: [] for name in self.input_tensors}
         else:
             batch = []
-        q = self.mgr.get_queue(self.qname_in)
+        q = self._queue(self.qname_in)
         count = 0
         t_call = time.perf_counter()
         waited = 0.0
@@ -251,7 +262,7 @@ class DataFeed:
 
     def batch_results(self, results):
         """Push one batch of inference results (1:1 with consumed inputs)."""
-        q = self.mgr.get_queue(self.qname_out)
+        q = self._queue(self.qname_out)
         for item in results:
             q.put(item, block=True)
 

@@ -1,13 +1,15 @@
-"""Model registry (port of ``models/factory.py``): the transformer LM and
-the ResNet family; the rest of the zoo follows in later slices (ROADMAP
-A11)."""
+"""Model registry (port of ``models/factory.py``): the transformer LM, the
+ResNet family, the MLP and linear regression; the rest of the zoo follows
+in later slices (ROADMAP A11)."""
 
-from tensorflowonspark_tpu_torch.models import resnet, transformer
+from tensorflowonspark_tpu_torch.models import mlp, resnet, transformer
 
 _REGISTRY = {
     "transformer": lambda device="cuda", seed=0, **kw:
         transformer.TransformerLM(transformer.TransformerConfig(**kw),
                                   device=device, seed=seed),
+    "mlp": mlp.MLP,
+    "linear_regression": mlp.LinearRegression,
     "resnet18": resnet.ResNet18,
     "resnet34": resnet.ResNet34,
     "resnet50": resnet.ResNet50,
@@ -23,7 +25,7 @@ def get_model(name, **kwargs):
     """Construct a registered model; ``device`` (default ``"cuda"``) and
     ``seed`` go to the model, every other keyword to its config (the
     transformer) or constructor (``num_classes``, ``width``, ``dtype``,
-    ...). Raises with the known names otherwise."""
+    ``in_features``, ...). Raises with the known names otherwise."""
     if name not in _REGISTRY:
         raise ValueError(
             "unknown model {!r}; known: {}".format(name, sorted(_REGISTRY)))

@@ -18,8 +18,14 @@ over ``torch.distributed`` (:meth:`NodeContext.initialize_distributed`).
 
 What the port leaves out, each raising ``NotImplementedError`` naming
 ROADMAP A12: ``NodeContext.export_saved_model`` and the incident
-snapshots a capture request asks for. Heartbeats consult no fault
-injection (``testing/faults.py`` is not ported).
+snapshots a capture request asks for.
+
+A spot preemption (``testing.faults.preempt_node``) reaches the node
+program as :class:`~tensorflowonspark_tpu_torch.testing.faults.Preempted`,
+raised by its SIGTERM handler on the compute process's main thread: the
+node program's normal error path (traceback to the error queue, manager
+state ``error``, final ``error`` heartbeat) reports it like any other
+death.
 """
 
 import json
@@ -39,6 +45,7 @@ from tensorflowonspark_tpu_torch import backend as backend_mod
 from tensorflowonspark_tpu_torch import (
     device_info, feed, manager, marker, paths, reservation, telemetry, util,
 )
+from tensorflowonspark_tpu_torch.testing import faults
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +66,10 @@ _started_managers = {}
 # executor (stopped by ShutdownTask / the next cluster's bring-up, so
 # persistent executors don't accumulate servers).
 _metrics_servers = {}
+
+# FEED-mode compute children this executor spawned, by pid: the handle the
+# supervisor's reap joins after its SIGKILL (ReapComputeTask).
+_compute_procs = {}
 
 
 def _stop_metrics_server():
@@ -141,6 +152,10 @@ class HeartbeatSender:
     silences it: that is the signal the driver-side ``LivenessMonitor``
     classifies as *hung*, vs *crashed* (error state reported) and *slow*
     (late but beating). Each beat carries the node's manager state.
+
+    ``testing.faults`` can drop beats process-locally (the injected
+    network-partition/hang emulation); the sender keeps running so the
+    drop is reversible within one process lifetime.
     """
 
     # Consecutive beat failures (each already carrying the Client's own
@@ -159,6 +174,7 @@ class HeartbeatSender:
         self._lock = threading.Lock()
         self._client = None
         self._capture_seen = None  # last answered incident-capture id
+        self._epoch = None         # newest applied resize-directive epoch
         self._thread = threading.Thread(
             target=self._run, name="heartbeat-{}".format(executor_id),
             daemon=True,
@@ -192,7 +208,8 @@ class HeartbeatSender:
             self.mgr.set("node_stats", stats)
         except Exception:  # manager gone (teardown) or a test fake
             pass
-        return client.heartbeat(self.executor_id, state, stats=stats)
+        return client.heartbeat(self.executor_id, state, stats=stats,
+                                epoch=self._epoch)
 
     def flush(self, state=None):
         """Send one immediate beat from the caller's thread — used for the
@@ -213,6 +230,8 @@ class HeartbeatSender:
     def _run(self):
         failures = 0
         while not self._stop.wait(self.interval):
+            if faults.heartbeats_dropped():
+                continue  # injected partition: alive but silent
             state = self._state()
             reply = None
             with self._lock:
@@ -236,11 +255,34 @@ class HeartbeatSender:
             # stacks captured are the ones doing the actual work.
             if isinstance(reply, dict) and reply.get("capture"):
                 self._maybe_snapshot(reply["capture"])
+            # Elastic resize directives ride the same client-initiated
+            # channel: publish to the manager KV (the node program polls
+            # it at step boundaries via ctx.poll_resize) and echo the
+            # epoch on subsequent beats as the ack.
+            if isinstance(reply, dict) and reply.get("resize"):
+                self._apply_resize(reply["resize"])
             # Never exit on the server's STOP flag: after request_stop the
             # node is still draining/finishing, and going silent here
             # would let the miss budget misclassify it as hung mid-drain.
             if state in ("stopped",):
                 return
+
+    def _apply_resize(self, directive):
+        epoch = directive.get("epoch") if isinstance(directive, dict) else None
+        if epoch is None or epoch == self._epoch:
+            return
+        self._epoch = epoch
+        try:
+            self.mgr.set("resize", dict(directive))
+        except Exception:  # manager gone (teardown) or a test fake
+            return
+        telemetry.event("cluster/resize_rx", executor_id=self.executor_id,
+                        epoch=epoch,
+                        world_size=directive.get("world_size"),
+                        reason=directive.get("reason"))
+        logger.info("node %d received resize directive: epoch %s world %s "
+                    "(%s)", self.executor_id, epoch,
+                    directive.get("world_size"), directive.get("reason"))
 
     def _maybe_snapshot(self, cap):
         cid = cap.get("id") if isinstance(cap, dict) else None
@@ -365,6 +407,31 @@ class NodeContext:
         """Fully-qualified URI against the cluster default FS
         (reference ``TFNode.hdfs_path``)."""
         return paths.absolute_path(path, self.default_fs, self.working_dir)
+
+    def poll_resize(self):
+        """The newest elastic resize directive this node program has not
+        yet consumed, or None.
+
+        Call at a step boundary (the resize barrier): a directive means
+        membership changed — the program should roll back to its last
+        committed checkpoint step, rebuild its mesh at the directive's
+        ``world_size``, and continue. Delivery is one-shot per epoch:
+        the same directive is never handed out twice, so the barrier
+        runs exactly once per membership change. The directive lands in
+        the manager KV via the heartbeat reply
+        (``HeartbeatSender._apply_resize``).
+        """
+        try:
+            directive = self.mgr.get("resize")
+        except Exception:  # manager gone (teardown)
+            return None
+        if not isinstance(directive, dict):
+            return None
+        epoch = directive.get("epoch")
+        if epoch is None or epoch == getattr(self, "_resize_epoch_seen", None):
+            return None
+        self._resize_epoch_seen = epoch
+        return directive
 
     def get_data_feed(self, train_mode=True, qname_in="input",
                       qname_out="output", input_mapping=None):
@@ -653,6 +720,12 @@ class NodeRunner:
         # Published so a supervisor teardown (ReapComputeTask) can SIGKILL
         # a wedged child before relaunching — a hung process that wakes
         # later must never double-write the relaunched job's checkpoints.
+        # The handle stays here, in the executor that spawned the child,
+        # so that the reap can wait for the exit.
+        for pid, old in list(_compute_procs.items()):
+            if not old.is_alive():  # an earlier cluster's, finished
+                del _compute_procs[pid]
+        _compute_procs[p.pid] = p
         mgr.set("compute_pid", p.pid)
         logger.info("node %d compute child pid=%d", ctx.executor_id, p.pid)
 
@@ -1087,19 +1160,25 @@ class ShutdownTask:
 
 
 class ReapComputeTask:
-    """Supervisor-teardown task: SIGKILL this executor's compute child.
+    """Supervisor-teardown task: SIGKILL this executor's compute child and
+    wait for it to exit.
 
     A node classified dead may still have a live process — wedged in a
     native collective that could return minutes later, or sleeping in an
     injected hang. Flipping the manager state stops the *feed* plane, but
     only killing the process guarantees it cannot wake after the relaunch
     and double-write the new job's checkpoint tree (or hold the devices
-    and ports the relaunch needs). Runs on the executor (same host as the
-    child); the pid was published to the manager KV at spawn.
+    and ports the relaunch needs). The kill is not enough on its own: a
+    dying process holds its CUDA context (and the card memory in it)
+    until it has exited, so the task waits up to ``grace`` seconds for the
+    exit and reaps it, and the relaunch finds the memory free. Runs on the
+    executor (same host as the child); the pid was published to the
+    manager KV at spawn.
     """
 
-    def __init__(self, cluster_info):
+    def __init__(self, cluster_info, grace=30.0):
         self.cluster_info = cluster_info
+        self.grace = float(grace)
 
     def __call__(self, iterator):
         for _ in iterator:
@@ -1114,12 +1193,27 @@ class ReapComputeTask:
         if pid:
             try:
                 os.kill(int(pid), signal.SIGKILL)
-                logger.warning("teardown reaped compute child pid=%s on "
+                logger.warning("teardown killed compute child pid=%s on "
                                "executor %d", pid, executor_id)
             except (OSError, ValueError):  # already gone
                 pass
+            if not _wait_exited(int(pid), self.grace):
+                logger.error("compute child pid=%s on executor %d still "
+                             "alive %.0fs after SIGKILL", pid, executor_id,
+                             self.grace)
         try:
             mgr.set("state", "stopped")
         except Exception:
             pass
         return []
+
+
+def _wait_exited(pid, timeout):
+    """Join compute child ``pid`` of this executor for up to ``timeout``
+    seconds; True once it has exited. A pid this executor did not spawn
+    died with the executor that did (``util.set_pdeathsig``)."""
+    proc = _compute_procs.pop(pid, None)
+    if proc is None:
+        return True
+    proc.join(timeout)
+    return not proc.is_alive()

@@ -87,6 +87,28 @@ class Reservations:
         with self._cond:
             return len(self._nodes) >= self._required
 
+    def remove(self, identity):
+        """Drop one node's reservation (elastic departure). Returns the
+        removed meta, or None when the identity was never registered."""
+        with self._cond:
+            idx = self._identity.pop(identity, None)
+            if idx is None:
+                return None
+            meta = self._nodes.pop(idx)
+            for key, i in list(self._identity.items()):
+                if i > idx:
+                    self._identity[key] = i - 1
+            self._cond.notify_all()
+            return meta
+
+    def resize(self, required):
+        """Move the completeness bar (elastic resize): after a departure
+        the remaining members still form a *complete* cluster at the new
+        world size, and a rejoin raises the bar back up."""
+        with self._cond:
+            self._required = int(required)
+            self._cond.notify_all()
+
     def get(self):
         with self._cond:
             return list(self._nodes)
@@ -371,7 +393,7 @@ class LivenessMonitor:
             return self._stragglers_locked()
 
     def evict(self, executor_id):
-        """Forget one node entirely (re-registration):
+        """Forget one node entirely (elastic departure / re-registration):
         the liveness record, its last stats, and any straggler evidence go
         with it, so a returning incarnation starts from a clean ledger
         instead of inheriting its predecessor's ``crashed`` verdict or
@@ -466,6 +488,11 @@ class LivenessMonitor:
         carries ``heartbeat_age`` (staleness) beside the last stats and
         a ``stale`` flag once the beat cadence slipped — the dashboard
         greys those series instead of plotting a frozen flat line.
+
+        When an elastic :class:`Server` owns this monitor it installs
+        ``membership_fn``, and the snapshot gains a reserved
+        ``"cluster"`` entry with the membership gauges (epoch,
+        world_size, departures/rejoins/resizes, per-node incarnations).
         """
         out = {}
         with self._lock:
@@ -494,6 +521,12 @@ class LivenessMonitor:
                        for n in (rec.get("straggle") or {}).values()):
                     entry["straggler"] = True
                 out[eid] = entry
+        membership_fn = getattr(self, "membership_fn", None)
+        if membership_fn is not None:
+            try:
+                out["cluster"] = membership_fn()
+            except Exception:  # gauges must never break the snapshot
+                logger.debug("membership gauges failed", exc_info=True)
         return out
 
     def describe(self, executor_ids=None):
@@ -610,13 +643,23 @@ class Server(MessageSocket):
     ``STOP`` from any client flips ``done`` which ends streaming-style jobs.
     The heartbeat channel doubles as the incident-capture transport: a
     pending snapshot request rides each ``HB`` reply and nodes answer with
-    ``SNAP`` (see :meth:`snapshot_round`). The JAX server's elastic mode
-    (membership epochs and resize directives on the heartbeat replies) is
-    the later part of ROADMAP A10.
+    ``SNAP`` (see :meth:`snapshot_round`).
+
+    With ``elastic=True`` the server also owns **membership epochs**: a
+    departure (:meth:`depart`) or a post-rendezvous (re-)registration
+    bumps the epoch and publishes a *resize directive* — ``{epoch,
+    world_size, members, reason, executor_id}`` — that rides every
+    heartbeat reply until the member acks it by echoing the epoch on a
+    later beat (the same client-initiated push the capture ledger uses:
+    the driver cannot dial nodes, so directives surf the replies).
+    Surviving nodes treat an unseen directive as a **resize barrier**:
+    roll back to the last committed checkpoint step, rebuild the mesh at
+    the new world size, continue degraded. Nothing is torn down.
     """
 
+
     def __init__(self, count, heartbeat_interval=2.0, heartbeat_miss_budget=5,
-                 heartbeat_start_grace=120.0):
+                 heartbeat_start_grace=120.0, elastic=False, min_nodes=1):
         assert count > 0, "server expects a positive node count"
         self.reservations = Reservations(count)
         self.liveness = LivenessMonitor(
@@ -626,6 +669,123 @@ class Server(MessageSocket):
         self.capture = _CaptureLedger()
         self.done = threading.Event()
         self._listener = None
+        self.elastic = bool(elastic)
+        self.min_nodes = max(1, int(min_nodes))
+        self._elock = threading.Lock()
+        self.epoch = 0
+        self._directive = None     # newest resize directive (or None)
+        self._acked = {}           # executor_id -> last epoch echoed on HB
+        self._incarnations = {}    # executor_id -> registration count
+        self._counters = {"resizes": 0, "departures": 0, "rejoins": 0}
+        if self.elastic:
+            self.liveness.membership_fn = self.membership
+
+    # -- elastic membership -------------------------------------------------
+
+    def depart(self, executor_id, reason="node_death"):
+        """Remove one member and publish a shrink directive to the
+        survivors. Returns the departed node's meta (None when the id was
+        not a member — e.g. a double departure race)."""
+        meta = self.reservations.remove(executor_id)
+        if meta is None:
+            return None
+        self.liveness.evict(executor_id)
+        members = self.reservations.get()
+        self.reservations.resize(len(members))
+        with self._elock:
+            self._acked.pop(executor_id, None)
+            self._counters["departures"] += 1
+            directive = self._publish_locked(reason, executor_id, members)
+        logger.warning(
+            "elastic departure: executor %s (%s) -> epoch %d, world %d",
+            executor_id, reason, directive["epoch"], directive["world_size"])
+        telemetry.event("cluster/resize", executor_id=executor_id,
+                        reason=reason, epoch=directive["epoch"],
+                        world_size=directive["world_size"])
+        return meta
+
+    def _publish_locked(self, reason, executor_id, members):
+        self.epoch += 1
+        self._counters["resizes"] += 1
+        self._directive = {
+            "epoch": self.epoch,
+            "world_size": len(members),
+            "members": sorted(
+                m.get("executor_id") for m in members if isinstance(m, dict)
+            ),
+            # Serving-role directives (ISSUE 17): a member registering
+            # with meta["role"]="serving" is inference capacity the
+            # autoscaler grows/shrinks — survivors (and the fleet's
+            # replica registry) see which plane a join/leave touched
+            # without re-reading every meta. Absent role means "train".
+            "roles": {
+                m.get("executor_id"): m.get("role", "train")
+                for m in members
+                if isinstance(m, dict) and m.get("role")
+            },
+            "reason": reason,
+            "executor_id": executor_id,
+        }
+        return dict(self._directive)
+
+    def _elastic_register(self, executor_id, pre_done):
+        """Membership bookkeeping for one REG (elastic mode only): every
+        registration bumps the node's incarnation; one arriving after the
+        initial rendezvous completed (``pre_done``: completeness BEFORE
+        this add — the last node of the initial rendezvous must not read
+        as a join) or after any resize publishes an expand directive."""
+        if executor_id is None:
+            return
+        members = self.reservations.get()
+        with self._elock:
+            incarnation = self._incarnations.get(executor_id, 0) + 1
+            self._incarnations[executor_id] = incarnation
+            if not pre_done and self.epoch == 0:
+                return  # initial rendezvous (incl. REG retries)
+            self._counters["rejoins"] += 1
+            directive = self._publish_locked("join", executor_id, members)
+        self.reservations.resize(len(members))
+        logger.info(
+            "elastic join: executor %s (incarnation %d) -> epoch %d, "
+            "world %d", executor_id, incarnation, directive["epoch"],
+            directive["world_size"])
+        telemetry.event("cluster/rejoin", executor_id=executor_id,
+                        incarnation=incarnation, epoch=directive["epoch"],
+                        world_size=directive["world_size"])
+
+    def _resize_reply(self, executor_id, acked_epoch):
+        """The directive to attach to one HB reply (None when the member
+        already acked the current epoch, or no directive stands)."""
+        with self._elock:
+            if executor_id is not None and acked_epoch is not None:
+                self._acked[executor_id] = acked_epoch
+            if self._directive is None:
+                return None
+            if acked_epoch == self._directive["epoch"]:
+                return None
+            return dict(self._directive)
+
+    def membership(self):
+        """Elastic membership gauges: epoch, live world size, resize /
+        departure / rejoin counters, per-node incarnations, and which
+        members acked the current epoch. Merged into ``cluster_stats()``
+        under the reserved ``"cluster"`` key."""
+        members = self.reservations.get()
+        serving = sum(1 for m in members if isinstance(m, dict)
+                      and m.get("role") == "serving")
+        with self._elock:
+            return {
+                "elastic": self.elastic,
+                "epoch": self.epoch,
+                "world_size": len(members),
+                "serving_nodes": serving,
+                "min_nodes": self.min_nodes,
+                "resizes": self._counters["resizes"],
+                "departures": self._counters["departures"],
+                "rejoins": self._counters["rejoins"],
+                "incarnations": dict(self._incarnations),
+                "acked": dict(self._acked),
+            }
 
     def snapshot_round(self, expected, timeout, profile_secs=0.0):
         """Ask every node for its black-box snapshot; block until the
@@ -686,6 +846,7 @@ class Server(MessageSocket):
     def _dispatch(self, msg, addr):
         kind = msg.get("type")
         if kind == REG:
+            pre_done = self.reservations.done()
             self.reservations.add(msg["meta"], key=msg.get("reg_id"))
             meta = msg["meta"]
             if isinstance(meta, dict):
@@ -698,6 +859,8 @@ class Server(MessageSocket):
                         "crashed", "hung", "finished"):
                     self.liveness.evict(eid)
                 self.liveness.expect(eid, meta.get("job_name"))
+                if self.elastic:
+                    self._elastic_register(eid, pre_done)
                 # Driver-side half of the clock-alignment pair: the
                 # node records a ``rendezvous/register`` span around
                 # this exchange, the driver stamps the receive — both
@@ -720,6 +883,11 @@ class Server(MessageSocket):
             pending = self.capture.pending()
             if pending:
                 reply["capture"] = pending
+            if self.elastic:
+                directive = self._resize_reply(msg.get("executor_id"),
+                                               msg.get("epoch"))
+                if directive:
+                    reply["resize"] = directive
             return reply
         if kind == SNAPSHOT:
             self.capture.add(msg.get("capture_id"), msg.get("executor_id"),

@@ -1,17 +1,11 @@
 """Host utilities of the port: its copy of what the port uses of
 ``tensorflowonspark_tpu/util.py`` (queue and backoff helpers, the host
-address, executor ids, the parent-death signal).
-
-One deliberate difference: :func:`get_ip_address` never opens a socket
-towards another host. The JAX package finds its routable address by a UDP
-``connect`` to a public resolver; the port's backends are single-host
-(``LocalBackend``; the remote backend is ROADMAP A10), so the address is
-loopback unless ``TPU_FRAMEWORK_HOST`` names another.
-"""
+address, executor ids, the parent-death signal)."""
 
 import os
 import queue as _queue_mod
 import random as _random_mod
+import socket
 
 HOST_ENV = "TPU_FRAMEWORK_HOST"
 
@@ -51,9 +45,24 @@ def queue_put_bounded(q, item, stopped, always=False, timeout=0.2,
 
 
 def get_ip_address():
-    """The address this host advertises to the cluster: ``$TPU_FRAMEWORK_HOST``
-    when set, else loopback."""
-    return os.environ.get(HOST_ENV) or "127.0.0.1"
+    """The address this host advertises to the cluster.
+
+    ``$TPU_FRAMEWORK_HOST`` when set; else the host's routable address, by
+    the JAX package's (and the reference's, ``util.py:13-17``) UDP-connect
+    trick: a datagram socket's ``connect`` sends no packet, the OS only
+    picks the outbound interface. Loopback when no route exists.
+    """
+    host = os.environ.get(HOST_ENV)
+    if host:
+        return host
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.connect(("8.8.8.8", 53))
+        return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+    finally:
+        s.close()
 
 
 _EXECUTOR_ID_FILE = "executor_id"

@@ -41,7 +41,7 @@ import pytest
 import torch
 
 import torch_cluster_programs as progs
-from tensorflowonspark_tpu_torch import backend, cluster, convert
+from tensorflowonspark_tpu_torch import backend, cluster, convert, supervisor
 from tensorflowonspark_tpu_torch.train import checkpoint as ckpt_lib
 
 pytestmark = pytest.mark.watchdog_timeout(120)
@@ -135,9 +135,14 @@ def test_files_mode_and_remote_errors(pool, tmp_path):
         assert "Traceback" in str(err.value)
     finally:
         c.server.stop()
-    for kw in (dict(restart_policy=object()), dict(elastic=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            cluster.run(pool, progs.fail_feed, {}, **kw)
+    # Supervision and elastic membership are ported: a policy returns the
+    # supervised cluster (nothing launches until a job), and elastic
+    # membership keeps the JAX package's FEED-only check.
+    sup = cluster.run(pool, progs.fail_feed, {},
+                      restart_policy=supervisor.RestartPolicy())
+    assert isinstance(sup, supervisor.SupervisedCluster)
+    with pytest.raises(ValueError, match="FEED"):
+        cluster.run(pool, progs.fail_feed, {}, elastic=True)
     for kw in (dict(incident_dir=out), dict(slos=["goodput > 0.5"])):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             cluster.run(pool, progs.fail_feed, {}, **kw)

@@ -10,7 +10,11 @@ sources (the package, ``chip_smoke.py`` and the port's
 ``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``, and the
 node programs the cluster tests hand to spawned executors) backs it up for
 imports a run might not reach. A spawned executor of a port cluster, and
-its node program, load neither either.
+its node program, load neither either; nor do the processes of the
+recovery paths: a supervised job's relaunched incarnation, an elastic
+cluster's replacement node, and a remote agent (started with ``python -m
+tensorflowonspark_tpu_torch.tools.agent``), its tasks and its compute
+children.
 """
 
 import ast
@@ -68,7 +72,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "train.prefetch", "train.tbevents", "train.metrics",
                  "backend", "cluster", "feed", "manager", "marker", "node",
                  "paths", "reservation", "telemetry", "telemetry_store",
-                 "parallel.mesh", "parallel.multihost"):
+                 "parallel.mesh", "parallel.multihost", "supervisor",
+                 "elastic", "backend_remote", "tools.agent",
+                 "testing.faults", "testing.programs", "models.mlp"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -122,3 +128,118 @@ def test_spawned_cluster_executors_load_no_jax(tmp_path):
     with open(os.path.join(tmp_path, "node_0.json")) as f:
         doc = json.load(f)
     assert doc["value"] == 4.0 and doc["forbidden"] == []
+
+
+def _probes(probe_dir, kind):
+    docs = []
+    for name in sorted(os.listdir(probe_dir)):
+        if name.startswith(kind):
+            with open(os.path.join(probe_dir, name)) as f:
+                docs.append(json.load(f))
+    return docs
+
+
+def _linreg_items(n):
+    import numpy as np
+
+    rng = np.random.RandomState(3)
+    x = rng.rand(n, 2).astype(np.float32)
+    y = x @ np.asarray([1.5, -2.0], np.float32) + 0.25
+    return [(x[i].tolist(), float(y[i])) for i in range(n)]
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_relaunched_incarnation_loads_no_jax(tmp_path):
+    import torch_cluster_programs as progs
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.supervisor import RestartPolicy
+    from tensorflowonspark_tpu_torch.testing import faults
+
+    probe_dir = str(tmp_path / "probes")
+    os.makedirs(probe_dir)
+    model_dir = str(tmp_path / "model")
+    plan = faults.FaultPlan(str(tmp_path / "faults"))
+    plan.crash_at_step(1)
+    pool = backend.LocalBackend(1, base_dir=str(tmp_path / "exec"))
+    try:
+        sup = cluster.run(
+            pool, progs.supervised_probe,
+            {"model_dir": model_dir, "plan_dir": plan.plan_dir,
+             "probe_dir": probe_dir, "device": "cpu"},
+            num_executors=1, input_mode=cluster.InputMode.FEED,
+            restart_policy=RestartPolicy(max_restarts=1, backoff=0.1),
+            checkpoint_dir=model_dir, heartbeat_interval=0.3,
+            heartbeat_miss_budget=40)
+        report = sup.train(backend.Partitioned.from_items(
+            _linreg_items(32), 1), timeout=60)
+    finally:
+        pool.stop()
+    assert report["restarts"] == 1
+    docs = _probes(probe_dir, "supervised")
+    assert len({d["pid"] for d in docs}) == 2  # both incarnations
+    assert [d["forbidden"] for d in docs] == [[], []]
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_elastic_replacement_loads_no_jax(tmp_path):
+    import torch_cluster_programs as progs
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.testing import faults
+
+    probe_dir = str(tmp_path / "probes")
+    os.makedirs(probe_dir)
+    plan = faults.FaultPlan(str(tmp_path / "faults"))
+    plan.preempt_node(2, grace=0.3)
+    pool = backend.LocalBackend(2, base_dir=str(tmp_path / "exec"))
+    try:
+        c = cluster.run(
+            pool, progs.elastic_probe,
+            {"model_dir": str(tmp_path / "model"), "plan_dir": plan.plan_dir,
+             "probe_dir": probe_dir, "step_sleep": 0.25, "device": "cpu"},
+            num_executors=2, input_mode=cluster.InputMode.FEED,
+            elastic=dict(min_nodes=1, rejoin_delay=0.5),
+            heartbeat_interval=0.25, heartbeat_miss_budget=10)
+        # 48 steps of 0.25 s: time for the replacement to come up.
+        c.train(backend.Partitioned.from_items(_linreg_items(768), 12),
+                timeout=60)
+        membership = c.membership()
+        c.shutdown(timeout=60)
+    finally:
+        pool.stop()
+    assert membership["rejoins"] >= 1 and membership["world_size"] == 2
+    docs = _probes(probe_dir, "elastic")
+    by_node = {}
+    for d in docs:
+        by_node.setdefault(d["executor_id"], set()).add(d["pid"])
+    assert max(len(p) for p in by_node.values()) == 2  # the replacement
+    assert all(d["forbidden"] == [] for d in docs)
+
+
+@pytest.mark.watchdog_timeout(120)
+def test_remote_agent_and_its_executors_load_no_jax(tmp_path):
+    import torch_cluster_programs as progs
+    from tensorflowonspark_tpu_torch import backend, backend_remote, cluster
+
+    pool = backend_remote.RemoteBackend(1, listen=("127.0.0.1", 0))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["TPU_FRAMEWORK_AGENT_KEY"] = pool.authkey.hex()
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])
+    agent = subprocess.Popen(
+        [sys.executable, "-m", "tensorflowonspark_tpu_torch.tools.agent",
+         "--driver", "127.0.0.1:{}".format(pool.address[1]),
+         "--base_dir", str(tmp_path / "agents")], env=env)
+    try:
+        pool.wait_for_agents(timeout=60)
+        (task,), = pool.map_partitions([[0]], progs.agent_task_probe)
+        c = cluster.run(pool, progs.square_feed, {"outdir": str(tmp_path)},
+                        num_executors=1, input_mode=cluster.InputMode.FEED)
+        out = c.inference(backend.Partitioned([[1.0, 2.0]]), timeout=60)
+        c.shutdown(timeout=60)
+    finally:
+        pool.stop()
+        agent.wait(timeout=30)
+    assert out == [[1.0, 4.0]]
+    assert task["pid"] == agent.pid and task["forbidden"] == []
+    with open(os.path.join(tmp_path, "feed_0.json")) as f:
+        child = json.load(f)
+    assert child["pid"] != agent.pid and child["forbidden"] == []

@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 
 def forbidden_modules():
     """Names of loaded modules that the port must never load."""
-    return sorted(m for m in sys.modules
+    # list() copies the keys at once: another thread may be importing.
+    return sorted(m for m in list(sys.modules)
                   if any(m == r or m.startswith(r + ".") for r in FORBIDDEN))
 
 
@@ -166,3 +167,123 @@ def train_lm_data_parallel(args, ctx):
         "backend": ctx.distributed_backend,
         "forbidden": forbidden_modules()})
     multihost.shutdown()
+
+
+def _probe(args, ctx, kind):
+    """Record this process's forbidden modules (and its pid) under
+    ``args["probe_dir"]``, one file per incarnation."""
+    path = os.path.join(args["probe_dir"], "{}_{}_{}.json".format(
+        kind, ctx.executor_id, os.getpid()))
+    _dump(path, {"forbidden": forbidden_modules(), "pid": os.getpid(),
+                 "executor_id": ctx.executor_id})
+
+
+def supervised_probe(args, ctx):
+    """``programs.supervised_linreg_fun`` behind a probe of the process's
+    modules, taken after the program's imports (the probe runs once the
+    first incarnation's program returns or raises)."""
+    from tensorflowonspark_tpu_torch.testing import programs
+
+    try:
+        programs.supervised_linreg_fun(args, ctx)
+    finally:
+        _probe(args, ctx, "supervised")
+
+
+def elastic_probe(args, ctx):
+    """``programs.elastic_linreg_fun`` behind the same probe."""
+    from tensorflowonspark_tpu_torch.testing import programs
+
+    try:
+        programs.elastic_linreg_fun(args, ctx)
+    finally:
+        _probe(args, ctx, "elastic")
+
+
+def agent_task_probe(iterator):
+    """A remote-backend task: the agent's executor reports its modules."""
+    list(iterator)
+    return [{"forbidden": forbidden_modules(), "pid": os.getpid(),
+             "executor_idx": int(os.environ["TPU_FRAMEWORK_EXECUTOR_IDX"])}]
+
+
+def dp_linreg_supervised(args, ctx):
+    """Two-rank data-parallel linear regression under supervision.
+
+    Every rank joins the gloo group, restores the collective checkpoint
+    under ``args["model_dir"]``, trains on ``sync_batches`` with one
+    collective save a step, and polls its own fault plan
+    ``<plan_dir>/rank<r>`` after each commit. Audit lines (``resume``,
+    ``step``) go to ``<log_dir>/rank<r>.log``; the final parameters to
+    ``<log_dir>/rank<r>_params.pt``."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig, multihost
+    from tensorflowonspark_tpu_torch.testing.faults import FaultPlan
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+    from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
+    from tensorflowonspark_tpu_torch.train.losses import mse
+
+    torch.set_num_threads(1)
+    ctx.initialize_distributed(device="cpu")
+    rank = multihost.process_index()
+    log = os.path.join(args["log_dir"], "rank{}".format(rank))
+
+    def note(line):
+        with open(log + ".log", "a") as f:
+            f.write(line + "\n")
+
+    tr = Trainer(factory.get_model("linear_regression", device="cpu"),
+                 optimizer=trainer.sgd(0.5),
+                 mesh=MeshConfig(data=-1).build(),
+                 loss_fn=lambda out, b: mse(out, b["y"], b.get("mask")),
+                 device="cpu")
+    ckpt = CheckpointManager(args["model_dir"], max_to_keep=50)
+    state = ckpt.restore(tr.init())
+    note("resume {}".format(state.step))
+    plan = FaultPlan(os.path.join(args["plan_dir"], "rank{}".format(rank)))
+    feed = ctx.get_data_feed(train_mode=True,
+                             input_mapping={"c0": "x", "c1": "y"})
+    example = {"x": np.zeros((1, 2), np.float32),
+               "y": np.zeros((1,), np.float32)}
+    for arrays, mask in feed.sync_batches(8, example=example):
+        state, m = tr.train_step(state, {
+            "x": np.asarray(arrays["x"], np.float32),
+            "y": np.asarray(arrays["y"], np.float32).reshape(-1, 1),
+            "mask": mask.astype(np.float32)})
+        ckpt.save(state, force=True)
+        note("step {} {:.6f}".format(state.step, float(m["loss"])))
+        plan.on_step(state.step, checkpoint_dir=args["model_dir"])
+    ckpt.close()
+    torch.save({k: v.detach() for k, v in state.params.items()},
+               log + "_params.pt")
+    multihost.shutdown()
+
+
+# -- remote-backend tasks (run inline in an agent) ----------------------------
+
+
+def square_partition(iterator):
+    return [x * x for x in iterator]
+
+
+def sleep_forever(iterator):
+    import time
+
+    list(iterator)
+    time.sleep(3600)
+
+
+def whoami(iterator):
+    list(iterator)
+    return [int(os.environ["TPU_FRAMEWORK_EXECUTOR_IDX"]), os.getpid()]
+
+
+def retry_if_first(iterator):
+    from tensorflowonspark_tpu_torch import backend
+
+    list(iterator)
+    if os.environ["TPU_FRAMEWORK_EXECUTOR_IDX"] == "0":
+        raise backend.RetryTask("wrong executor")
+    return ["ran"]
