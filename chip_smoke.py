@@ -36,6 +36,23 @@ calls and fails (non-zero exit) if any phase fails:
                a preemption drill in swap (streams bitwise the
                uninterrupted run's) and recompute mode; swap-out and
                swap-in times a page;
+   fleet    — the serving fleet plane at ``serve_default``'s geometry and
+               load: (a) a prefill-role and a decode-role engine behind
+               ``ServingFleet`` (the pages crossing through the handoff
+               wire codec) against one colocated engine, bf16 and int8
+               pools: streams bitwise, every handoff taken, no fallback,
+               no page left, B4 launched only by the decode engine (its
+               decode calls x 8 x 12); (b) the decode engine behind a
+               ``MetricsServer`` as a ``RemoteEngine``, 4 requests over
+               ``POST /v1/migrate``, streams equal (a)'s; (c) a drain
+               with ``migrate_requests`` between two stepped engines,
+               migrated streams bitwise, ledgers balanced; (d) the
+               ``Autoscaler`` from 1 replica to 2 under queue pressure
+               (``spawn_fn`` builds and warms an engine) and back to 1
+               through a drain with migration, its ledger audit holding;
+               handoff bytes a request, kv-transfer medians, TTFT
+               p50/p95 disaggregated against colocated, migration ms a
+               page, scale-up and drain seconds;
 4. train    — ``Trainer.train_step`` at GPT-2-small width (``bench.py``'s
                ``_lm_trainer``: b8 x s1024, bf16 compute, f32 weights,
                ``attention_impl="pallas"``, AdamW 3e-4) takes 4 steps with
@@ -1106,6 +1123,356 @@ def swap_timing(torch, engine, card, n_pages=3, reps=5):
         "median of {}) ({})".format(
             engine.pool.page_bytes, float(np.median(out_ms)) / n_pages,
             float(np.median(in_ms)) / n_pages, n_pages, reps, card))
+
+
+# -- the serving fleet plane --------------------------------------------------
+
+# The fleet phase serves ``serve_default``'s model and load (24 requests,
+# 12 slots, page 64, 49 pages, horizon 8) through the fleet plane.
+FLEET_HTTP_REQUESTS = 4
+FLEET_DRAIN_REQUESTS = 8
+FLEET_WAVE = 8
+
+
+def _fleet_load(vocab):
+    """``bench_serving_continuous``'s 24 requests (as ``serve_default``)."""
+    rs = np.random.RandomState(0)
+    shapes = SERVE_DEFAULT_SHAPES
+    return [(rs.randint(1, vocab, size=shapes[i % 4][0]).astype(np.int32),
+             shapes[i % 4][1]) for i in range(24)]
+
+
+def _finished_streams(handles, reqs, timeout=120.0):
+    from tensorflowonspark_tpu_torch.serving import FINISHED
+
+    out = []
+    for h, (_, n) in zip(handles, reqs):
+        toks = h.result(timeout=timeout)
+        if h.state != FINISHED or len(toks) != n:
+            raise AssertionError("request ended {} with {} of {} tokens"
+                                 .format(h.state, len(toks), n))
+        out.append(toks)
+    return out
+
+
+def _settle(*engines, timeout=60.0):
+    """Wait until no engine has work or a handoff in flight (a handoff
+    thread records its outcome after its stream may have ended)."""
+    deadline = time.monotonic() + timeout
+    while any(e.busy() for e in engines):
+        if time.monotonic() > deadline:
+            raise AssertionError("engines did not settle: {}".format(
+                [e.stats() for e in engines]))
+        time.sleep(0.002)
+
+
+def _b4_check(launches, deltas, engines, what):
+    """B4's launches over a run: decode calls x horizon x layers, summed
+    over ``engines`` (``deltas``: each engine's decode calls in the run)."""
+    want = sum(d * e.decode_horizon * e.num_layers
+               for d, e in zip(deltas, engines))
+    if launches != want:
+        raise AssertionError("{}: paged_decode launched {} times; decode "
+                             "calls {} x horizon x layers = {}".format(
+                                 what, launches, deltas, want))
+
+
+def _no_leaks(*engines):
+    for e in engines:
+        if e.pool.pages_in_use or e.busy():
+            raise AssertionError("engine left work or pages: {}".format(
+                e.stats()))
+
+
+def _ledger_ok(e):
+    s = e.stats()
+    return (s["accepted"] + s["migrated_in"]
+            == s["finished"] + s["cancelled"] + s["failed"]
+            + s["migrated_out"])
+
+
+def _pcts(values):
+    return float(np.percentile(values, 50)), float(np.percentile(values, 95))
+
+
+def _timed_handoffs(engine, sink):
+    """Wrap a prefill engine's ``handoff_fn`` to record each hop's seconds:
+    the interval the engine observes as ``serve_kv_transfer_seconds``."""
+    inner = engine.handoff_fn
+
+    def timed(req, payload):
+        t0 = time.perf_counter()
+        try:
+            return inner(req, payload)
+        finally:
+            sink.append(time.perf_counter() - t0)
+    engine.handoff_fn = timed
+
+
+def _serve_threaded(torch, pa, submit, reqs, engines):
+    """Submit ``reqs`` through ``submit`` to started ``engines`` and wait
+    for every stream; B4's count set to 0 just before and read once the
+    engines settled. Returns (streams, handles, launches, decode-call
+    deltas)."""
+    before = [e.decode_steps for e in engines]
+    pa.reset_launches()
+    handles = [submit(p, n) for p, n in reqs]
+    streams = _finished_streams(handles, reqs)
+    _settle(*engines)
+    torch.cuda.synchronize()
+    launches = pa.launches
+    deltas = [e.decode_steps - b for e, b in zip(engines, before)]
+    return streams, handles, launches, deltas
+
+
+def fleet_phase(torch, pa, card):
+    """The serving fleet plane at ``serve_default``'s geometry: (a) a
+    prefill-role and a decode-role engine behind ``ServingFleet`` against
+    one colocated engine, bf16 and int8 pools; (b) the decode engine
+    behind a ``MetricsServer``, the pages crossing ``POST /v1/migrate``;
+    (c) a drain with ``migrate_requests`` between two stepped engines;
+    (d) the ``Autoscaler`` from 1 replica to 2 and back through a drain.
+    Returns B4's launches over the phase."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+    from tensorflowonspark_tpu_torch.train.metrics import MetricsServer
+
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0, **SERVE_DEFAULT_LM)
+    variables = decoding.serving_variables(model.state_dict(),
+                                           torch.bfloat16)
+    reqs = _fleet_load(model.cfg.vocab_size)
+    launches = 0
+    colocated = {}
+    keep = {}
+    # -- (a) disaggregated in process, against colocated ---------------------
+    for kv in ("", "int8"):
+        pool = kv or "bf16"
+        colo = default_engine(model, variables, kv_cache_dtype=kv).start()
+        want, handles, n, deltas = _serve_threaded(
+            torch, pa, colo.submit, reqs, [colo])
+        _b4_check(n, deltas, [colo], "colocated " + pool)
+        _no_leaks(colo)
+        colo.close()
+        launches += n
+        colocated[kv] = want
+        colo_ttft = _pcts([h.ttft * 1e3 for h in handles])
+        pre = default_engine(model, variables, kv_cache_dtype=kv,
+                             role="prefill")
+        dec = default_engine(model, variables, kv_cache_dtype=kv,
+                             role="decode")
+        fleet = serving.ServingFleet([pre, dec])
+        hops = []
+        _timed_handoffs(pre, hops)
+        fleet.start()
+        out0, bytes0 = pre.handoffs_out, pre.handoff_bytes
+        got, handles, n, deltas = _serve_threaded(
+            torch, pa, fleet.submit, reqs, [pre, dec])
+        launches += n
+        out = pre.handoffs_out - out0
+        if deltas[0] or out != len(reqs) or pre.handoff_fallbacks:
+            raise AssertionError(
+                "disaggregated {}: prefill engine decode calls {}, handoffs "
+                "{} of {}, fallbacks {}".format(pool, deltas[0], out,
+                                                len(reqs),
+                                                pre.handoff_fallbacks))
+        _b4_check(n, deltas, [pre, dec], "disaggregated " + pool)
+        _no_leaks(pre, dec)
+        if not (_ledger_ok(pre) and _ledger_ok(dec)):
+            raise AssertionError("disaggregated {}: ledger {} / {}".format(
+                pool, pre.stats(), dec.stats()))
+        if got != want:
+            bad = sum(a != b for a, b in zip(got, want))
+            raise AssertionError("disaggregated {}: {} of {} streams differ "
+                                 "from the colocated engine's".format(
+                                     pool, bad, len(reqs)))
+        ttft = _pcts([h.ttft * 1e3 for h in handles])
+        per_req = (pre.handoff_bytes - bytes0) / len(reqs)
+        log("fleet (a) pool {:4s}: 24 requests through prefill + decode "
+            "engines bitwise the colocated engine's; handoffs {} fallbacks 0;"
+            " B4 launches {} (decode engine's {} calls x 8 x {}, prefill "
+            "engine 0 calls); handoff {:.0f} bytes a request; kv transfer "
+            "(handoff_fn, in process) median {:.3f} ms; TTFT p50/p95 "
+            "disaggregated {:.2f}/{:.2f} ms, colocated {:.2f}/{:.2f} ms ({})"
+            .format(pool, out, n, deltas[1], dec.num_layers, per_req,
+                    float(np.median(hops)) * 1e3, ttft[0], ttft[1],
+                    colo_ttft[0], colo_ttft[1], card))
+        if kv:
+            fleet.close()
+        else:
+            keep = dict(pre=pre, dec=dec, fleet=fleet)
+    # -- (b) the HTTP hop ------------------------------------------------------
+    pre, dec = keep["pre"], keep["dec"]
+    server = MetricsServer(engine=dec)
+    server.start()
+    try:
+        pre.handoff_fn = None                # the new fleet wires its own
+        # (a) left these prompts' pages in the prefill engine's prefix
+        # index: a match would prefill only their tails (other GEMM
+        # shapes, other bf16 roundings). Purged, they prefill whole, as
+        # in (a).
+        pre.pool.purge_index()
+        remote = serving.RemoteEngine(
+            "http://127.0.0.1:{}".format(server.port), name="decode-http",
+            role="decode")
+        fleet = serving.ServingFleet([pre, remote])
+        hops = []
+        _timed_handoffs(pre, hops)
+        sub = reqs[:FLEET_HTTP_REQUESTS]
+        out0, in0 = pre.handoffs_out, dec.handoffs_in
+        got, _, n, deltas = _serve_threaded(torch, pa, fleet.submit, sub,
+                                            [pre, dec])
+        launches += n
+        if (deltas[0] or pre.handoffs_out - out0 != len(sub)
+                or dec.handoffs_in - in0 != len(sub)
+                or pre.handoff_fallbacks):
+            raise AssertionError(
+                "HTTP hop: prefill decode calls {}, handoffs out {} in {}, "
+                "fallbacks {}".format(deltas[0], pre.handoffs_out - out0,
+                                      dec.handoffs_in - in0,
+                                      pre.handoff_fallbacks))
+        _b4_check(n, deltas, [pre, dec], "HTTP hop")
+        _no_leaks(pre, dec)
+        if got != colocated[""][:len(sub)]:
+            raise AssertionError("HTTP hop: streams differ from (a)'s")
+        log("fleet (b) {} requests over POST /v1/migrate: streams equal "
+            "(a)'s; B4 launches {} (decode calls {} x 8 x {}); kv transfer "
+            "(handoff_fn: POST, restore queued, ack) median {:.3f} ms ({})"
+            .format(len(sub), n, deltas[1], dec.num_layers,
+                    float(np.median(hops)) * 1e3, card))
+    finally:
+        server.stop()
+        keep["fleet"].close()
+    # -- (c) drain and migration -------------------------------------------------
+    a = default_engine(model, variables)
+    b = default_engine(model, variables)
+    restore_s = []
+    restore = b.runner.restore_pages
+
+    def timed_restore(tree, pages):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(tree, pages)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+    b.runner.restore_pages = timed_restore
+    sub = reqs[:FLEET_DRAIN_REQUESTS]
+    before = [a.decode_steps, b.decode_steps]
+    pa.reset_launches()
+    handles = [a.submit(p, n) for p, n in sub]
+    while not all(h.state == serving.RUNNING and h._req.generated
+                  for h in handles):
+        a.step()
+    pages = sum(a.pool.required(h._req.cache_len) for h in handles)
+    a.begin_drain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moved = a.migrate_requests(b)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    if len(moved) != len(sub) or not a.is_drained():
+        raise AssertionError("drain: moved {} of {}, drained {}".format(
+            len(moved), len(sub), a.is_drained()))
+    b.run_until_idle()
+    torch.cuda.synchronize()
+    n = pa.launches
+    deltas = [a.decode_steps - before[0], b.decode_steps - before[1]]
+    launches += n
+    got = _finished_streams(handles, sub)
+    _b4_check(n, deltas, [a, b], "drain")
+    _no_leaks(a, b)
+    sa, sb = a.stats(), b.stats()
+    if not (_ledger_ok(a) and _ledger_ok(b)) or sa["migrated_out"] != \
+            len(sub) or sb["migrated_in"] != len(sub) or \
+            sb["preempt_recomputes"]:
+        raise AssertionError("drain ledger: {} / {}".format(sa, sb))
+    if got != colocated[""][:len(sub)]:
+        raise AssertionError("drain: migrated streams differ from the "
+                             "undisturbed run's")
+    b.runner.restore_pages = restore
+    a.close()
+    log("fleet (c) drain: {} residents migrated ({} pages) bitwise the "
+        "undisturbed run's, ledgers balanced, source drained; migration "
+        "{:.3f} ms a page (extract {:.3f} + restore {:.3f}); B4 launches {} "
+        "(decode calls {} x 8 x {}) ({})".format(
+            len(moved), pages, (extract_s + sum(restore_s)) / pages * 1e3,
+            extract_s / pages * 1e3, sum(restore_s) / pages * 1e3, n, deltas,
+            b.num_layers, card))
+    # -- (d) the autoscaler ---------------------------------------------------
+    b.pool.purge_index()                     # as in (b): whole prefills
+    fleet = serving.ServingFleet([b])
+    spawned = []
+
+    def spawn(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = default_engine(model, variables)
+        torch.cuda.synchronize()
+        spawned.append((eng, time.perf_counter() - t0))
+        return eng
+
+    scaler = serving.Autoscaler(fleet, store=None, spawn_fn=spawn,
+                                policy=serving.AutoscalePolicy(
+                                    queue_high=4.0, max_replicas=2,
+                                    cooldown_up_s=1.0, cooldown_down_s=5.0,
+                                    stable_down_s=2.0, drain_grace_s=1.0))
+    first, wave = reqs[:FLEET_WAVE], reqs[FLEET_WAVE:2 * FLEET_WAVE]
+    b_before = b.decode_steps
+    pa.reset_launches()
+    handles = [fleet.submit(p, n) for p, n in first]
+    if scaler.step(now=0.0) != "scale_up" or len(fleet.engines) != 2:
+        raise AssertionError("autoscaler: no scale-up at 8 queued requests")
+    new = spawned[0][0]
+    fleet.run_until_idle()
+    handles += [fleet.submit(p, n) for p, n in wave]
+    for eng in (b, new):
+        eng.step()
+        eng.step()
+    if not all(e.scheduler.active() for e in (b, new)):
+        raise AssertionError("autoscaler: the second wave did not spread")
+    if scaler.step(now=10.0) is not None:
+        raise AssertionError("autoscaler: scaled at the quiet clock's start")
+    t0 = time.perf_counter()
+    if scaler.step(now=13.0) != "scale_down":
+        raise AssertionError("autoscaler: no scale-down when quiet")
+    drain = scaler.drains[0]
+    scaler.step(now=14.5)
+    drain_s = time.perf_counter() - t0
+    if scaler.drains or len(fleet.engines) != 1:
+        raise AssertionError("autoscaler: the drain did not finish")
+    fleet.run_until_idle()
+    torch.cuda.synchronize()
+    n = pa.launches
+    launches += n
+    got = _finished_streams(handles, first + wave)
+    survivor = fleet.engines[0].engine
+    victim = drain.engine
+    deltas = [b.decode_steps - b_before, new.decode_steps]
+    _b4_check(n, deltas, [b, new], "autoscaler")
+    (audit,) = scaler.drain_audits
+    st = scaler.stats()
+    if not audit["ok"] or audit["migrated"] < 1 or st["scale_ups"] != 1 \
+            or st["scale_downs"] != 1 or st["replicas"] != 1:
+        raise AssertionError("autoscaler: audit {} stats {}".format(audit,
+                                                                    st))
+    if got != colocated[""][:2 * FLEET_WAVE]:
+        raise AssertionError("autoscaler: streams differ from the "
+                             "colocated run's")
+    _no_leaks(survivor)
+    survivor.close()
+    if victim is not survivor:
+        victim.close()
+    log("fleet (d) autoscaler: 1 -> 2 replicas at 8 queued requests, back "
+        "to 1 through a drain ({} migrated), ledger audit balanced with 0 "
+        "failed or cancelled; streams equal the colocated run's; B4 "
+        "launches {} (decode calls {} x 8 x {}); scale-up {:.3f} s (build "
+        "+ warm); drain {:.3f} s (scale-down decision to drain done, "
+        "migration included) ({})".format(
+            audit["migrated"], n, deltas, b.num_layers, spawned[0][1],
+            drain_s, card))
+    del model, variables
+    torch.cuda.empty_cache()
+    return launches
 
 
 def device_kernels(prof):
@@ -3358,6 +3725,9 @@ def main():
     fa.reset_launches()
     launches = main_phase(torch, pa)
     launches += serve_default_phase(torch, pa, card)
+    t0 = time.perf_counter()
+    launches += fleet_phase(torch, pa, card)
+    log("fleet phase {:.1f} s".format(time.perf_counter() - t0))
     if any(fa.launches.values()):
         raise AssertionError("serving launched flash kernels: {}".format(
             fa.launches))

@@ -31,6 +31,7 @@ kernel or raises.
 """
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -38,8 +39,11 @@ import torch
 _NEG_INF = -1e30
 
 # Kernel launches since the last reset — the count a caller reads to show
-# that a path really went through the kernel.
+# that a path really went through the kernel. Engines of one process may
+# decode from their own threads (a fleet's replicas), so the increment
+# takes a lock.
 launches = 0
+_launches_lock = threading.Lock()
 
 # The kernel's state words per (device index, stream): zero before a call
 # and after it (the kernel resets them); grown, never shrunk.
@@ -171,7 +175,8 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, page_size, k_scales,
     if err:
         raise RuntimeError("paged_decode launch failed: CUDA error "
                            "{}".format(err))
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

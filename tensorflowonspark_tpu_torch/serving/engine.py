@@ -26,12 +26,29 @@ already-resident full prompt pages (copy-on-write for a whole-prompt
 match) and skips their prefill.
 
 Tokens stream to per-request handles as they exist; TTFT and end-to-end
-latency stay on the handles and in :meth:`ServingEngine.stats`.
+latency stay on the handles, in :meth:`ServingEngine.stats` and in the
+``serve_ttft_seconds``/``serve_request_seconds`` histograms, whose
+percentiles ride ``node_stats()`` heartbeats.
 
-Outside this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item when turned on; the defaults are the "off" values):
-``draft_model``/``draft_variables``/``speculative_tokens`` and
-``role``/``handoff_fn``.
+**Drain and migration**: :meth:`ServingEngine.begin_drain` closes
+admission (``submit`` raises :class:`QueueFull`, failover material for a
+fleet) while everything accepted keeps running;
+:meth:`ServingEngine.migrate_requests` hands the residents to a peer — a
+RUNNING request's pages travel as the swap copy, so its greedy stream
+continues bitwise on the peer.
+
+**Disaggregated prefill/decode**: a ``role="prefill"`` engine with a
+``handoff_fn`` runs nothing but chunked prefill. Each request's finished
+pages are extracted, wire-encoded (``runner.encode_handoff``) and handed
+to a decode engine (:meth:`ServingEngine.inject_handoff`, in process or
+behind ``POST /v1/migrate``) at the moment it would have joined the decode
+batch, its first token already emitted. A refused or failed handoff
+replays the request here from its host copy. ``role="decode"`` is routing
+metadata for ``ServingFleet``.
+
+Outside this slice (each raises ``NotImplementedError`` naming its ROADMAP
+item when turned on; the defaults are the "off" values):
+``draft_model``/``draft_variables``/``speculative_tokens``.
 """
 
 import collections
@@ -39,15 +56,19 @@ import logging
 import queue as queue_mod
 import threading
 import time
+import weakref
 
 import numpy as np
 
-from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch import device_info, telemetry
 from tensorflowonspark_tpu_torch.serving import scheduler as sched_mod
 from tensorflowonspark_tpu_torch.serving.cache import PagePool
-from tensorflowonspark_tpu_torch.serving.runner import ModelRunner
+from tensorflowonspark_tpu_torch.serving.runner import (
+    HANDOFF_WIRE_VERSION, ModelRunner, decode_handoff, encode_handoff,
+)
 from tensorflowonspark_tpu_torch.serving.scheduler import (
-    CANCELLED, FAILED, FINISHED, PREEMPTED, RUNNING, Request, Scheduler,
+    CANCELLED, FAILED, FINISHED, PREEMPTED, PREFILL, RUNNING, Request,
+    Scheduler,
 )
 
 logger = logging.getLogger(__name__)
@@ -61,9 +82,12 @@ class QueueFull(RuntimeError):
 
 
 class StreamConsumer:
-    """The consumer half of a token-stream handle: the engine loop puts
-    ``("token", id)`` / ``("error", msg)`` / ``("done", state)`` tuples
-    on ``_events``; ``stream()``/``result()`` drain them."""
+    """The consumer half of a token-stream handle: a producer (the engine
+    loop, or a fleet reader thread) puts ``("token", id)`` / ``("error",
+    msg)`` / ``("done", state)`` tuples on ``_events``;
+    ``stream()``/``result()`` drain them. Shared by
+    :class:`RequestHandle` and the fleet's ``RemoteHandle``, so local and
+    routed requests keep one timeout/re-iteration contract."""
 
     def __init__(self):
         self._events = queue_mod.Queue()
@@ -140,6 +164,79 @@ class RequestHandle(StreamConsumer):
         self._engine._cancel(self._req)
 
 
+class _HandoffPending:
+    """``handle._engine`` while a request is between engines: the source
+    released it and the destination has not admitted it, so neither owns
+    it. ``cancel()`` only flags the request; the transfer thread sees the
+    flag before the hop and again at injection, and settles the cancel on
+    whichever side the request is by then."""
+
+    def _cancel(self, req):
+        req.cancel_requested = True
+
+
+_HANDOFF_PENDING = _HandoffPending()
+
+
+# Live engines in this process. The serve_* gauges riding node_stats()
+# heartbeats are process-global, so they aggregate across engines: an
+# in-process fleet reports ONE occupancy plane, and one engine's close()
+# never zeroes a still-serving sibling's numbers. Weak, so that an engine
+# dropped without close() (a MetricsServer.set_engine swap) is collected.
+_live_engines = weakref.WeakValueDictionary()
+_live_lock = threading.Lock()
+
+
+def _publish_gauges():
+    """Aggregate the live engines' occupancy into the process gauges.
+    Called per request transition (submit, admission, join, preempt,
+    handoff, finish), never per decoded token; the remote fleet router
+    ranks peers by exactly these gauges, so it is not rate-limited."""
+    with _live_lock:
+        engines = list(_live_engines.values())
+    active = queued = preempted_q = 0
+    totals = dict.fromkeys(
+        ("pages_total", "slots", "pool_bytes", "in_use", "shared_pages",
+         "refcount_total", "cow_copies_total", "preemptions",
+         "handoffs_out", "handoffs_in", "handoff_fallbacks"), 0.0)
+    for eng in engines:
+        active += sum(1 for s in eng.scheduler.slots if s is not None)
+        queued += eng.scheduler.queued()
+        preempted_q += eng.scheduler.preempted_waiting()
+        pool = eng.pool.stats()
+        totals["pages_total"] += eng.pool.capacity
+        totals["slots"] += eng.max_slots
+        totals["pool_bytes"] += eng.pool.page_bytes * eng.pool.num_pages
+        for key in ("in_use", "shared_pages", "refcount_total",
+                    "cow_copies_total"):
+            totals[key] += pool[key]
+        totals["preemptions"] += eng.scheduler.preemptions
+        totals["handoffs_out"] += eng.handoffs_out
+        totals["handoffs_in"] += eng.handoffs_in
+        totals["handoff_fallbacks"] += eng.handoff_fallbacks
+    telemetry.set_gauge("serve_active_requests", float(active))
+    telemetry.set_gauge("serve_queued_requests", float(queued))
+    telemetry.set_gauge("serve_preempted_queued", float(preempted_q))
+    for key in ("pages_total", "slots", "pool_bytes", "shared_pages",
+                "refcount_total", "cow_copies_total", "preemptions",
+                "handoffs_out", "handoffs_in", "handoff_fallbacks"):
+        telemetry.set_gauge("serve_" + key, totals[key])
+    telemetry.set_gauge("serve_pages_in_use", totals["in_use"])
+    # The prefix index ships as a compact chain-key digest so a fleet
+    # router in another process can affinity-route to this node
+    # (fleet.RemoteEngine.match_tokens). The digest needs one page size to
+    # mean anything; a process whose engines mix page sizes skips it.
+    sharing = [eng for eng in engines if eng.scheduler.prefix_share]
+    sizes = {eng.pool.page_size for eng in sharing}
+    if len(sizes) == 1:
+        digest = []
+        for eng in sharing:
+            digest.extend(eng.pool.index_digest())
+        telemetry.set_gauge("serve_page_size", float(sizes.pop()))
+        telemetry.set_node_extra("serve_prefix_digest",
+                                 sorted(set(digest))[:512])
+
+
 def _not_ported(arg, item):
     raise NotImplementedError(
         "{} is not ported yet (ROADMAP {}); leave it at its default".format(
@@ -185,6 +282,15 @@ class ServingEngine:
     ``kv_cache_dtype="int8"`` stores the pool quantized (per-token f32
     scales beside it); prefill stays full precision and the kernel
     dequantizes in registers.
+
+    ``role`` (``"both"``, ``"prefill"`` or ``"decode"``) and ``handoff_fn``
+    disaggregate prefill from decode: a ``"prefill"`` engine with a
+    ``handoff_fn(req, payload) -> bool`` hands each finished prefill's pages
+    to a decode engine instead of decoding (``ServingFleet`` installs one
+    that routes to its least-loaded decode engine); ``"decode"`` marks an
+    engine the fleet routes fresh prompts away from. Roles specialize, they
+    do not disable: a decode engine still accepts prompts (failover), and a
+    prefill engine decodes a request whose handoff was refused.
     """
 
     def __init__(self, model, variables=None, *, max_slots=8, page_size=128,
@@ -197,8 +303,13 @@ class ServingEngine:
         if draft_model is not None or draft_variables is not None \
                 or speculative_tokens:
             _not_ported("speculative decoding", "A7b, speculative verify")
-        if str(role or "both") != "both" or handoff_fn is not None:
-            _not_ported("role/handoff_fn", "A7b, disaggregated handoff")
+        role = str(role or "both")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                "role must be 'both', 'prefill' or 'decode', got "
+                "{!r}".format(role))
+        self.role = role
+        self.handoff_fn = handoff_fn
         preempt = str(preempt or "off")
         if preempt not in ("swap", "recompute", "off"):
             raise ValueError(
@@ -264,7 +375,6 @@ class ServingEngine:
         self.prefix_tokens_shared = 0   # prefill tokens skipped via sharing
         self.preempt_swaps = 0          # victims swapped to host memory
         self.preempt_recomputes = 0     # victims dropped for prefill replay
-        self.requests_accepted = 0
         self.requests_finished = 0
         self.requests_cancelled = 0
         self.requests_failed = 0
@@ -272,19 +382,44 @@ class ServingEngine:
         self.peak_active = 0
         self._ttft = collections.deque(maxlen=_LATENCY_WINDOW)
         self._e2e = collections.deque(maxlen=_LATENCY_WINDOW)
+        # Drain: a draining engine refuses NEW admissions but keeps
+        # stepping what it accepted. The ledger invariant once drained:
+        # accepted + migrated_in == finished + cancelled + failed +
+        # migrated_out.
+        self.draining = False
+        self.requests_accepted = 0
+        self.migrated_out = 0
+        self.migrated_in = 0
+        # Disaggregation: page-migration hops out/in (each also counts in
+        # migrated_out/migrated_in, so the invariant holds across
+        # handoffs), colocated-replay fallbacks and payload bytes sent.
+        # Requests between this engine and a peer belong to neither
+        # scheduler; the idle and drained checks count them here.
+        self.handoffs_out = 0
+        self.handoffs_in = 0
+        self.handoff_fallbacks = 0
+        self.handoff_bytes = 0
+        self._handoffs_inflight = 0
+        with _live_lock:
+            _live_engines[id(self)] = self
+        self._registered = True
+        _publish_gauges()
 
     # -- submission ----------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens, temperature=0.0,
                eos_token=None, top_k=0, top_p=0.0, priority=0,
-               _trace=None):
+               _prefix_keys=None, _trace=None):
         """Queue one generation request; returns a :class:`RequestHandle`
         streaming its tokens. ``top_k``/``top_p`` filter temperature
         sampling per request (ignored for greedy rows); ``priority``
         (higher first) orders admission and lets the request preempt a
-        strictly lower-priority resident (``preempt=`` mode). Raises
-        ValueError for a request that can never run and :class:`QueueFull`
-        past ``max_queue``."""
+        strictly lower-priority resident (``preempt=`` mode).
+        ``_prefix_keys`` (the fleet router) pre-sets the prompt's chain
+        keys its affinity probe already hashed; ``_trace`` adopts an
+        upstream trace id. Raises ValueError for a request that can never
+        run and :class:`QueueFull` past ``max_queue`` or while
+        draining."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must contain at least one token")
@@ -311,22 +446,42 @@ class ServingEngine:
         req = Request(prompt, max_new_tokens, temperature=temperature,
                       eos_token=eos_token, top_k=top_k, top_p=top_p,
                       priority=priority, trace=_trace)
+        if _prefix_keys is not None and self.scheduler.prefix_share:
+            req.prefix_keys = list(_prefix_keys)
         handle = RequestHandle(self, req)
         req.handle = handle
         with self._work:
+            if self.draining:
+                # QueueFull is what the fleet router fails over on, so
+                # traffic slides to the other engines unseen by callers.
+                raise QueueFull("engine is draining")
             if self.scheduler.queued() >= self.max_queue:
                 raise QueueFull(
                     "admission queue is full ({} requests)".format(
                         self.max_queue))
             self.scheduler.submit(req)  # may raise ValueError (never fits)
             self.requests_accepted += 1
+            self._register()
+            telemetry.inc("serve_requests_total")
+            self._publish()
             self._work.notify_all()
         return handle
+
+    def _register(self):
+        """Count in the process gauges again: ``close()`` only stops the
+        loop, and an engine taking new work (inline ``step()`` callers) is
+        live. Flag-gated, so a steady submit never takes the registry
+        lock."""
+        if not self._registered:
+            with _live_lock:
+                _live_engines[id(self)] = self
+            self._registered = True
 
     def _cancel(self, req):
         with self._work:
             if req.state in sched_mod.TERMINAL:
                 return
+            req.cancel_requested = True
             self._cancels.append(req)
             self._work.notify_all()
 
@@ -359,11 +514,20 @@ class ServingEngine:
             if not ramp:
                 return did
 
+    def busy(self):
+        """True while anything is queued, resident, waiting to be
+        cancelled, or handed off with its outcome not yet known (a
+        refused handoff comes back here)."""
+        return bool(self.scheduler.has_work() or self._cancels
+                    or self._handoffs_inflight)
+
     def run_until_idle(self, timeout=300.0):
-        """Drive ``step()`` inline until no request is queued or active."""
+        """Drive ``step()`` inline until no request is queued or active
+        and no handoff is in flight."""
         deadline = time.monotonic() + timeout
-        while self.scheduler.has_work() or self._cancels:
-            self.step()
+        while self.busy():
+            if not self.step():
+                time.sleep(0.001)  # only a handoff thread is working
             if time.monotonic() > deadline:
                 raise TimeoutError("serving engine did not drain in "
                                    "{}s".format(timeout))
@@ -398,6 +562,16 @@ class ServingEngine:
             admitted = self.scheduler.next_admission()
             if admitted is None:
                 return self._maybe_preempt()
+            if admitted.preempt_count and admitted.t_preempt is not None:
+                telemetry.record_span(
+                    "serve/preempt_wait",
+                    admitted.t_admit - admitted.t_preempt,
+                    request=admitted.id, trace=admitted.trace)
+            else:
+                telemetry.record_span(
+                    "serve/queue_wait",
+                    admitted.t_admit - admitted.t_submit,
+                    request=admitted.id, trace=admitted.trace)
             self._publish()
             if admitted.swap_pages is not None:
                 self._swap_in(admitted)
@@ -498,11 +672,19 @@ class ServingEngine:
         req.state = RUNNING
         req.t_first = time.perf_counter()
         self._ttft.append(req.t_first - req.t_submit)
+        telemetry.observe("serve_ttft_seconds", req.t_first - req.t_submit)
         self._emit_token(req, first)
         if req.state == RUNNING:  # not finished by eos/budget already
             self._toks[req.slot] = req.generated[-1]
             self._lens[req.slot] = req.cache_len
             self._publish()
+            if self.role == "prefill" and self.handoff_fn is not None \
+                    and not req.cancel_requested:
+                # The request is in the swap-preemptable state (the cache
+                # holds the prompt, the pending input is the first token,
+                # already emitted): hand its pages to the decode pool
+                # instead of decoding here.
+                self._begin_handoff(req)
         return True
 
     def _set_row(self, req):
@@ -552,6 +734,11 @@ class ServingEngine:
         else:
             self.preempt_recomputes += 1
         self._clear_free_slots()
+        telemetry.inc("serve_preemptions_total")
+        telemetry.event(
+            "serve/preempt", request=victim.id, trace=victim.trace,
+            mode="swap" if swap else "recompute", priority=victim.priority,
+            preemptor=best.id, tokens=len(victim.generated))
         self._publish()
         return True
 
@@ -568,8 +755,11 @@ class ServingEngine:
         # entries survive — first writer wins). Decode writes only
         # positions >= cache_len, past every full prompt page, so the
         # registered content stays immutable.
-        for key, page in zip(req.prefix_keys, req.pages):
-            self.pool.register_prefix(key, page)
+        # On a decode engine that never prefilled this prompt (a handoff
+        # or a migration), later identical prompts now share these pages.
+        if self.scheduler.prefix_share:
+            for key, page in zip(req.prefix_keys, req.pages):
+                self.pool.register_prefix(key, page)
         self._rejoin(req)
 
     def _rejoin(self, req):
@@ -581,7 +771,318 @@ class ServingEngine:
         req.state = RUNNING
         self._toks[req.slot] = req.generated[-1]
         self._lens[req.slot] = req.cache_len
+        if req.t_preempt is not None:
+            telemetry.observe("serve_preempt_resume_seconds",
+                              time.perf_counter() - req.t_preempt)
         self._publish()
+
+    # -- graceful drain ------------------------------------------------------
+
+    def begin_drain(self):
+        """Stop admitting new requests; everything already accepted keeps
+        running (``submit`` raises :class:`QueueFull`, so a fleet router
+        fails the traffic over). Idempotent. The engine is drained once
+        :meth:`is_drained`: let decode finish, or hand the residents to a
+        peer with :meth:`migrate_requests`."""
+        with self._work:
+            already = self.draining
+            self.draining = True
+            self._work.notify_all()
+        if not already:
+            telemetry.event("cluster/drain", engine=id(self) % 10000,
+                            active=len(self.scheduler.active()),
+                            queued=self.scheduler.queued())
+
+    def end_drain(self):
+        """Reopen admission (a cancelled scale-down)."""
+        with self._work:
+            self.draining = False
+            self._work.notify_all()
+
+    def is_drained(self):
+        """True when a draining engine holds no work at all: nothing
+        queued, resident, pending cancellation or in flight to a peer."""
+        with self._lock:
+            return self.draining and not self.busy()
+
+    def migrate_requests(self, dest):
+        """Hand every resident and queued request to ``dest`` instead of
+        waiting for decode to finish — the fast half of a graceful drain.
+        A RUNNING resident rides the preemption machinery: its cached
+        pages are extracted to host memory, it is released as PREEMPTED,
+        and ``dest``'s next admission restores the copy byte for byte
+        into a private reservation and rejoins it, so its greedy stream
+        continues bitwise. PREFILL residents and queued requests move with
+        fresh-admission semantics (their prefill restarts on ``dest``).
+        Requests with a cancellation pending stay for this engine's cancel
+        processing. Handles are repointed, so ``handle.cancel()`` reaches
+        the new owner. Returns the moved requests.
+
+        ``dest`` must serve the same model; where its page size or KV
+        dtype differ, a RUNNING resident falls back to recompute (pages
+        dropped, prompt + generated re-prefilled on ``dest``)."""
+        if dest is self:
+            raise ValueError("cannot migrate an engine onto itself")
+        same_pages = (dest.pool.page_size == self.pool.page_size
+                      and dest.kv_cache_dtype == self.kv_cache_dtype)
+        moved = []
+        with self._lock:
+            for req in list(self.scheduler.active()):
+                if req.state not in (PREFILL, RUNNING) \
+                        or req.cancel_requested:
+                    continue
+                if req is self._prefill_req:
+                    self._prefill_req = None
+                mode = "recompute"
+                if same_pages and req.state == RUNNING and req.generated:
+                    n = self.pool.required(req.cache_len)
+                    req.swap_pages = self.runner.extract_pages(
+                        req.pages[:n])
+                    req.swap_count = n
+                    mode = "swap"
+                if not self.scheduler.release(req, PREEMPTED):
+                    req.swap_pages = None
+                    req.swap_count = 0
+                    continue
+                # release() re-enqueued it here; it belongs to dest now.
+                self.scheduler.drop_queued(req)
+                moved.append((req, mode))
+            for req in list(self.scheduler.waiting):
+                if req.cancel_requested:
+                    continue
+                if self.scheduler.drop_queued(req):
+                    moved.append((req, "queued"))
+            self._clear_free_slots()
+        out = []
+        for req, mode in moved:
+            if dest.pool.page_size != self.pool.page_size:
+                # Chain keys hash full pages: recompute them for dest's
+                # geometry (its scheduler.submit refills them).
+                req.prefix_keys = []
+            with dest._work:
+                dest.scheduler.submit(req)
+                if req.handle is not None:
+                    req.handle._engine = dest
+                dest.migrated_in += 1
+                dest._register()
+                dest._work.notify_all()
+            with self._lock:   # a handoff thread updates it too
+                self.migrated_out += 1
+            telemetry.inc("serve_migrations_total")
+            telemetry.event("serve/migrate", request=req.id,
+                            trace=req.trace, mode=mode,
+                            tokens=len(req.generated))
+            out.append(req)
+        if out:
+            self._publish()
+            dest._publish()
+        return out
+
+    # -- disaggregated prefill/decode handoff --------------------------------
+
+    def _handoff_meta(self, req):
+        """The wire header of one handoff: what the decode engine needs to
+        rebuild the request (sampling settings, the stream so far with the
+        first token, page geometry for the mismatch check, chain keys so
+        prefix sharing composes on the far side). Called after the
+        PREEMPTED release, so ``t_preempt`` is stamped. ``perf_counter``
+        stamps are process-local: the header ships AGES plus one wall
+        stamp, and the far side rebases them into its own clock (transit
+        included), so TTFT and end-to-end times stay true across the
+        hop."""
+        now = time.perf_counter()
+        meta = {
+            "version": HANDOFF_WIRE_VERSION,
+            "request": req.id,
+            "trace": req.trace,
+            "prompt": np.asarray(req.prompt).reshape(-1).tolist(),
+            "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature,
+            "top_k": req.top_k,
+            "top_p": req.top_p,
+            "eos_token": req.eos_token,
+            "priority": req.priority,
+            "generated": [int(t) for t in req.generated],
+            "page_size": self.pool.page_size,
+            "kv_cache_dtype": self.kv_cache_dtype,
+            "pages": int(req.swap_count),
+            "prefix_keys": [k.hex() for k in (req.prefix_keys or [])],
+            "preempt_count": req.preempt_count,
+            "wall": time.time(),
+            "age_submit": now - req.t_submit,
+            "age_preempt": now - req.t_preempt,
+        }
+        if req.t_first is not None:
+            meta["age_first"] = now - req.t_first
+        return meta
+
+    def _begin_handoff(self, req):
+        """Start the hop for a just-joined request (under the engine lock):
+        copy its pages to host memory, release it through the scheduler,
+        encode the payload, and run the transfer on a daemon thread, so
+        the next prompt's prefill never waits on the wire."""
+        n = self.pool.required(req.cache_len)
+        req.swap_pages = self.runner.extract_pages(req.pages[:n])
+        req.swap_count = n
+        if not self.scheduler.release(req, PREEMPTED):
+            req.swap_pages = None   # raced a terminal transition
+            req.swap_count = 0
+            return
+        # release() re-enqueued it here; it belongs to the decode pool now
+        # (or comes back through _run_handoff's fallback).
+        self.scheduler.drop_queued(req)
+        self._clear_free_slots()
+        payload = encode_handoff(self._handoff_meta(req), req.swap_pages)
+        if req.handle is not None:
+            req.handle._engine = _HANDOFF_PENDING
+        self.handoff_bytes += len(payload)
+        self._handoffs_inflight += 1
+        telemetry.inc("serve_handoffs_total")
+        telemetry.event("serve/handoff", request=req.id, trace=req.trace,
+                        tokens=len(req.generated), pages=n,
+                        bytes=len(payload))
+        self._publish()
+        threading.Thread(target=self._run_handoff, args=(req, payload),
+                         name="serve-handoff", daemon=True).start()
+
+    def _run_handoff(self, req, payload):
+        """The hop, off the engine lock: ``handoff_fn(req, payload)``
+        returns True when the destination admitted the request and took
+        its handle. Refusal or failure falls back to colocated replay: the
+        request is resubmitted HERE with its host copy intact, and the
+        swap-in path rejoins it into this engine's own decode batch. A
+        cancel that landed while it was in flight (the pending window)
+        is settled here: nothing was delivered."""
+        ok = False
+        t0 = time.perf_counter()
+        try:
+            with telemetry.span(
+                    "serve/kv_transfer", trace=req.trace, request=req.id,
+                    bytes=len(payload), pages=req.swap_count,
+                    tokens=len(req.generated)):
+                if not req.cancel_requested:
+                    ok = bool(self.handoff_fn(req, payload))
+        except Exception:
+            logger.warning("handoff of request %s failed; resuming "
+                           "locally", req.id, exc_info=True)
+            ok = False
+        telemetry.observe("serve_kv_transfer_seconds",
+                          time.perf_counter() - t0)
+        with self._work:
+            self._handoffs_inflight -= 1
+            self._work.notify_all()
+            if ok:
+                # The decode engine owns it (handoff_fn repointed the
+                # handle); the swap copy travelled in the payload.
+                self.handoffs_out += 1
+                self.migrated_out += 1
+                telemetry.inc("serve_migrations_total")
+                self._publish()
+                return
+            if req.state in sched_mod.TERMINAL:
+                return
+            if req.cancel_requested:
+                # Cancelled in flight, never delivered: terminal here. The
+                # scheduler released pages and slot at the handoff; only
+                # the host copy and the stream remain.
+                req.swap_pages = None
+                req.swap_count = 0
+                req.state = CANCELLED
+                req.t_done = time.perf_counter()
+                self.requests_cancelled += 1
+                telemetry.inc("serve_cancelled_total")
+                if req.handle is not None:
+                    req.handle._engine = self
+                    req.handle._events.put(("done", CANCELLED))
+                self._publish()
+                return
+            self.handoff_fallbacks += 1
+            telemetry.inc("serve_handoff_fallbacks_total")
+            telemetry.event("serve/handoff_fallback", request=req.id,
+                            trace=req.trace, tokens=len(req.generated))
+            if req.handle is not None:
+                req.handle._engine = self
+            self.scheduler.submit(req)
+            self._publish()
+
+    def inject_handoff(self, payload, req=None):
+        """Decode-side entry of a handoff: admit a prefill engine's
+        :func:`~tensorflowonspark_tpu_torch.serving.runner.encode_handoff`
+        payload into this engine. The payload is decoded HERE on every
+        hop, in process too, so the codec's byte-exactness is exercised,
+        never assumed. With ``req`` (a same-process hop) the original
+        Request, and with it the caller's live handle, is adopted; without
+        it (``POST /v1/migrate``) a new Request and handle are built and
+        the shipped ages rebased into this process's clock. The next
+        admission allocates private pages, restores the copy byte for byte
+        and rejoins. Returns the handle. Raises :class:`QueueFull`
+        (draining, queue cap) or ValueError (page size or KV dtype
+        mismatch, cancelled in flight): the sender then replays the
+        request itself."""
+        meta, tree = decode_handoff(payload)
+        if int(meta.get("version", 0)) != HANDOFF_WIRE_VERSION:
+            raise ValueError("unknown handoff wire version: {!r}".format(
+                meta.get("version")))
+        if int(meta["page_size"]) != self.pool.page_size \
+                or str(meta.get("kv_cache_dtype") or "") \
+                != self.kv_cache_dtype:
+            raise ValueError(
+                "handoff geometry mismatch: sender page_size={} "
+                "kv_cache_dtype={!r}, this engine page_size={} "
+                "kv_cache_dtype={!r}".format(
+                    meta["page_size"], meta.get("kv_cache_dtype") or "",
+                    self.pool.page_size, self.kv_cache_dtype))
+        prompt = np.asarray(meta["prompt"], np.int32).reshape(-1)
+        if prompt.size + int(meta["max_new_tokens"]) > self.max_model_len:
+            raise ValueError(
+                "handoff exceeds max_model_len ({}): prompt {} + "
+                "max_new_tokens {}".format(
+                    self.max_model_len, prompt.size,
+                    meta["max_new_tokens"]))
+        if req is None:
+            req = Request(prompt, int(meta["max_new_tokens"]),
+                          temperature=float(meta.get("temperature", 0.0)),
+                          eos_token=meta.get("eos_token"),
+                          top_k=int(meta.get("top_k", 0)),
+                          top_p=float(meta.get("top_p", 0.0)),
+                          priority=int(meta.get("priority", 0)),
+                          trace=meta.get("trace"))
+            req.generated = [int(t) for t in meta.get("generated", [])]
+            req.state = PREEMPTED
+            req.preempt_count = max(1, int(meta.get("preempt_count", 1)))
+            now = time.perf_counter()
+            transit = max(0.0, time.time()
+                          - float(meta.get("wall") or time.time()))
+            req.t_submit = now - (float(meta.get("age_submit", 0.0))
+                                  + transit)
+            req.t_preempt = now - (float(meta.get("age_preempt", 0.0))
+                                   + transit)
+            if meta.get("age_first") is not None:
+                req.t_first = now - (float(meta["age_first"]) + transit)
+            req.handle = RequestHandle(self, req)
+        if self.scheduler.prefix_share:
+            req.prefix_keys = [bytes.fromhex(str(k)) for k in
+                               (meta.get("prefix_keys") or [])]
+        req.swap_pages = tree
+        req.swap_count = int(meta["pages"])
+        with self._work:
+            if req.cancel_requested:
+                raise ValueError("request was cancelled in flight")
+            if self.draining:
+                raise QueueFull("engine is draining")
+            if self.scheduler.queued() >= self.max_queue:
+                raise QueueFull(
+                    "admission queue is full ({} requests)".format(
+                        self.max_queue))
+            self.scheduler.submit(req)
+            if req.handle is not None:
+                req.handle._engine = self
+            self.migrated_in += 1
+            self.handoffs_in += 1
+            self._register()
+            self._publish()
+            self._work.notify_all()
+        return req.handle
 
     # -- decode --------------------------------------------------------------
 
@@ -604,7 +1105,11 @@ class ServingEngine:
                 r.temperature > 0.0 and (r.top_k or r.top_p)
                 for r in running))
         # decode() returns host values, so the call has finished here.
-        self.decode_seconds += time.perf_counter() - t0
+        step_dur = time.perf_counter() - t0
+        self.decode_seconds += step_dur
+        telemetry.observe("serve_step_seconds", step_dur)
+        telemetry.record_span("serve/decode_batch", step_dur,
+                              slots=len(running), horizon=horizon)
         for req in running:
             row = out[req.slot]
             for j in range(horizon):
@@ -622,6 +1127,7 @@ class ServingEngine:
     def _emit_token(self, req, token):
         req.generated.append(token)
         self.tokens_generated += 1
+        telemetry.inc("serve_tokens_total")
         if req.handle is not None:
             req.handle._events.put(("token", token))
         hit_eos = req.eos_token is not None and token == req.eos_token
@@ -645,13 +1151,35 @@ class ServingEngine:
             return
         self._clear_free_slots()
         req.error = error
+        total = req.t_done - req.t_submit
         if state == FINISHED:
             self.requests_finished += 1
-            self._e2e.append(req.t_done - req.t_submit)
+            self._e2e.append(total)
+            telemetry.observe("serve_request_seconds", total)
         elif state == CANCELLED:
             self.requests_cancelled += 1
+            telemetry.inc("serve_cancelled_total")
         else:
             self.requests_failed += 1
+            telemetry.inc("serve_failed_total")
+        if req.t_first is not None:
+            telemetry.record_span(
+                "serve/decode", req.t_done - req.t_first, request=req.id,
+                trace=req.trace, tokens=len(req.generated))
+        telemetry.record_span(
+            "serve/request", total, request=req.id, trace=req.trace,
+            prompt=req.prompt_len, tokens=len(req.generated), state=state)
+        # A compact summary for the cluster driver's store, on the next beat.
+        summary = {"trace": req.trace, "request": req.id, "state": state,
+                   "tokens": len(req.generated),
+                   "total_ms": round(total * 1e3, 3)}
+        if req.t_first is not None:
+            summary["ttft_ms"] = round((req.t_first - req.t_submit) * 1e3, 3)
+        if req.t_admit is not None:
+            summary["queue_ms"] = round((req.t_admit - req.t_submit) * 1e3, 3)
+        if req.preempt_count:
+            summary["preempts"] = req.preempt_count
+        telemetry.note_trace(summary)
         if req.handle is not None:
             if error is not None:
                 req.handle._events.put(("error", error))
@@ -687,6 +1215,7 @@ class ServingEngine:
     def _publish(self):
         active = sum(1 for s in self.scheduler.slots if s is not None)
         self.peak_active = max(self.peak_active, active)
+        _publish_gauges()
 
     # -- background loop -----------------------------------------------------
 
@@ -733,6 +1262,7 @@ class ServingEngine:
         with self._work:
             for req in list(self.scheduler.waiting) + self.scheduler.active():
                 if req.state not in sched_mod.TERMINAL:
+                    req.cancel_requested = True
                     self._cancels.append(req)
             self._work.notify_all()
         if self._thread is not None and self._thread.is_alive():
@@ -742,6 +1272,12 @@ class ServingEngine:
             self._thread.join(timeout)
         with self._lock:
             self._process_cancels()
+        with _live_lock:
+            _live_engines.pop(id(self), None)
+        self._registered = False
+        # Siblings' numbers survive the pop; a retired solo engine zeroes
+        # out. A later submit() registers this engine again.
+        _publish_gauges()
 
     def __enter__(self):
         return self
@@ -784,5 +1320,17 @@ class ServingEngine:
             "request_ms_p50": e2e["p50"],
             "request_ms_p95": e2e["p95"],
             "request_ms_p99": e2e["p99"],
+            # The drain ledger: accepted + migrated_in == finished +
+            # cancelled + failed + migrated_out once is_drained().
+            "draining": self.draining,
+            "migrated_out": self.migrated_out,
+            "migrated_in": self.migrated_in,
+            # Disaggregation: the fleet router's pool assignment and the
+            # handoff ledger (handoffs also count as migrations above).
+            "role": self.role,
+            "handoffs_out": self.handoffs_out,
+            "handoffs_in": self.handoffs_in,
+            "handoff_fallbacks": self.handoff_fallbacks,
+            "handoff_bytes": self.handoff_bytes,
         })
         return out

@@ -19,7 +19,10 @@ Owns the paged device pool and runs the engine's device work:
 * **copy** — the device half of copy-on-write: duplicates whole pages
   (values and scales); the ledger half is ``PagePool.admit``/``cow``.
 * **extract / restore** — the swap half of preemption: whole pages (int8
-  bytes and scales included) to host memory and back, byte for byte.
+  bytes and scales included) to host memory and back, byte for byte; the
+  same host copy is what a drain migration and a disaggregated handoff
+  carry to another engine (:func:`encode_handoff`/:func:`decode_handoff`,
+  the JAX package's wire layout).
 * **decode** — the continuous-batching step: ``max_slots`` rows, each at
   its own position, K/V appended into pool pages through the page table
   and the ``ops.paged_attention`` kernel walking them; per-row greedy or
@@ -37,6 +40,9 @@ into the pool before the kernel reads it: the deferred-write window the
 JAX runner needs (XLA cannot scatter in place) has no counterpart here,
 and the paged kernel stays the only paged-attention route.
 """
+
+import json
+import struct
 
 import numpy as np
 import torch
@@ -265,9 +271,13 @@ class ModelRunner:
         if not pages:
             return
         idx = self._page_index(pages)
+        n = len(pages)
         for key, layer in self.cache.items():
             for name, t in host_tree[key].items():
-                layer[name].index_copy_(0, idx, t.to(self.device))
+                # A tree may carry padding rows past the page count (the
+                # JAX extract pads to a power of two): only the first n
+                # rows are pages.
+                layer[name].index_copy_(0, idx, t[:n].to(self.device))
 
     # -- decode --------------------------------------------------------------
 
@@ -341,3 +351,126 @@ def _filter_rows(scaled, tks, tps):
         dim=-1, keepdim=True)
     has_p = ((tps > 0.0) & (tps < 1.0))[:, None]
     return torch.where(has_p & (scaled < thresh), _NEG_INF, scaled)
+
+
+# -- the handoff wire codec ---------------------------------------------------
+#
+# One request's KV pages cross between engines — a disaggregated prefill
+# engine's handoff to a decode engine (``POST /v1/migrate`` or in process)
+# — as one binary blob, in the JAX package's layout: a little-endian uint32
+# header length, a JSON header ``{"meta": <request metadata>, "arrays":
+# [{"path", "dtype", "shape"}, ...]}`` written with ``separators=(",",
+# ":")``, then each leaf's raw bytes in header order. The tree is walked
+# with SORTED keys at every level, so the byte layout is a function of the
+# tree's shape alone, and decode(encode(x)) is byte-identical to x (int8
+# page bytes and f32 scale planes included), which keeps a handed-off
+# greedy stream bitwise equal to the colocated one. dtypes carry numpy's
+# names, ``"bfloat16"`` included; bf16 leaves travel through a 2-byte
+# integer view (numpy has no bfloat16), so no extension-dtype package is
+# needed on either side.
+
+HANDOFF_WIRE_VERSION = 1
+
+_TORCH_NAMES = {torch.float32: "float32", torch.float16: "float16",
+                torch.bfloat16: "bfloat16", torch.float64: "float64",
+                torch.int8: "int8", torch.uint8: "uint8",
+                torch.int16: "int16", torch.int32: "int32",
+                torch.int64: "int64", torch.bool: "bool"}
+
+
+def _walk_tree(tree, path=()):
+    """Deterministic (sorted-key) DFS over a host page tree, yielding
+    ``(dotted path, leaf)`` pairs."""
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, dict):
+            yield from _walk_tree(val, path + (str(key),))
+        else:
+            yield ".".join(path + (str(key),)), val
+
+
+def _leaf_wire(leaf):
+    """``(dtype name, shape, raw bytes)`` of a torch tensor or a numpy
+    array (a JAX extract's leaves; a bfloat16 numpy array names itself
+    ``"bfloat16"`` and its bytes are taken as they are)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        name = _TORCH_NAMES.get(t.dtype)
+        if name is None:
+            raise ValueError("no wire name for dtype {}".format(t.dtype))
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return name, list(t.shape), t.numpy().tobytes()
+    arr = np.ascontiguousarray(np.asarray(leaf))
+    return str(arr.dtype), list(arr.shape), arr.tobytes()
+
+
+def encode_handoff(meta, tree):
+    """Serialize a handoff: request ``meta`` (a JSON-able dict) plus a
+    :meth:`ModelRunner.extract_pages` host tree into one blob."""
+    arrays = []
+    blobs = []
+    for path, leaf in _walk_tree(tree):
+        name, shape, raw = _leaf_wire(leaf)
+        arrays.append({"path": path, "dtype": name, "shape": shape})
+        blobs.append(raw)
+    header = json.dumps({"meta": meta, "arrays": arrays},
+                        separators=(",", ":")).encode("utf-8")
+    return b"".join([struct.pack("<I", len(header)), header] + blobs)
+
+
+def _leaf_from_wire(raw, name, shape):
+    """A CPU tensor holding ``raw`` (a bytes slice) as ``name``/``shape``;
+    bf16 through its 2-byte integer view."""
+    if name == "bfloat16":
+        arr = np.frombuffer(raw, dtype=np.int16).reshape(shape).copy()
+        return torch.from_numpy(arr).view(torch.bfloat16)
+    arr = np.frombuffer(raw, dtype=np.dtype(name)).reshape(shape).copy()
+    return torch.from_numpy(arr)
+
+
+def _wire_itemsize(name):
+    if name == "bfloat16":
+        return 2
+    try:
+        return np.dtype(name).itemsize
+    except TypeError:
+        raise ValueError("unknown handoff dtype {!r}".format(name))
+
+
+def decode_handoff(data):
+    """Byte-exact inverse of :func:`encode_handoff`: ``(meta, tree)`` with
+    every leaf a CPU tensor whose dtype, shape and bytes are exactly the
+    sender's. Raises ValueError on a truncated or malformed payload."""
+    view = memoryview(data)
+    if len(view) < 4:
+        raise ValueError("truncated handoff payload (no header length)")
+    (hlen,) = struct.unpack("<I", view[:4])
+    if 4 + hlen > len(view):
+        raise ValueError("truncated handoff header")
+    try:
+        doc = json.loads(bytes(view[4:4 + hlen]).decode("utf-8"))
+    except ValueError as e:
+        raise ValueError("malformed handoff header: {}".format(e))
+    if not isinstance(doc, dict) or "meta" not in doc \
+            or not isinstance(doc.get("arrays"), list):
+        raise ValueError("malformed handoff header: missing meta/arrays")
+    tree = {}
+    off = 4 + hlen
+    for spec in doc["arrays"]:
+        name = str(spec["dtype"])
+        shape = tuple(int(d) for d in spec["shape"])
+        count = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        nbytes = _wire_itemsize(name) * count
+        if off + nbytes > len(view):
+            raise ValueError("truncated handoff arrays")
+        leaf = _leaf_from_wire(view[off:off + nbytes], name, shape)
+        off += nbytes
+        node = tree
+        parts = str(spec["path"]).split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    if off != len(view):
+        raise ValueError("trailing bytes in handoff payload")
+    return doc["meta"], tree

@@ -74,7 +74,8 @@ class Request:
         "cow_src",
         "preempt_count", "t_preempt", "swap_pages", "swap_count",
         "replay",
-        "t_submit", "t_admit", "t_first", "t_done", "handle",
+        "t_submit", "t_admit", "t_first", "t_done", "cancel_requested",
+        "handle",
     )
 
     def __init__(self, prompt, max_new_tokens, temperature=0.0,
@@ -117,6 +118,9 @@ class Request:
         self.t_admit = None
         self.t_first = None
         self.t_done = None
+        # Set by a cancel; the only cancel signal a request carries while
+        # it is between engines (no scheduler holds it then).
+        self.cancel_requested = False
         self.handle = None
 
     @property

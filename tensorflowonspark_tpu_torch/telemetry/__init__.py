@@ -381,6 +381,70 @@ def record_span(name, duration, wall_start=None, **attrs):
 
 
 # ---------------------------------------------------------------------------
+# Cross-process trace context
+# ---------------------------------------------------------------------------
+#
+# A request's trace id is minted ONCE — at the first process that sees the
+# request (the fleet router, or the engine for direct submits) — and every
+# later hop adopts it. The wire form is a compact ``traceparent`` string in
+# the ``POST /v1/generate`` body: ``"<hex trace>-<parent span id>"`` (the
+# integer id of the sender's ``serve/route`` span, 0 when it recorded
+# none). The receiving ``MetricsServer`` handler parses it and submits with
+# ``_trace=<trace>``, so the remote engine's spans join the router's trace.
+
+_TRACE_CHARS = frozenset("0123456789abcdef")
+
+
+def make_traceparent(trace, span=None):
+    """The wire form of a trace context: ``"<trace>-<parent span id>"``."""
+    return "{}-{}".format(trace, int(span or 0))
+
+
+def parse_traceparent(value):
+    """``(trace_id, parent_span_id)`` from a ``traceparent`` string, or
+    ``None`` for anything malformed — propagation degrades to a fresh
+    trace, never to a failed request."""
+    if not isinstance(value, str) or "-" not in value:
+        return None
+    trace, _, parent = value.rpartition("-")
+    if not (4 <= len(trace) <= 32) or not set(trace) <= _TRACE_CHARS:
+        return None
+    try:
+        return trace, int(parent)
+    except ValueError:
+        return None
+
+
+# Compact per-request trace summaries awaiting heartbeat publication:
+# engines append one dict at each terminal transition (and the fleet
+# router one per placement), node_stats() drains up to
+# ``TRACE_SUMMARIES_PER_BEAT`` per call, and the cluster driver's store
+# merges them by trace id. Bounded: a burst between beats keeps the
+# newest summaries.
+_trace_summaries = collections.deque(maxlen=256)
+TRACE_SUMMARIES_PER_BEAT = 32
+
+
+def note_trace(summary):
+    """Queue one compact trace summary (a small dict carrying at least
+    ``trace``) for the next heartbeat — one deque append."""
+    if isinstance(summary, dict) and summary.get("trace"):
+        _trace_summaries.append(summary)
+
+
+def take_trace_summaries(limit=TRACE_SUMMARIES_PER_BEAT):
+    """Drain up to ``limit`` queued trace summaries, oldest first (the
+    heartbeat's half of :func:`note_trace`)."""
+    out = []
+    while _trace_summaries and len(out) < int(limit):
+        try:
+            out.append(_trace_summaries.popleft())
+        except IndexError:  # a racing drainer emptied it
+            break
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Counters / gauges (always-on process metrics)
 # ---------------------------------------------------------------------------
 
@@ -430,6 +494,31 @@ def get_gauge(name, default=None):
 def get_counter(name, default=0.0):
     with _metrics_lock:
         return _counters.get(name, {}).get((), default)
+
+
+def clear_gauge(name):
+    """Drop a gauge family entirely (it disappears from /metrics and
+    node_stats rather than going stale — e.g. when the producing layer
+    shuts down)."""
+    with _metrics_lock:
+        _gauges.pop(name, None)
+
+
+# Non-numeric heartbeat payloads: gauges are floats, but some per-node
+# facts the fleet router needs are structured — the KV-prefix index digest
+# (chain-hash prefixes) that remote prefix affinity matches against.
+# Entries ride node_stats() verbatim; keep them small.
+_node_extra = {}
+
+
+def set_node_extra(key, value):
+    """Attach a small JSON-serializable value to every later
+    ``node_stats()`` under ``key`` (``None`` removes it)."""
+    with _metrics_lock:
+        if value is None:
+            _node_extra.pop(key, None)
+        else:
+            _node_extra[key] = value
 
 
 def observe(name, value, buckets=None, **labels):
@@ -943,6 +1032,15 @@ def node_stats():
     hx = hist_export(HB_HIST_FAMILIES)
     if hx:
         out["hists"] = hx
+    # Per-request trace summaries (note_trace): each heartbeat drains a
+    # bounded batch for the cluster driver's store.
+    traces = take_trace_summaries()
+    if traces:
+        out["traces"] = traces
+    # Structured per-node extras (set_node_extra), e.g. the prefix-index
+    # digest remote affinity routing matches prompts against.
+    with _metrics_lock:
+        out.update(_node_extra)
     rss = _rss_mb()
     if rss is not None:
         out["rss_mb"] = round(rss, 1)
@@ -959,4 +1057,6 @@ def _reset_for_tests():
         _histograms.clear()
         _hist_bounds.clear()
         _status.clear()
+        _node_extra.clear()
         _step_meter.update(last=None, rate=None, wait_frac=None)
+    _trace_summaries.clear()

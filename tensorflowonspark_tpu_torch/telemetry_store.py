@@ -1,9 +1,9 @@
 """Cluster history plane: heartbeat time-series store and goodput
-accounting (stdlib-only, driver-side; the port's copy of the JAX package's
-``telemetry_store.py``). The JAX module's SLO burn-rate monitor and
-profile digests (``cluster.run(slos=...)``, the profiler: ROADMAP A12) and
-its HTML dashboard (the serving side of the telemetry plane, ROADMAP A7b)
-are not copied.
+accounting, and SLO burn-rate monitoring (stdlib-only, driver-side; the
+port's copy of the JAX package's ``telemetry_store.py``). Not copied: the
+JAX module's profile digests and ``cluster.run(slos=...)`` wiring (the
+profiler and incident capture: ROADMAP A12) and its HTML dashboard (the
+serving side of the telemetry plane, ROADMAP A7b).
 
 Every earlier observability surface was point-in-time: ``cluster_stats()``
 keeps only each node's *last* heartbeat stats, ``/metrics`` is a snapshot,
@@ -31,6 +31,13 @@ minutes". This module retains the stream:
   instantaneous ``goodput`` series under the synthetic node
   ``"cluster"`` — a chaos drill's restart dip and recovery read off one
   curve.
+
+* :class:`SLO` / :class:`SLOMonitor` — declarative objectives
+  (``"serve_ttft_ms_p95 < 250"``) evaluated over multiple windows: an SLO
+  fires only when every window's breach fraction clears its burn
+  threshold. Every evaluation pass hands the multi-window state to the
+  policy callbacks (``add_policy_callback``) — the serving
+  ``Autoscaler``'s burn signal.
 
 The driver enables the plane with :func:`configure` (idempotent —
 ``cluster.run`` calls :func:`ensure` so supervised relaunches keep ONE
@@ -322,6 +329,189 @@ class GoodputAccountant:
         return out
 
 
+class SLO:
+    """One declarative SLO: ``metric op threshold`` as an *objective*
+    (``"serve_ttft_ms_p95 < 250"`` means the p95 SHOULD stay under 250
+    ms; a sample at or past the threshold is a breach).
+
+    ``windows`` is a sequence of ``(window_seconds, burn_fraction)``
+    pairs; the monitor fires only when EVERY window's breach fraction
+    is at least its burn threshold and each window holds at least
+    ``min_points`` samples. ``node=None`` evaluates against every
+    node's series merged.
+    """
+
+    def __init__(self, metric, op, threshold, node=None,
+                 windows=((60.0, 0.5), (300.0, 0.1)), min_points=3,
+                 name=None):
+        if op not in ("<", ">"):
+            raise ValueError("SLO op must be '<' or '>', got {!r}".format(op))
+        self.metric = str(metric)
+        self.op = op
+        self.threshold = float(threshold)
+        self.node = node
+        self.windows = tuple((float(w), float(b)) for w, b in windows)
+        if not self.windows:
+            raise ValueError("SLO needs at least one (window, burn) pair")
+        self.min_points = int(min_points)
+        self.name = name or "{}{}{:g}".format(
+            self.metric, self.op, self.threshold)
+
+    @classmethod
+    def parse(cls, spec, **overrides):
+        """Build an SLO from a dict or a ``"metric < threshold"``
+        string (the CLI / config-file form)."""
+        if isinstance(spec, cls):
+            return spec
+        if isinstance(spec, dict):
+            return cls(**dict(spec, **overrides))
+        parts = str(spec).split()
+        if len(parts) != 3 or parts[1] not in ("<", ">"):
+            raise ValueError(
+                "SLO spec must look like 'metric < threshold', got "
+                "{!r}".format(spec))
+        return cls(parts[0], parts[1], float(parts[2]), **overrides)
+
+    def breached(self, value):
+        """True when ``value`` violates the objective."""
+        return value >= self.threshold if self.op == "<" \
+            else value <= self.threshold
+
+    def to_dict(self):
+        return {"name": self.name, "metric": self.metric, "op": self.op,
+                "threshold": self.threshold, "node": self.node,
+                "windows": [list(w) for w in self.windows]}
+
+
+class SLOMonitor:
+    """Evaluates a set of :class:`SLO` specs against the store with
+    multi-window burn rates; edge-triggered events + incident capture.
+
+    ``evaluate()`` is cheap (a few window scans per SLO) and is called
+    from the store's ingest path at most once per ``interval`` seconds,
+    so the heartbeat handler never pays more than one evaluation per
+    window. A firing emits ``cluster/slo_breach`` (with the per-window
+    breach fractions as evidence), appends a ``slo_firing`` step series
+    under node ``"cluster"``, and triggers the attached incident
+    ``recorder`` (duck-typed: ``recorder.trigger(kind, **attrs)``; the port
+    ships none yet, ROADMAP A12); recovery emits
+    ``cluster/slo_recovered``.
+    """
+
+    def __init__(self, store, slos, recorder=None, interval=1.0):
+        self.store = store
+        self.slos = [SLO.parse(s) for s in slos]
+        self.recorder = recorder
+        self.interval = float(interval)
+        self._firing = {}   # slo name -> since ts
+        self._last_eval = 0.0
+        self._lock = threading.Lock()
+        # Policy callbacks: an SLO burn is an actuation signal (the
+        # serving Autoscaler's), not just an alert. Each callback sees every
+        # evaluation pass (not just edges — a controller needs the
+        # level, and its own hysteresis owns the debouncing).
+        self.policy_callbacks = []
+
+    def add_policy_callback(self, fn):
+        """Register ``fn(state)`` to run on every evaluation pass, per
+        SLO, with ``state = {"slo": SLO, "windows": evidence list,
+        "firing": bool, "enough": bool, "now": ts}``. Exceptions are
+        swallowed (a broken policy must not take down ingest)."""
+        self.policy_callbacks.append(fn)
+        return fn
+
+    def maybe_evaluate(self, now=None):
+        now = self.store.now() if now is None else float(now)
+        with self._lock:
+            if now - self._last_eval < self.interval:
+                return []
+            self._last_eval = now
+        return self.evaluate(now=now)
+
+    def evaluate(self, now=None):
+        """One full evaluation pass; returns the SLOs that transitioned
+        to firing on this pass (each as an evidence dict)."""
+        now = self.store.now() if now is None else float(now)
+        fired = []
+        for slo in self.slos:
+            evidence = []
+            enough = True
+            firing = True
+            for window, burn in slo.windows:
+                frac, n = self.store.breach_fraction(
+                    slo.metric, slo.breached, node=slo.node,
+                    window=window, now=now)
+                evidence.append({"window_s": window, "burn": burn,
+                                 "breach_frac": round(frac, 4), "points": n})
+                if n < slo.min_points:
+                    enough = False
+                if frac < burn:
+                    firing = False
+            # Policy callbacks see the LEVEL on every pass: effective
+            # firing state (held when data is insufficient), the
+            # per-window evidence, and the data-sufficiency flag.
+            effective = firing if enough else (slo.name in self._firing)
+            for fn in self.policy_callbacks:
+                try:
+                    fn({"slo": slo, "windows": evidence,
+                        "firing": effective, "enough": enough,
+                        "now": now})
+                except Exception:
+                    logger.warning("slo policy callback failed",
+                                   exc_info=True)
+            if not enough:
+                # Insufficient data is NOT evidence of health: a firing
+                # SLO whose measured plane went completely silent (the
+                # worst case) must HOLD, not auto-recover; a quiet SLO
+                # stays quiet. State transitions need data.
+                continue
+            was = slo.name in self._firing
+            if firing and not was:
+                self._firing[slo.name] = now
+                attrs = {"slo": slo.name, "metric": slo.metric,
+                         "threshold": slo.threshold,
+                         "breach_frac": evidence[0]["breach_frac"]}
+                telemetry.event("cluster/slo_breach", **attrs)
+                telemetry.inc("slo_breaches_total")
+                logger.warning("SLO breach: %s (windows: %s)",
+                               slo.name, evidence)
+                self.store.append("cluster", "slo_firing",
+                                  float(len(self._firing)), ts=now)
+                if self.recorder is not None:
+                    try:
+                        self.recorder.trigger("slo_breach", **attrs)
+                    except Exception:  # alerting must outlive capture
+                        logger.warning("slo incident trigger failed",
+                                       exc_info=True)
+                fired.append({"slo": slo.to_dict(), "windows": evidence,
+                              "since": now})
+            elif was and not firing:
+                del self._firing[slo.name]
+                telemetry.event("cluster/slo_recovered", slo=slo.name,
+                                metric=slo.metric)
+                self.store.append("cluster", "slo_firing",
+                                  float(len(self._firing)), ts=now)
+        telemetry.set_gauge("slo_firing", float(len(self._firing)))
+        return fired
+
+    def status(self):
+        """Per-SLO snapshot for ``/statusz`` / the dashboard."""
+        now = self.store.now()
+        out = []
+        for slo in self.slos:
+            windows = []
+            for window, burn in slo.windows:
+                frac, n = self.store.breach_fraction(
+                    slo.metric, slo.breached, node=slo.node,
+                    window=window, now=now)
+                windows.append({"window_s": window, "burn": burn,
+                                "breach_frac": round(frac, 4),
+                                "points": n})
+            out.append({**slo.to_dict(), "windows": windows,
+                        "firing": slo.name in self._firing})
+        return out
+
+
 # Non-numeric heartbeat keys the store retains verbatim (latest per
 # node). Whitelisted so an arbitrary structured payload can't grow the
 # store; today just the disaggregated router's prefix-affinity digest.
@@ -364,12 +554,20 @@ class TelemetryStore:
         self._extras = {}
         self._gauges_published = 0.0
         self.goodput = GoodputAccountant()
+        self.slo_monitor = None
         self.created = self.now()
 
     def now(self):
         return float(self._clock())
 
     # -- wiring --------------------------------------------------------------
+
+    def set_slos(self, slos, recorder=None, interval=1.0):
+        """Install (replacing) the SLO monitor; returns it. ``slos`` are
+        :class:`SLO` objects, dicts, or ``"metric < x"`` strings."""
+        self.slo_monitor = SLOMonitor(self, slos, recorder=recorder,
+                                      interval=interval) if slos else None
+        return self.slo_monitor
 
 
     # -- ingest --------------------------------------------------------------
@@ -448,6 +646,9 @@ class TelemetryStore:
                                 self._append_locked(
                                     "cluster", "{}_{}".format(base, q),
                                     ts, v * 1e3)
+        monitor = self.slo_monitor
+        if monitor is not None:
+            monitor.maybe_evaluate(now=ts)
 
     def _ingest_trace_locked(self, node, summary, ts):
         """Merge one heartbeat-delivered trace summary. A request's
@@ -704,14 +905,19 @@ class TelemetryStore:
 
     def export(self, path):
         """Spill the store to JSONL: one ``meta`` line (nodes, goodput
-        summary), then one line per (node, metric) series
+        summary, SLO status), then one line per (node, metric) series
         carrying the raw ring and every rollup tier. Written atomically
         (tmp + rename) so a concurrent reader never sees a torn spill.
         Consumed by :func:`load_export` / ``perf_doctor --live``."""
         path = os.fspath(path)
+        # Meta evidence BEFORE taking the series lock: slo_monitor
+        # .status() re-enters the store (breach_fraction -> points), and
+        # the lock is deliberately non-reentrant.
         meta = {
             "type": "meta", "exported": self.now(),
             "goodput": self.goodput.summary(),
+            "slo": (self.slo_monitor.status()
+                    if self.slo_monitor is not None else None),
         }
         with self._lock:
             meta["nodes"] = sorted({n for n, _ in self._series})

@@ -21,7 +21,13 @@ runs one under ``cluster.run(tensorboard=True)``.
 NDJSON ``{"token": id, "index": i}`` lines over chunked transfer while the
 engine produces them, then a terminal ``{"done": true, ...}`` summary line
 with the request's id, trace, state and ``ttft_ms``/``total_ms``; with
-``"stream": false`` one JSON document with the summary and the tokens.
+``"stream": false`` one JSON document with the summary and the tokens. The
+attached engine may be a ``ServingFleet`` (``GET /v1/serving`` then answers
+its fleet-aware payload; 503 when every peer is unreachable).
+``POST /v1/migrate`` is the receiving end of a disaggregated handoff: the
+body is ``serving.encode_handoff`` bytes, the engine restores the pages
+byte for byte, and the answer is an ``{"accepted": true, ...}`` ack line
+(the sender's commit point) followed by the ``/v1/generate`` stream.
 """
 
 import http.server
@@ -192,36 +198,24 @@ def read_events(directory, filename="metrics.jsonl"):
             events.extend(json.loads(line) for line in f if line.strip())
     return events
 
-_TRACE_CHARS = frozenset("0123456789abcdef")
-
-
 def _ms(seconds):
     return None if seconds is None else round(seconds * 1e3, 3)
 
 
-def _parse_traceparent(value):
-    """``trace_id`` of a ``"<hex trace>-<span>"`` traceparent, or None for
-    anything malformed (a fresh trace is minted instead)."""
-    if not isinstance(value, str) or "-" not in value:
-        return None
-    trace, _, parent = value.rpartition("-")
-    if not (4 <= len(trace) <= 32) or not set(trace) <= _TRACE_CHARS:
-        return None
-    try:
-        int(parent)
-    except ValueError:
-        return None
-    return trace
-
-
 def _handle_summary(handle):
-    """Terminal-summary fields of a ``/v1/generate`` response."""
+    """Terminal-summary fields of a ``/v1/generate`` response. A local
+    ``RequestHandle`` carries id, trace and timings as attributes; a
+    fleet-routed ``RemoteHandle`` instead holds the remote node's own
+    terminal line (``tail``), already in this wire shape."""
+    tail = getattr(handle, "tail", None) or {}
     return {
-        "request": handle.id,
-        "trace": handle.trace,
+        "request": getattr(handle, "id", tail.get("request")),
+        "trace": getattr(handle, "trace", tail.get("trace")),
         "state": handle.state,
-        "ttft_ms": _ms(handle.ttft),
-        "total_ms": _ms(handle.e2e),
+        "ttft_ms": (_ms(handle.ttft) if hasattr(handle, "ttft")
+                    else tail.get("ttft_ms")),
+        "total_ms": (_ms(handle.e2e) if hasattr(handle, "e2e")
+                     else tail.get("total_ms")),
     }
 
 
@@ -295,6 +289,9 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
 
     def do_POST(self):
         path = urllib.parse.urlparse(self.path).path
+        if path == "/v1/migrate":
+            self._migrate()
+            return
         if path != "/v1/generate":
             # Early returns below answer WITHOUT reading the body; on a
             # keep-alive connection the unread bytes would desync the next
@@ -320,13 +317,18 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
             self.close_connection = True
             self._send(413, "text/plain", b"request body too large\n")
             return
-        from tensorflowonspark_tpu_torch.serving import QueueFull
+        from tensorflowonspark_tpu_torch.serving import (
+            EngineUnavailable, QueueFull,
+        )
 
         trace = None
         try:
             body = json.loads(self.rfile.read(length).decode("utf-8"))
-            trace = (_parse_traceparent(body.get("traceparent") or "")
-                     or uuid.uuid4().hex[:12])
+            # Trace adoption before field validation, so even a 400 names
+            # the trace the sender watches.
+            parsed = telemetry.parse_traceparent(
+                body.get("traceparent") or "")
+            trace = parsed[0] if parsed else uuid.uuid4().hex[:12]
             prompt = body["prompt"]
             if not (isinstance(prompt, list)
                     and all(isinstance(t, int) for t in prompt)):
@@ -350,6 +352,11 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
         except QueueFull as e:
             self._reject(429, str(e), trace)
             return
+        except EngineUnavailable as e:
+            # A fleet gateway whose remote peers are all unreachable: a
+            # structured 503, not a dropped connection.
+            self._reject(503, str(e), trace)
+            return
         except ValueError as e:
             self._reject(400, str(e), trace)
             return
@@ -363,29 +370,84 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
             # decode slot and page reservation.
             handle.cancel()
             self._send(500, "application/json", json.dumps(
-                {"error": str(e), "trace": handle.trace}).encode("utf-8"))
+                {"error": str(e),
+                 "trace": getattr(handle, "trace", trace)}).encode("utf-8"))
             return
         self._send(200, "application/json", json.dumps({
             **_handle_summary(handle), "tokens": tokens,
         }).encode("utf-8"))
 
+    # Page-migration payloads are raw KV bytes: a long prompt's pages run
+    # far past the JSON prompt bound (a GPT-2-small bf16 page of 64 tokens
+    # is 2.36 MB).
+    MAX_MIGRATE_BODY = 256 * 1024 * 1024
+
+    def _migrate(self):
+        """``POST /v1/migrate``: restore a prefill engine's handoff (the
+        body is ``serving.encode_handoff`` bytes) and stream the decode
+        side's tokens, after an ``{"accepted": true}`` ack line — only an
+        acked transfer counts as migrated on the sender."""
+        engine = self.server.engine
+        inject = getattr(engine, "inject_handoff", None)
+        if inject is None:
+            # No engine, or a fleet gateway that routes prompts but holds
+            # no pool: refuse before reading the body, so the sender
+            # falls back at once.
+            self.close_connection = True
+            self._send(503, "application/json",
+                       b'{"error": "no page-restoring engine attached"}\n')
+            return
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+        except ValueError:
+            length = 0
+        if length <= 0:
+            self.close_connection = True
+            self._send(400, "text/plain", b"missing request body\n")
+            return
+        if length > self.MAX_MIGRATE_BODY:
+            self.close_connection = True
+            self._send(413, "text/plain", b"request body too large\n")
+            return
+        from tensorflowonspark_tpu_torch.serving import QueueFull
+
+        payload = self.rfile.read(length)
+        try:
+            handle = inject(payload)
+        except QueueFull as e:
+            self._reject(429, str(e))
+            return
+        except (ValueError, KeyError) as e:
+            self._reject(400, "bad handoff payload: {}".format(e))
+            return
+        self._stream_tokens(handle, ack={
+            "accepted": True, "request": handle.id, "trace": handle.trace})
+
     def _reject(self, code, message, trace=None):
+        """A JSON error naming the request's trace, plus a
+        ``serve/reject`` event, so a rejected request is findable by
+        trace."""
         doc = {"error": message}
         if trace:
             doc["trace"] = trace
+            telemetry.event("serve/reject", trace=trace, code=int(code),
+                            error=str(message)[:200])
         self._send(code, "application/json", json.dumps(doc).encode("utf-8"))
 
-    def _stream_tokens(self, handle):
+    def _stream_tokens(self, handle, ack=None):
         """NDJSON over chunked transfer: one line per generated token,
         then the terminal summary. An engine failure or stall ends the
         stream with an ``error`` field and a proper chunk terminator, and
-        cancels the request."""
+        cancels the request. ``ack`` is an extra first line (the
+        ``/v1/migrate`` acceptance record)."""
         self.send_response(200)
         self.send_header("Content-Type", "application/x-ndjson")
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
         try:
             error = None
+            if ack is not None:
+                self._chunk(json.dumps(ack) + "\n")
             try:
                 for i, token in enumerate(handle.stream(timeout=300.0)):
                     self._chunk(json.dumps(
@@ -420,8 +482,8 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
 
 
 class MetricsServer:
-    """The serving HTTP plane: ``POST /v1/generate`` and ``GET
-    /v1/serving`` over an attached engine (started with
+    """The serving HTTP plane: ``POST /v1/generate``, ``POST /v1/migrate``
+    and ``GET /v1/serving`` over an attached engine or fleet (started with
     ``engine.start()``), and the node telemetry routes ``/metrics`` and
     ``/statusz``. Binds loopback by default; ``port=0`` picks a free port
     (:attr:`port`). Unlike the JAX server it serves no metrics directory,
@@ -439,6 +501,12 @@ class MetricsServer:
         self._httpd.status_fn = status_fn
         self._httpd.stats_fn = stats_fn
         self._thread = None
+
+    def set_engine(self, engine):
+        """Attach (or swap) the engine behind ``/v1/generate``,
+        ``/v1/migrate`` and ``/v1/serving`` without restarting the HTTP
+        plane (a weight reload, or a ``kv_cache_dtype`` change)."""
+        self._httpd.engine = engine
 
     @property
     def port(self):

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing of JAX, flax, optax, orbax or the JAX
-package.
+"""The port stands alone: nothing of JAX, flax, optax, orbax, ml_dtypes or
+the JAX package.
 
 ``tests/conftest.py`` imports jax into the test process, so the import
 check runs in a fresh interpreter: import every module of
@@ -27,7 +27,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tensorflowonspark_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
              "tensorflowonspark_tpu")
 
 _CHILD = r"""
@@ -51,6 +51,7 @@ def test_forbidden_name_match_is_exact():
     assert _forbidden("tensorflowonspark_tpu.serving.cache")
     assert _forbidden("jax.numpy")
     assert _forbidden("orbax.checkpoint")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("tensorflowonspark_tpu_torch")
     assert not _forbidden("tensorflowonspark_tpu_torch.serving")
     assert not _forbidden("jaxtyping_free_module")
@@ -67,6 +68,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "ops.attention", "ops.fused_resnet_block", "models.resnet",
                  "models.factory", "models.transformer", "models.decoding",
                  "serving.scheduler", "serving.runner", "serving.cache",
+                 "serving.fleet", "serving.autoscaler",
                  "convert", "initializers", "fs", "util",
                  "train.trainer", "train.losses", "train.checkpoint",
                  "train.prefetch", "train.tbevents", "train.metrics",

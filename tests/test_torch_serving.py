@@ -290,12 +290,24 @@ def test_engine_defaults_to_the_card():
 
 @pytest.mark.parametrize("kw", [
     dict(speculative_tokens=2), dict(draft_model=object()),
-    dict(draft_variables={}), dict(role="prefill"),
-    dict(handoff_fn=lambda req, payload: True)],
+    dict(draft_variables={})],
     ids=lambda kw: next(iter(kw)))
 def test_arguments_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
         _engine(**kw)
+
+
+def test_role_is_validated_like_jax():
+    with pytest.raises(ValueError, match="role must be"):
+        _engine(role="bogus")
+    with pytest.raises(ValueError, match="role must be"):
+        jax_serving.ServingEngine(
+            _models()["jm"], _models()["variables"], max_slots=1,
+            page_size=16, num_pages=4, role="bogus")
+    for role in ("both", "prefill", "decode"):
+        eng = _engine(role=role, handoff_fn=lambda req, payload: True)
+        assert eng.role == role and eng.stats()["role"] == role
+        eng.close()
 
 
 def test_preempt_mode_is_validated_like_jax():
