@@ -131,6 +131,21 @@ calls and fails (non-zero exit) if any phase fails:
                detection, to the end of teardown and to the relaunch's
                first step, restore seconds, the memory readings, the grace
                and the agents' bring-up;
+   shard    — sharded meshes, two ranks sharing the card over gloo (every
+               collective staged through host memory), GPT-2-small width
+               at 2 layers, bf16, AdamW 3e-4: (a) ``tensor=2`` on the
+               flash route, 3 steps against the one-rank trainer, B1-B3
+               2 launches a step a rank; (b) ``seq=2`` ``ring_flash``
+               contiguous and zigzag at b2 x s2048: step 1's bf16 loss,
+               and in f32 its loss and gradients, against the one-rank
+               flash route, B1-B3 launches a rank equal to the ring
+               schedule's; (c) ``fsdp=2`` against ``data=2``: parameter,
+               optimizer and peak bytes a rank; (d) ResNet-50 f32 with
+               global-batch BatchNorm under ``data=2`` against one
+               process on the concatenated batch, running statistics
+               equal on both ranks; then B1-B3 at the ring's block shapes
+               (a 512 x 512 zigzag stripe pair, a fully masked held
+               block) against their plain versions;
 7. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry (horizon 1; and horizon 4 with a joining
                request, prefix sharers, a COW duplicate, a swap and a
@@ -138,8 +153,8 @@ calls and fails (non-zero exit) if any phase fails:
                fp32;
 8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
-The B1-B3 rows' ``launches`` add the executors' launches of the cluster
-and recover phases (each executor resets its counts before its loop and
+The B1-B3 rows' ``launches`` add the executors' launches of the cluster,
+recover and shard phases (each executor resets its counts before its loop and
 reports them; a recover incarnation appends its counts to its audit log
 at every step, since a crashed one returns nothing) to the train
 phase's. The last two lines of standard output are the
@@ -618,6 +633,49 @@ FLASH_CASES = [
 FLASH_TIMED = {64: "main", 32: "main_d32", 128: "main_d128"}
 
 
+def flash_compare(torch, fa, c, case, kind, errs):
+    """Each kernel against its plain version on case ``c``'s inputs (the
+    backward kernels take the plain forward's lse and delta); raises past
+    :data:`FLASH_TOL` or :data:`BF16_MAX_DIFFERING`, folds each kernel's
+    largest error into ``errs``, returns the log parts."""
+    ref_out, ref_lse = fa.flash_forward_reference(
+        c["q"], c["k"], c["v"], c["q_seg"], c["k_seg"], causal=c["causal"])
+    c["lse"] = ref_lse
+    c["delta"] = (ref_out.float() * c["do"].float()).sum(dim=-1)
+    got = {n: fn() for n, fn in flash_calls(fa, c, "kernel").items()}
+    torch.cuda.synchronize()
+    ref = {n: fn() for n, fn in flash_calls(fa, c, "plain").items()}
+    pairs = {
+        "flash_fwd": (("out", got["flash_fwd"][0], ref_out),
+                      ("lse", got["flash_fwd"][1], ref_lse)),
+        "flash_bwd_dq": (("dq", got["flash_bwd_dq"], ref["flash_bwd_dq"]),),
+        "flash_bwd_dkv": (("dk", got["flash_bwd_dkv"][0],
+                           ref["flash_bwd_dkv"][0]),
+                          ("dv", got["flash_bwd_dkv"][1],
+                           ref["flash_bwd_dkv"][1])),
+    }
+    parts = []
+    for name, outs in pairs.items():
+        for label, a, r in outs:
+            err = float((a.float() - r.float()).abs().max())
+            tol = FLASH_TOL[kind][label]
+            differing = float((a != r).float().mean())
+            parts.append("{} {:.3e} ({:.4f} differ)".format(
+                label, err, differing))
+            if not err <= tol:
+                raise AssertionError(
+                    "{} {} {}: {} disagrees with its plain version: "
+                    "{} > {}".format(name, case, kind, label, err, tol))
+            if a.dtype == torch.bfloat16 and not (
+                    differing <= BF16_MAX_DIFFERING):
+                raise AssertionError(
+                    "{} {}: {:.4f} of the bf16 {} values differ from "
+                    "the plain version (limit {})".format(
+                        name, case, differing, label, BF16_MAX_DIFFERING))
+            errs[name] = max(errs[name], err)
+    return parts
+
+
 def flash_phase(torch, fa):
     """Every case of FLASH_CASES against the plain versions; returns the
     largest error of each kernel and the timed cases ({d: case})."""
@@ -626,44 +684,7 @@ def flash_phase(torch, fa):
     for i, (case, kind, kw) in enumerate(FLASH_CASES):
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
         c = flash_case(torch, fa, 100 + i, dtype=dtype, **kw)
-        ref_out, ref_lse = fa.flash_forward_reference(
-            c["q"], c["k"], c["v"], c["q_seg"], c["k_seg"],
-            causal=c["causal"])
-        c["lse"] = ref_lse
-        c["delta"] = (ref_out.float() * c["do"].float()).sum(dim=-1)
-        got = {n: fn() for n, fn in flash_calls(fa, c, "kernel").items()}
-        torch.cuda.synchronize()
-        ref = {n: fn() for n, fn in flash_calls(fa, c, "plain").items()}
-        pairs = {
-            "flash_fwd": (("out", got["flash_fwd"][0], ref_out),
-                          ("lse", got["flash_fwd"][1], ref_lse)),
-            "flash_bwd_dq": (("dq", got["flash_bwd_dq"],
-                              ref["flash_bwd_dq"]),),
-            "flash_bwd_dkv": (("dk", got["flash_bwd_dkv"][0],
-                               ref["flash_bwd_dkv"][0]),
-                              ("dv", got["flash_bwd_dkv"][1],
-                               ref["flash_bwd_dkv"][1])),
-        }
-        parts = []
-        for name, outs in pairs.items():
-            for label, a, r in outs:
-                err = float((a.float() - r.float()).abs().max())
-                tol = FLASH_TOL[kind][label]
-                differing = float((a != r).float().mean())
-                parts.append("{} {:.3e} ({:.4f} differ)".format(
-                    label, err, differing))
-                if not err <= tol:
-                    raise AssertionError(
-                        "{} {} {}: {} disagrees with its plain version: "
-                        "{} > {}".format(name, case, kind, label, err, tol))
-                if a.dtype == torch.bfloat16 and not (
-                        differing <= BF16_MAX_DIFFERING):
-                    raise AssertionError(
-                        "{} {}: {:.4f} of the bf16 {} values differ from "
-                        "the plain version (limit {})".format(
-                            name, case, differing, label,
-                            BF16_MAX_DIFFERING))
-                errs[name] = max(errs[name], err)
+        parts = flash_compare(torch, fa, c, case, kind, errs)
         log("kernel flash {:9s} {:4s} b{} s{}x{} h{}/{} d{}{}: {}".format(
             case, kind, kw["b"], kw["s"], kw.get("s_k", kw["s"]), kw["h"],
             kw["h_kv"], kw.get("d", 64), "" if c["causal"] else " full",
@@ -3633,6 +3654,463 @@ def full_width_teacher_forced(torch):
         "near-tie stops".format(compared, near_ties))
 
 
+# -- shard ----------------------------------------------------------------------
+
+# Two ranks share the card over gloo (NCCL refuses two ranks on one card):
+# GPT-2-small width at 2 layers, bf16, AdamW 3e-4.
+SHARD_LM = dict(GPT2_SMALL, num_layers=2)
+SHARD_WORLD = 2
+SHARD_STEPS = 3
+SHARD_BATCH = 4
+SHARD_LONG = 2048
+SHARD_LR = 3e-4
+# Tolerances, relative: bf16 losses ((a) over 3 steps against the one-rank
+# trainer, (b) step 1 against the one-rank flash route, (c) fsdp against
+# data); (b) in f32, step 1's loss, gradient norms and each compared
+# gradient's largest difference over its largest value (summation order
+# apart). In bf16 (b)'s gradients are read, not held: the head's backward
+# GEMM reduces over the vocabulary, and cuBLAS's bf16 reductions round
+# apart at a rank's and at one rank's token counts (ln_f.scale's norm read
+# 1.15e-2 apart in the first run on the card). (d) ResNet in f32.
+SHARD_LOSS_RTOL = 5e-3
+SHARD_F32_LOSS_RTOL = 1e-5
+SHARD_F32_GRAD_RTOL = 1e-3
+SHARD_BN_RTOL = 1e-4
+SHARD_NORM_PARAMS = ("embed.embedding", "pos_embed",
+                     "block_0.attn.qkv.kernel", "block_1.mlp.down.kernel",
+                     "ln_f.scale")
+SHARD_GRAD_PARAMS = ("block_0.attn.qkv.kernel", "block_1.attn.out.kernel",
+                     "block_0.ln1.scale")
+
+
+def _shard_lm(torch, dtype=None, **kw):
+    from tensorflowonspark_tpu_torch.models import factory
+
+    return factory.get_model("transformer", dtype=dtype or torch.bfloat16,
+                             device="cuda", seed=0, **dict(SHARD_LM, **kw))
+
+
+def _shard_grads(state, names):
+    return {n: state.params[n].grad.detach().float().cpu()
+            for n in names}
+
+
+def _norms(grads):
+    return {n: float(g.norm()) for n, g in grads.items()}
+
+
+def _resnet_batch(batch, seed=3):
+    rs = np.random.RandomState(seed)
+    return {"x": rs.rand(batch, 64, 64, 3).astype(np.float32),
+            "y": (np.arange(batch) * 7 % 1000).astype(np.int32)}
+
+
+def shard_rank(rank, world, port, outdir):
+    """One rank of the shard phase (top level: the spawned process
+    re-imports this file). Runs cases (a)-(d) and saves its results."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method="tcp://127.0.0.1:{}".format(port),
+            world_size=world, rank=rank)
+        results = _shard_cases(torch, rank)
+        torch.save(results, os.path.join(outdir, "rank{}.pt".format(rank)))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(outdir, "rank{}.err".format(rank)), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _shard_cases(torch, rank):
+    import gc
+
+    from tensorflowonspark_tpu_torch.ops import attention
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig
+    from tensorflowonspark_tpu_torch.parallel import collectives as coll
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    out = {"launches": dict.fromkeys(fa.launches, 0)}
+
+    def counted(fn):
+        before = dict(fa.launches)
+        result = fn()
+        return result, {n: fa.launches[n] - before[n] for n in fa.launches}
+
+    def add(counts):
+        for n, c in counts.items():
+            out["launches"][n] += c
+
+    fa.reset_launches()
+    # (a) tensor=2 on the flash route.
+    mesh = MeshConfig(data=1, tensor=2).build()
+    tr = Trainer(_shard_lm(torch, attention_impl="pallas"),
+                 optimizer=trainer.adamw(SHARD_LR), mesh=mesh,
+                 device="cuda")
+    state = tr.init()
+    batch = lm_batch(SHARD_BATCH, 1024, SHARD_LM["vocab_size"])
+    losses, per_step, ms = [], [], []
+    for _ in range(SHARD_STEPS):
+        stop = _timer(torch)
+        (state, m), counts = counted(lambda: tr.train_step(state, batch))
+        losses.append(float(m["loss"]))
+        ms.append(stop())
+        per_step.append(counts)
+        add(counts)
+    out["tensor"] = {"losses": losses, "per_step": per_step, "ms": ms}
+    del tr, state
+    torch.cuda.empty_cache()
+
+    # (b) seq=2 ring_flash, contiguous and zigzag, at s 2048.
+    for layout in ("contiguous", "zigzag"):
+        mesh = MeshConfig(data=1, seq=2).build()
+        tr = Trainer(_shard_lm(torch, attention_impl="ring_flash",
+                               ring_layout=layout, max_seq_len=SHARD_LONG),
+                     optimizer=trainer.adamw(SHARD_LR), mesh=mesh,
+                     device="cuda")
+        state = tr.init()
+        batch = lm_batch(2, SHARD_LONG, SHARD_LM["vocab_size"])
+        if layout == "zigzag":
+            batch = {k: attention.zigzag_layout(v, 2)
+                     for k, v in batch.items()}
+        coll.reset_traffic()
+        stop = _timer(torch)
+        (state, m), counts = counted(lambda: tr.train_step(state, batch))
+        step_ms = stop()
+        add(counts)
+        out["seq_" + layout] = {
+            "loss": float(m["loss"]), "counts": counts, "ms": step_ms,
+            "norms": _norms(_shard_grads(state, SHARD_NORM_PARAMS)),
+            "traffic": dict(coll.traffic)}
+        del tr, state
+        torch.cuda.empty_cache()
+        tr = Trainer(_shard_lm(torch, attention_impl="ring_flash",
+                               ring_layout=layout, max_seq_len=SHARD_LONG,
+                               dtype=torch.float32),
+                     optimizer=trainer.adamw(SHARD_LR), mesh=mesh,
+                     device="cuda")
+        state = tr.init()
+        (state, m), counts = counted(lambda: tr.train_step(state, batch))
+        add(counts)
+        out["seq_" + layout]["f32"] = {
+            "loss": float(m["loss"]), "counts": counts,
+            "norms": _norms(_shard_grads(state, SHARD_NORM_PARAMS)),
+            "grads": _shard_grads(state, SHARD_GRAD_PARAMS)}
+        del tr, state
+        torch.cuda.empty_cache()
+
+    # (c) fsdp=2 against data=2: bytes held and peak memory a rank.
+    batch = lm_batch(SHARD_BATCH, 1024, SHARD_LM["vocab_size"])
+    for name, kw in (("data", dict(data=2)), ("fsdp", dict(data=1, fsdp=2))):
+        # Collect the earlier cases' trainers first: a peak read while one
+        # still waits for the collector counts its tensors too.
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = MeshConfig(**kw).build()
+        tr = Trainer(_shard_lm(torch, attention_impl="pallas"),
+                     optimizer=trainer.adamw(SHARD_LR), mesh=mesh,
+                     device="cuda")
+        state = tr.init()
+        rows = tr.batch_placer.rows(SHARD_BATCH)
+        losses, ms = [], []
+        for _ in range(2):
+            stop = _timer(torch)
+            (state, m), counts = counted(lambda: tr.train_step(
+                state, {k: v[rows] for k, v in batch.items()}))
+            ms.append(stop())
+            add(counts)
+            losses.append(float(m["loss"]))
+        opt_bytes = sum(t.numel() * t.element_size()
+                        for per in state.optimizer.state.values()
+                        for t in per.values()
+                        if isinstance(t, torch.Tensor) and t.dim())
+        out[name] = {
+            "losses": losses, "ms": ms,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in state.params.values()),
+            "opt_bytes": opt_bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del tr, state
+    torch.cuda.empty_cache()
+
+    # (d) ResNet-50 with global-batch BatchNorm, data=2, f32.
+    mesh = MeshConfig(data=2).build()
+    model = factory.get_model("resnet50", dtype=torch.float32,
+                              device="cuda", seed=0)
+    tr = Trainer(model, optimizer=trainer.sgd(0.1, momentum=0.9),
+                 mesh=mesh, device="cuda")
+    state = tr.init()
+    batch = _resnet_batch(8)
+    rows = tr.batch_placer.rows(8)
+    state, m = tr.train_step(state, {k: v[rows] for k, v in batch.items()})
+    out["bn"] = {"loss": float(m["loss"]),
+                 "stats": {k: v.detach().cpu()
+                           for k, v in state.model_state.items()}}
+    return out
+
+
+def ring_block_checks(torch, fa):
+    """B1-B3 at the ring's block shapes against their plain versions, as
+    the flash phase holds them: a zigzag stripe pair at s 2048 over two
+    ranks (512 x 512, non-causal, packed segments), and a held block whose
+    every key lies in another document (fully masked: ``out`` 0, ``lse``
+    about -1e30, no gradient). Returns each kernel's largest error."""
+    errs = dict.fromkeys(fa.launches, 0.0)
+    for i, name in enumerate(("stripe", "masked")):
+        c = flash_case(torch, fa, 300 + i, 2, 512, 12, 12, torch.bfloat16,
+                       "packed", causal=False)
+        if name == "masked":
+            c["k_seg"] = c["q_seg"] + 7
+            c["lens"] = fa._lengths(c["q_seg"], c["k_seg"])
+        parts = flash_compare(torch, fa, c, name, "bf16", errs)
+        log("shard  ring block {}: {}".format(name, ", ".join(parts)))
+        if name == "masked":
+            out, lse = fa.flash_forward(c["q"], c["k"], c["v"], c["q_seg"],
+                                        c["k_seg"], causal=False)
+            dq = fa.flash_bwd_dq(c["q"], c["k"], c["v"], c["do"], lse,
+                                 c["delta"], c["q_seg"], c["k_seg"],
+                                 causal=False)
+            if out.abs().max() or dq.abs().max() or float(lse.max()) > -1e29:
+                raise AssertionError("fully masked block: out {} lse {} dq "
+                                     "{}".format(float(out.abs().max()),
+                                                 float(lse.max()),
+                                                 float(dq.abs().max())))
+    return errs
+
+
+def _run_shard_group(torch, outdir):
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=shard_rank, args=(r, SHARD_WORLD, port,
+                                                  outdir))
+             for r in range(SHARD_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = [open(os.path.join(outdir, "rank{}.err".format(r))).read()
+              for r in range(SHARD_WORLD)
+              if os.path.exists(os.path.join(outdir, "rank{}.err".format(r)))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError("shard ranks failed (exit codes {}):\n{}".format(
+            [p.exitcode for p in procs], "\n".join(errors)))
+    return [torch.load(os.path.join(outdir, "rank{}.pt".format(r)),
+                       weights_only=False) for r in range(SHARD_WORLD)]
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def shard_phase(torch, fa, card):
+    """Phase ``shard``: two ranks share the card over gloo. (a) tensor=2
+    on the flash route, 3 steps against the one-rank trainer, B1-B3 two
+    launches a step a rank; (b) seq=2 ring_flash contiguous and zigzag at
+    s 2048, step 1's loss and gradients against the one-rank flash route,
+    B1-B3 launches a rank equal to the ring schedule's; (c) fsdp=2 against
+    data=2: parameter, optimizer and peak bytes a rank; (d) ResNet-50 f32
+    with global-batch BatchNorm under data=2 against one process on the
+    concatenated batch, running statistics equal on both ranks. Returns
+    the B1-B3 launches of both ranks."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.ops import attention
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _run_shard_group(torch, tmp)
+    group_s = time.perf_counter() - t0
+    layers = SHARD_LM["num_layers"]
+
+    # (a)
+    tr = Trainer(_shard_lm(torch, attention_impl="pallas"),
+                 optimizer=trainer.adamw(SHARD_LR), device="cuda")
+    state = tr.init()
+    batch = lm_batch(SHARD_BATCH, 1024, SHARD_LM["vocab_size"])
+    want, ref_ms = [], []
+    for _ in range(SHARD_STEPS):
+        stop = _timer(torch)
+        state, m = tr.train_step(state, batch)
+        want.append(float(m["loss"]))
+        ref_ms.append(stop())
+    per_layer = dict.fromkeys(fa.launches, layers)
+    for r in ranks:
+        got = r["tensor"]
+        if any(c != per_layer for c in got["per_step"]):
+            raise AssertionError("tensor=2 launches {}; want {} a step".format(
+                got["per_step"], per_layer))
+        errs = [_rel(a, b) for a, b in zip(got["losses"], want)]
+        if max(errs) > SHARD_LOSS_RTOL:
+            raise AssertionError("tensor=2 losses {} against {}".format(
+                got["losses"], want))
+    log("shard  (a) tensor=2 pallas GPT-2-small width 2 layers b{} s1024 "
+        "bf16: losses {} against one rank {} (rel err max {:.2e}); step ms "
+        "a rank {} against one rank {}; B1-B3 {} a step a rank".format(
+            SHARD_BATCH, ["{:.5f}".format(x) for x in ranks[0]["tensor"][
+                "losses"]], ["{:.5f}".format(x) for x in want],
+            max(_rel(a, b) for a, b in zip(ranks[0]["tensor"]["losses"],
+                                           want)),
+            [["{:.1f}".format(x) for x in r["tensor"]["ms"]] for r in ranks],
+            ["{:.1f}".format(x) for x in ref_ms], layers))
+    del tr, state
+    torch.cuda.empty_cache()
+
+    # (b)
+    refs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tr = Trainer(_shard_lm(torch, attention_impl="pallas",
+                               max_seq_len=SHARD_LONG, dtype=dtype),
+                     optimizer=trainer.adamw(SHARD_LR), device="cuda")
+        state = tr.init()
+        state, m = tr.train_step(state, lm_batch(2, SHARD_LONG,
+                                                 SHARD_LM["vocab_size"]))
+        refs[dtype] = (float(m["loss"]),
+                       _norms(_shard_grads(state, SHARD_NORM_PARAMS)),
+                       _shard_grads(state, SHARD_GRAD_PARAMS))
+        del tr, state
+        torch.cuda.empty_cache()
+    ref_loss, ref_norms, _ = refs[torch.bfloat16]
+    f32_loss, f32_norms, f32_grads = refs[torch.float32]
+    for layout in ("contiguous", "zigzag"):
+        sched = attention.ring_flash_launches(SHARD_WORLD, layout)
+        for idx, r in enumerate(ranks):
+            got = r["seq_" + layout]
+            want_counts = dict.fromkeys(fa.launches, sched[idx] * layers)
+            for counts in (got["counts"], got["f32"]["counts"]):
+                if counts != want_counts:
+                    raise AssertionError(
+                        "ring_flash {} rank {} launched {}; the schedule "
+                        "wants {}".format(layout, idx, counts, want_counts))
+            if _rel(got["loss"], ref_loss) > SHARD_LOSS_RTOL:
+                raise AssertionError("ring_flash {} loss {} against {}".format(
+                    layout, got["loss"], ref_loss))
+            f32 = got["f32"]
+            if _rel(f32["loss"], f32_loss) > SHARD_F32_LOSS_RTOL:
+                raise AssertionError("ring_flash {} f32 loss {} against "
+                                     "{}".format(layout, f32["loss"],
+                                                 f32_loss))
+            bad = {n: (f32["norms"][n], v) for n, v in f32_norms.items()
+                   if _rel(f32["norms"][n], v) > SHARD_F32_GRAD_RTOL}
+            for n, ref in f32_grads.items():
+                err = float((f32["grads"][n] - ref).abs().max()
+                            / ref.abs().max())
+                if err > SHARD_F32_GRAD_RTOL:
+                    bad[n] = err
+            if bad:
+                raise AssertionError("ring_flash {} f32 gradients: "
+                                     "{}".format(layout, bad))
+        g = ranks[0]["seq_" + layout]
+        worst = max(ref_norms, key=lambda n: _rel(g["norms"][n],
+                                                  ref_norms[n]))
+        f32_worst = max(
+            [_rel(g["f32"]["norms"][n], v) for n, v in f32_norms.items()]
+            + [float((g["f32"]["grads"][n] - ref).abs().max()
+                     / ref.abs().max()) for n, ref in f32_grads.items()])
+        log("shard  (b) seq=2 ring_flash {} b2 s{}: bf16 loss {:.5f} against "
+            "one rank {:.5f} (gradient norms read up to {:.2e} apart, {}); "
+            "f32 loss {:.6f} against {:.6f}, gradients and norms within "
+            "{:.2e}; B1 launches a rank {} (schedule {} a layer); step ms "
+            "{}; collective bytes sent a rank {}".format(
+                layout, SHARD_LONG, g["loss"], ref_loss,
+                _rel(g["norms"][worst], ref_norms[worst]), worst,
+                g["f32"]["loss"], f32_loss, f32_worst,
+                [r["seq_" + layout]["counts"]["flash_fwd"] for r in ranks],
+                sched, ["{:.1f}".format(r["seq_" + layout]["ms"])
+                        for r in ranks], g["traffic"]["bytes"]))
+
+    # (c)
+    for r in ranks:
+        errs = [_rel(a, b) for a, b in zip(r["fsdp"]["losses"],
+                                           r["data"]["losses"])]
+        if max(errs) > SHARD_LOSS_RTOL:
+            raise AssertionError("fsdp losses {} against data {}".format(
+                r["fsdp"]["losses"], r["data"]["losses"]))
+        if not (r["fsdp"]["param_bytes"] < 0.6 * r["data"]["param_bytes"]
+                and r["fsdp"]["opt_bytes"] < 0.6 * r["data"]["opt_bytes"]):
+            raise AssertionError("fsdp holds {} / {} bytes against data's "
+                                 "{} / {}".format(
+                                     r["fsdp"]["param_bytes"],
+                                     r["fsdp"]["opt_bytes"],
+                                     r["data"]["param_bytes"],
+                                     r["data"]["opt_bytes"]))
+    log("shard  (c) a rank, data=2 / fsdp=2: parameter bytes {} / {}, "
+        "optimizer bytes {} / {}, peak bytes {} / {}; step ms {} / {}; "
+        "losses {} / {}".format(
+            ranks[0]["data"]["param_bytes"], ranks[0]["fsdp"]["param_bytes"],
+            ranks[0]["data"]["opt_bytes"], ranks[0]["fsdp"]["opt_bytes"],
+            [r["data"]["peak_bytes"] for r in ranks],
+            [r["fsdp"]["peak_bytes"] for r in ranks],
+            ["{:.1f}".format(x) for x in ranks[0]["data"]["ms"]],
+            ["{:.1f}".format(x) for x in ranks[0]["fsdp"]["ms"]],
+            ranks[0]["data"]["losses"], ranks[0]["fsdp"]["losses"]))
+
+    # (d)
+    model = factory.get_model("resnet50", dtype=torch.float32,
+                              device="cuda", seed=0)
+    tr = Trainer(model, optimizer=trainer.sgd(0.1, momentum=0.9),
+                 device="cuda")
+    state = tr.init()
+    state, m = tr.train_step(state, _resnet_batch(8))
+    ref_loss = float(m["loss"])
+    worst = 0.0
+    for name, ref in state.model_state.items():
+        ref = ref.detach().cpu()
+        for r in ranks:
+            if not torch.equal(r["bn"]["stats"][name],
+                               ranks[0]["bn"]["stats"][name]):
+                raise AssertionError("running statistic {} differs between "
+                                     "ranks".format(name))
+        err = float((ranks[0]["bn"]["stats"][name] - ref).abs().max()
+                    / max(float(ref.abs().max()), 1e-6))
+        worst = max(worst, err)
+    if worst > SHARD_BN_RTOL or _rel(ranks[0]["bn"]["loss"],
+                                     ref_loss) > SHARD_BN_RTOL:
+        raise AssertionError("global BatchNorm: loss {} against {}, running "
+                             "statistics off by {:.2e}".format(
+                                 ranks[0]["bn"]["loss"], ref_loss, worst))
+    log("shard  (d) ResNet-50 f32 data=2 global BatchNorm b8 64px: loss "
+        "{:.6f} against one process {:.6f}; running statistics equal on "
+        "both ranks, {:.2e} of the largest from one process".format(
+            ranks[0]["bn"]["loss"], ref_loss, worst))
+    del tr, state, model
+    torch.cuda.empty_cache()
+    ring_block_checks(torch, fa)
+    launches = dict.fromkeys(fa.launches, 0)
+    for r in ranks:
+        for n, c in r["launches"].items():
+            launches[n] += c
+    log("shard  phase {:.1f} s (ranks {:.1f} s) on {}; B1-B3 launches of "
+        "both ranks {}".format(time.perf_counter() - t0, group_s, card,
+                               launches))
+    return launches
+
+
 # -- HTTP ----------------------------------------------------------------------
 
 _CLIENT = r"""
@@ -3742,6 +4220,7 @@ def main():
                              "{}".format(fa.launches))
     cluster_launches = cluster_phase(torch, fa, card)
     recover_launches = recover_phase(torch, fa, card)
+    shard_launches = shard_phase(torch, fa, card)
     toy_model = toy_greedy_phase(torch)
     full_width_teacher_forced(torch)
     http_phase(torch, toy_model)
@@ -3759,7 +4238,7 @@ def main():
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
             launches=flash_launches[name] + cluster_launches[name]
-            + recover_launches[name],
+            + recover_launches[name] + shard_launches[name],
             **flash_times[name]))
     # B5's row: one launch of a stage-1 block, the mean of its two (K1
     # without, K3 with the prologue); B6's: the stage-1 block's K2.

@@ -6,7 +6,8 @@ torch.Tensor}``:
 
 * ``params_from_flax(params, cfg)`` for
   :class:`~tensorflowonspark_tpu_torch.models.transformer.TransformerLM`,
-  whose kernels keep flax's layouts: a renaming;
+  whose kernels keep flax's layouts: a renaming; ``params_for_mesh``
+  converts them full and keeps this rank's shards over a mesh;
 * ``resnet_params_from_flax(variables, model)`` for the port's ResNets:
   ``params`` and ``batch_stats`` together, conv kernels HWIO -> OIHW;
 * ``fused_block_params_from_jax(params)`` for
@@ -76,6 +77,18 @@ def params_from_flax(params, cfg):
         out[name.replace("/", ".")] = torch.from_numpy(
             np.array(arr, dtype=np.float32, order="C"))
     return out
+
+
+def params_for_mesh(params, model, mesh, rules=None):
+    """The flax ``params`` of a ``TransformerLM`` laid out for ``mesh``:
+    converted full (:func:`params_from_flax`), then cut to this rank's
+    shard of each parameter as ``Trainer.init`` lays them out
+    (``parallel.sharding.ModelSharding``). ``model`` is the port's model
+    with full parameters; it names the layout and is left as it is."""
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    full = params_from_flax(params, model.cfg)
+    return sharding.ModelSharding(model, mesh, rules).local_state_dict(full)
 
 
 def _check_names(have, want, what):

@@ -183,7 +183,7 @@ class DataFeed:
         """True once the feeder signalled end-of-feed."""
         return self.done_feeding
 
-    def sync_batches(self, batch_size, example=None):
+    def sync_batches(self, batch_size, example=None, mesh=None):
         """Yield ``(arrays, mask)`` batches, kept in lockstep across an SPMD
         multi-process runtime.
 
@@ -201,10 +201,24 @@ class DataFeed:
         ``example``: optional dict/array giving the per-item shapes+dtypes,
         needed only for the corner where a worker must emit a zero batch
         before it ever saw a real one.
+
+        ``mesh``: a ``ProcessMesh`` whose ``seq x tensor`` groups hold the
+        same rows. Each round every rank's fed ``(arrays, mask)`` goes to
+        its ``seq x tensor`` peers (over the CPU control group), and each
+        rank yields the peers' batches concatenated in rank order: ranks
+        that differ only in ``seq`` or ``tensor`` hold the same rows, and
+        the ranks' rows in rank order make the global batch, as the JAX
+        package's process-local batches make its global array. A rank is
+        then handed ``batch_size x seq x tensor`` rows a round.
         """
         from tensorflowonspark_tpu_torch.parallel import multihost
 
         multi = multihost.is_multiprocess()
+        if mesh is not None and multi and mesh.axis_size("seq", "tensor") > 1:
+            peers = mesh.ranks_with(("seq", "tensor"))
+            for arrays, mask in self.sync_batches(batch_size, example):
+                yield _concat_peers(arrays, mask, peers)
+            return
         # Template = {name: (shape, dtype)} structs; zero arrays are built
         # lazily on the rare round that actually needs one.
         template = _struct_of(example, batch_size) if example is not None else None
@@ -287,6 +301,30 @@ class DataFeed:
                     self.done_feeding = True
             except _queue_mod.Empty:
                 done = True
+
+
+def _concat_peers(arrays, mask, peers):
+    """Every rank's ``(arrays, mask)``, those of ``peers`` concatenated in
+    rank order (an all-gather over the CPU control group)."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel import multihost
+
+    mine = (arrays, mask)
+    everyone = [None] * multihost.process_count()
+    dist.all_gather_object(everyone, mine, group=multihost.control_group())
+    parts = [everyone[r] for r in peers]
+
+    def cat(values):
+        if isinstance(values[0], dict):
+            return {k: np.concatenate([v[k] for v in values])
+                    for k in values[0]}
+        if isinstance(values[0], (list, tuple)):
+            return type(values[0])(cat([v[i] for v in values])
+                                   for i in range(len(values[0])))
+        return np.concatenate(values)
+
+    return cat([a for a, _ in parts]), np.concatenate([m for _, m in parts])
 
 
 def _struct_of(arrays, batch_size):

@@ -24,7 +24,13 @@ What flax does that torch's own layers do not, and this module does:
   biased ``E[x^2] - E[x]^2`` clipped at 0, for normalising and for the
   running variance alike (torch keeps an unbiased running variance);
   ``running = 0.9 * running + 0.1 * batch``; scale and bias f32; the
-  output cast to the model dtype.
+  output cast to the model dtype. Under a mesh whose batch axes (``data x
+  fsdp``) exceed 1 the statistics are the global batch's, as the JAX
+  package's are (its batch is one global array): each rank sums ``x`` and
+  ``x^2`` over its rows, the sums and the row count go through one
+  all-reduce over the batch group whose backward is the all-reduce of the
+  cotangents, and every rank moves the running statistics by the same
+  global values.
 * Initial values: he-normal conv kernels and lecun-normal head (both
   truncated normals, as ``jax.nn.initializers``), the last norm of each v1
   residual branch with scale zero, the shortcut conv and norm only where
@@ -46,6 +52,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tensorflowonspark_tpu_torch import device_info
+from tensorflowonspark_tpu_torch.parallel import collectives as coll
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowonspark_tpu_torch.initializers import truncated_normal_
 
 
@@ -99,10 +107,14 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         xf = x.float()
-        if self.training:
+        group = _batch_group() if self.training else None
+        if group is not None:
+            mean, var = _global_stats(xf, group)
+        elif self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                                   0.0)
+        if self.training:
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean
                                 + (1 - self.momentum) * mean)
@@ -113,6 +125,31 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(self.dtype)
+
+
+def _batch_group():
+    """The ambient mesh's batch group (None without a mesh or at size 1)."""
+    mesh = mesh_lib.current_mesh()
+    if mesh is None:
+        return None
+    (entry,) = mesh_lib.resolve_spec(mesh.shape, ("batch",),
+                                     mesh_lib.active_rules())
+    return mesh.group(*mesh_lib.spec_axes(entry))
+
+
+def _global_stats(xf, group):
+    """Global-batch ``E[x]`` and biased ``E[x^2] - E[x]^2`` (clipped at 0)
+    per channel: the rank's sums and element count, summed over
+    ``group`` by one differentiable all-reduce."""
+    c = xf.shape[1]
+    count = torch.full((1,), float(xf.numel() // c), dtype=torch.float32,
+                       device=xf.device)
+    sums = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                      count])
+    sums = coll.all_reduce(sums, group)
+    n = sums[-1]
+    mean = sums[:c] / n
+    return mean, torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
 
 
 class Dense(nn.Module):

@@ -29,6 +29,21 @@ zero-relayout path (``transformer.py:554-577``): the projections emit
 head-major ``(b, h, s, d)`` q/k/v, the flash kernels (B1 forward, B2/B3
 backward) take them as they are, and the output projection contracts the
 head-major result.
+
+Sharded (``parallel.sharding.ModelSharding.shard_model``, which the
+``Trainer`` applies under a mesh): :meth:`TransformerLM.param_axes` gives
+the JAX model's logical axes. Parameters over ``fsdp`` are gathered before
+each use; over ``tensor`` the attention and MLP blocks are Megatron's
+column/row-parallel pair on ``h / tensor`` heads and ``mlp / tensor``
+columns (the input's gradient summed over the tensor group, the output
+summed forward), and the embedding is vocab-parallel: the lookup sums the
+rank's rows over the tensor group, and the weight-tied head emits this
+rank's vocab slab of the logits, for ``train.losses``' vocab-parallel
+cross-entropy. Tensor-group sums run in f32. Under a ``seq`` axis each rank
+holds its chunk of the sequence: positions are offset by the chunk's start
+(or ride ``ring_layout="zigzag"``'s permutation), packed positions are
+derived from the whole row's segment ids, and attention runs the
+sequence-parallel route the config names.
 """
 
 import dataclasses
@@ -43,6 +58,9 @@ from tensorflowonspark_tpu_torch.initializers import truncated_normal_
 from tensorflowonspark_tpu_torch.ops import attention as attention_ops
 from tensorflowonspark_tpu_torch.ops import flash_attention
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa_ops
+from tensorflowonspark_tpu_torch.parallel import collectives as coll
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+from tensorflowonspark_tpu_torch.parallel.sharding import weight
 # Re-exported beside _kv_quantize, where the JAX package keeps both; the
 # plain paged walk in ops owns it so that ops never imports models.
 from tensorflowonspark_tpu_torch.ops.paged_attention import (  # noqa: F401
@@ -53,10 +71,11 @@ from tensorflowonspark_tpu_torch.ops.paged_attention import (  # noqa: F401
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields and validation as the JAX ``TransformerConfig``;
-    ``dtype`` is a torch dtype. The port runs ``attention_impl`` ``"dense"``
-    and ``"pallas"`` (the flash kernels), ``decode_attention`` ``"dense"``
-    and ``"chunked"`` and ``ring_layout="contiguous"``; the
-    sequence-parallel implementations are ROADMAP A10.
+    ``dtype`` is a torch dtype. The port runs every ``attention_impl``:
+    ``"dense"``, ``"pallas"`` (the flash kernels), and the
+    sequence-parallel ``"ring"``, ``"ring_flash"`` (the flash kernels on
+    every ring step) and ``"ulysses"``, with ``ring_layout`` ``"contiguous"``
+    or ``"zigzag"``; ``decode_attention`` ``"dense"`` and ``"chunked"``.
     ``paged_attention_impl`` takes only ``"pallas"``, the kernel route: the
     paged step always launches the ``ops.paged_attention`` kernel, and the
     lax composition the JAX package also offers is not ported — the port
@@ -237,7 +256,15 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return x.to(self.dtype) @ weight(self, "kernel").to(self.dtype)
+
+
+def _tp_sum(y, group):
+    """Row-parallel output: the tensor group's partial products summed in
+    f32 forward (identity backward), in the model dtype."""
+    if group is None:
+        return y
+    return coll.reduce_from_group(y.float(), group).to(y.dtype)
 
 
 class QKVProj(nn.Module):
@@ -253,9 +280,10 @@ class QKVProj(nn.Module):
     def forward(self, x, head_major=False):
         cfg = self.cfg
         b, s, _ = x.shape
-        w = self.kernel.to(cfg.dtype).reshape(cfg.embed_dim, -1)
-        qkv = (x.to(cfg.dtype) @ w).view(b, s, 3, cfg.num_heads,
-                                         cfg.head_dim)
+        w = weight(self, "kernel").to(cfg.dtype)
+        h = w.shape[2]
+        w = w.reshape(cfg.embed_dim, -1)
+        qkv = (x.to(cfg.dtype) @ w).view(b, s, 3, h, cfg.head_dim)
         if head_major:
             return qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -273,8 +301,10 @@ class QProj(nn.Module):
     def forward(self, x, head_major=False):
         cfg = self.cfg
         b, s, _ = x.shape
-        w = self.kernel.to(cfg.dtype).reshape(cfg.embed_dim, -1)
-        q = (x.to(cfg.dtype) @ w).view(b, s, cfg.num_heads, cfg.head_dim)
+        w = weight(self, "kernel").to(cfg.dtype)
+        h = w.shape[1]
+        w = w.reshape(cfg.embed_dim, -1)
+        q = (x.to(cfg.dtype) @ w).view(b, s, h, cfg.head_dim)
         return q.transpose(1, 2).contiguous() if head_major else q
 
 
@@ -290,8 +320,10 @@ class KVProj(nn.Module):
     def forward(self, x, head_major=False):
         cfg = self.cfg
         b, s, _ = x.shape
-        w = self.kernel.to(cfg.dtype).reshape(cfg.embed_dim, -1)
-        kv = (x.to(cfg.dtype) @ w).view(b, s, 2, cfg.kv_heads, cfg.head_dim)
+        w = weight(self, "kernel").to(cfg.dtype)
+        h_kv = w.shape[2]
+        w = w.reshape(cfg.embed_dim, -1)
+        kv = (x.to(cfg.dtype) @ w).view(b, s, 2, h_kv, cfg.head_dim)
         if head_major:
             return kv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         return kv[:, :, 0], kv[:, :, 1]
@@ -300,7 +332,10 @@ class KVProj(nn.Module):
 class OutProj(nn.Module):
     """Attention output projection, ``kernel`` (embed, embed); takes the
     natural (b, s, embed) attention output or, with ``head_major``, the (b,
-    h, s, d) one."""
+    h, s, d) one. Row-parallel under tensor parallelism: this rank's heads'
+    rows, the partial products summed over the tensor group."""
+
+    tp_group = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -309,12 +344,16 @@ class OutProj(nn.Module):
 
     def forward(self, out, head_major=False):
         if head_major:
-            b, _, s, _ = out.shape
-            out = out.transpose(1, 2).reshape(b, s, self.cfg.embed_dim)
-        return out.to(self.cfg.dtype) @ self.kernel.to(self.cfg.dtype)
+            b, h, s, d = out.shape
+            out = out.transpose(1, 2).reshape(b, s, h * d)
+        y = out.to(self.cfg.dtype) @ weight(self, "kernel").to(self.cfg.dtype)
+        return _tp_sum(y, self.tp_group)
 
 
 class Attention(nn.Module):
+
+    # The tensor group under tensor parallelism (None: all heads here).
+    tp_group = None
 
     def __init__(self, cfg):
         super().__init__()
@@ -330,6 +369,9 @@ class Attention(nn.Module):
                 seq_lens=None, cache=None):
         cfg = self.cfg
         attention_ops.check_impl(cfg.attention_impl, cfg.ring_layout)
+        if self.tp_group is not None:
+            # Column-parallel projections: x's gradient sums over the group.
+            x = coll.copy_to_group(x, self.tp_group)
         # The flash route's zero-relayout path: head-major projections in,
         # head-major attention output into the output projection.
         head_major = cfg.attention_impl == "pallas" and not decode
@@ -351,7 +393,7 @@ class Attention(nn.Module):
             out = attention_ops.causal_attention(
                 q, k, v, impl=cfg.attention_impl, segment_ids=segment_ids,
                 ring_layout=cfg.ring_layout)
-        out = out.reshape(out.shape[:2] + (cfg.embed_dim,))
+        out = out.reshape(out.shape[:2] + (-1,))
         return self.out(out)
 
     def _decode_step(self, q, k, v, cache, pages, seq_lens):
@@ -426,14 +468,20 @@ class Attention(nn.Module):
 
 class MLPBlock(nn.Module):
 
+    # The tensor group under tensor parallelism (None: all columns here).
+    tp_group = None
+
     def __init__(self, cfg):
         super().__init__()
         self.up = Dense(cfg.embed_dim, cfg.mlp_dim, cfg.dtype)
         self.down = Dense(cfg.mlp_dim, cfg.embed_dim, cfg.dtype)
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = coll.copy_to_group(x, self.tp_group)
         # flax nn.gelu defaults to the tanh approximation.
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        y = self.down(F.gelu(self.up(x), approximate="tanh"))
+        return _tp_sum(y, self.tp_group)
 
 
 class Block(nn.Module):
@@ -462,7 +510,13 @@ class Block(nn.Module):
 
 class Embed(nn.Module):
     """``nn.Embed``: ``embedding`` (vocab, embed); lookups and the tied
-    head (:meth:`attend`) run in the model dtype."""
+    head (:meth:`attend`) run in the model dtype. Vocab-parallel under
+    tensor parallelism: this rank holds rows ``[vocab_start, vocab_start +
+    rows)`` of the table, a lookup sums the group's rows (each token's row
+    lives on one rank), and :meth:`attend` emits that slab of the logits."""
+
+    tp_group = None
+    vocab_start = 0
 
     def __init__(self, cfg):
         super().__init__()
@@ -471,12 +525,22 @@ class Embed(nn.Module):
                                                   cfg.embed_dim))
 
     def forward(self, tokens):
-        # Gather, then cast: the same values as flax's cast-then-gather,
-        # without casting the whole table per call.
-        return self.embedding[tokens].to(self.dtype)
+        table = weight(self, "embedding")
+        if self.tp_group is None:
+            # Gather, then cast: the same values as flax's
+            # cast-then-gather, without casting the whole table per call.
+            return table[tokens].to(self.dtype)
+        local = tokens.long() - self.vocab_start
+        rows = table.shape[0]
+        valid = (local >= 0) & (local < rows)
+        picked = table[local.clamp(0, rows - 1)] * valid[..., None]
+        return coll.reduce_from_group(picked.float(),
+                                      self.tp_group).to(self.dtype)
 
     def attend(self, x):
-        return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
+        if self.tp_group is not None:
+            x = coll.copy_to_group(x, self.tp_group)
+        return x.to(self.dtype) @ weight(self, "embedding").to(self.dtype).t()
 
 
 class TransformerLM(nn.Module):
@@ -516,6 +580,89 @@ class TransformerLM(nn.Module):
     def device(self):
         return self.pos_embed.device
 
+    def param_axes(self):
+        """The JAX model's logical axes of every sharded parameter
+        (``transformer.py``'s ``with_logical_partitioning`` annotations);
+        layer norms are replicated."""
+        axes = {"embed.embedding": ("vocab", None),
+                "pos_embed": (None, "embed")}
+        for i in range(self.cfg.num_layers):
+            p = "block_{}.".format(i)
+            if self.cfg.kv_heads == self.cfg.num_heads:
+                axes[p + "attn.qkv.kernel"] = ("embed", None, "heads",
+                                               "head_dim")
+            else:
+                axes[p + "attn.q.kernel"] = ("embed", "heads", "head_dim")
+                axes[p + "attn.kv.kernel"] = ("embed", None, "heads",
+                                              "head_dim")
+            axes[p + "attn.out.kernel"] = ("heads", "embed")
+            axes[p + "mlp.up.kernel"] = ("embed", "mlp")
+            axes[p + "mlp.down.kernel"] = ("mlp", "embed")
+        return axes
+
+    # The dimension each tensor-parallel parameter may shard over tensor.
+    _TENSOR_DIMS = {"embed.embedding": 0, "attn.qkv.kernel": 2,
+                    "attn.q.kernel": 1, "attn.kv.kernel": 2,
+                    "attn.out.kernel": 0, "mlp.up.kernel": 1,
+                    "mlp.down.kernel": 0}
+
+    def apply_sharding(self, sharding):
+        """Point the modules at ``sharding`` (a ``ModelSharding`` whose
+        shards this model now holds), or back to full parameters (None):
+        fsdp gathers per parameter, the tensor group of the attention and
+        MLP blocks, the embedding's vocab slab."""
+        modules = dict(self.named_modules())
+        for module in modules.values():
+            for attr in ("_gathers", "tp_group", "vocab_start"):
+                module.__dict__.pop(attr, None)
+        self._sharding = sharding
+        self._mesh = None if sharding is None else sharding.mesh
+        if sharding is None:
+            return
+        cfg = self.cfg
+        tensor = sharding.mesh.shape["tensor"]
+        for name in sharding.layouts:
+            path, _, attr = name.rpartition(".")
+            module = modules[path]
+            if sharding.fsdp_sharded(name):
+                gathers = module.__dict__.setdefault("_gathers", {})
+                gathers[attr] = (lambda p, n=name: sharding.gather(n, p))
+            dims = sharding.tensor_dims(name)
+            if not dims:
+                continue
+            key = name.split(".", 1)[1] if name.startswith("block_") \
+                else name
+            if dims != [self._TENSOR_DIMS.get(key, -1)]:
+                raise NotImplementedError(
+                    "{}: tensor parallelism over dims {} (rules {}); the "
+                    "port's TransformerLM shards heads, mlp and vocab "
+                    "only".format(name, dims, sharding.rules))
+        for i, block in enumerate(self.blocks()):
+            attn = block.attn
+            attn_kernel = "block_{}.attn.{}.kernel".format(
+                i, "qkv" if cfg.kv_heads == cfg.num_heads else "q")
+            if sharding.tensor_dims(attn_kernel):
+                for h in (cfg.num_heads, cfg.kv_heads):
+                    if h % tensor:
+                        raise ValueError(
+                            "tensor={} does not divide the {} attention "
+                            "heads".format(tensor, h))
+                attn.tp_group = attn.out.tp_group = sharding.tensor_group
+            if sharding.tensor_dims("block_{}.mlp.up.kernel".format(i)):
+                if cfg.mlp_dim % tensor:
+                    raise ValueError("tensor={} does not divide mlp_dim "
+                                     "{}".format(tensor, cfg.mlp_dim))
+                block.mlp.tp_group = sharding.tensor_group
+        if sharding.tensor_dims("embed.embedding"):
+            self.embed.tp_group = sharding.tensor_group
+            self.embed.vocab_start = sharding.tensor_slab(
+                "embed.embedding", 0)[0]
+
+    def vocab_slab(self):
+        """``(tensor group, start)`` of the logits this model emits: the
+        group is None when they span the whole vocabulary."""
+        return self.embed.tp_group, self.embed.vocab_start
+
     def blocks(self):
         return [getattr(self, "block_{}".format(i))
                 for i in range(self.cfg.num_layers)]
@@ -537,13 +684,59 @@ class TransformerLM(nn.Module):
 
     def _forward(self, tokens, segment_ids, decode, positions, pages,
                  seq_lens, cache):
-        cfg = self.cfg
-        if cfg.ring_layout != "contiguous":
+        mesh = getattr(self, "_mesh", None)
+        if mesh is None:
+            return self._forward_local(tokens, segment_ids, decode,
+                                       positions, pages, seq_lens, cache)
+        if decode:
             raise NotImplementedError(
-                "ring_layout={!r} is not ported yet (ROADMAP A10)".format(
-                    cfg.ring_layout))
+                "decode on a sharded model: serve the full parameters "
+                "(CheckpointManager.restore_variables)")
+        with mesh_lib.use_mesh(mesh):
+            return self._forward_local(tokens, segment_ids, decode,
+                                       positions, pages, seq_lens, cache)
+
+    def _seq_positions(self, seq_len, segment_ids, positions):
+        """Positions of this rank's chunk under a seq axis, or None
+        (without one, or when ``positions`` came with the batch)."""
+        cfg = self.cfg
+        group = attention_ops.seq_group()
+        n = coll.size(group)
+        if n == 1 or positions is not None:
+            return positions
+        full = seq_len * n
+        if full > cfg.max_seq_len:
+            raise ValueError(
+                "sequence length {} exceeds max_seq_len {}".format(
+                    full, cfg.max_seq_len))
+        idx = coll.rank(group)
+        chunk = slice(idx * seq_len, (idx + 1) * seq_len)
+        if segment_ids is not None:
+            if cfg.ring_layout == "zigzag":
+                raise ValueError(
+                    "packed zigzag rows need explicit positions: the "
+                    "zigzag permutation applies to them too "
+                    "(ops.attention.zigzag_layout on data.packing's "
+                    "positions)")
+            row = coll.gather_cat(segment_ids.contiguous(), group, 1)
+            return _packed_positions(row)[:, chunk]
+        pos = torch.arange(full, device=segment_ids.device
+                           if segment_ids is not None else self.device)
+        if cfg.ring_layout == "zigzag":
+            pos = attention_ops.zigzag_layout(pos, n, axis=0)
+        return pos[chunk][None]
+
+    def _forward_local(self, tokens, segment_ids, decode, positions, pages,
+                       seq_lens, cache):
+        cfg = self.cfg
+        if decode and cfg.ring_layout == "zigzag":
+            raise NotImplementedError(
+                "decode mode requires ring_layout='contiguous'")
         seq_len = tokens.shape[1]
+        if not decode:
+            positions = self._seq_positions(seq_len, segment_ids, positions)
         x = self.embed(tokens)
+        pos_embed = weight(self, "pos_embed")
         if decode:
             if positions is not None:
                 raise NotImplementedError(
@@ -561,14 +754,14 @@ class TransformerLM(nn.Module):
             # a decode horizon's junk steps past a row's budget reach them,
             # and their outputs are never emitted.
             pos = torch.clamp_max(seq_lens.long(), cfg.max_seq_len - 1)
-            x = x + self.pos_embed[pos][:, None, :].to(cfg.dtype)
+            x = x + pos_embed[pos][:, None, :].to(cfg.dtype)
         elif decode:
             pos = cache["position"]
             if pos + seq_len > cfg.max_seq_len:
                 raise ValueError(
                     "decode position {} + {} tokens exceeds max_seq_len "
                     "{}".format(pos, seq_len, cfg.max_seq_len))
-            x = x + self.pos_embed[pos:pos + seq_len][None].to(cfg.dtype)
+            x = x + pos_embed[pos:pos + seq_len][None].to(cfg.dtype)
             cache["position"] = pos + seq_len
         else:
             if seq_len > cfg.max_seq_len:
@@ -576,15 +769,27 @@ class TransformerLM(nn.Module):
                     "sequence length {} exceeds max_seq_len {}".format(
                         seq_len, cfg.max_seq_len))
             if positions is None and segment_ids is not None:
+                if cfg.ring_layout == "zigzag":
+                    raise ValueError(
+                        "packed zigzag rows need explicit positions: the "
+                        "zigzag permutation applies to them too "
+                        "(ops.attention.zigzag_layout on data.packing's "
+                        "positions)")
                 positions = _packed_positions(segment_ids)
             if positions is None:
-                x = x + self.pos_embed[:seq_len][None].to(cfg.dtype)
+                # A one-rank zigzag permutation is the identity.
+                x = x + pos_embed[:seq_len][None].to(cfg.dtype)
             else:
-                x = x + self.pos_embed[positions.long()].to(cfg.dtype)
+                x = x + pos_embed[positions.long()].to(cfg.dtype)
         remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks()):
             if remat:
-                x = checkpoint(block, x, segment_ids, use_reentrant=False)
+                # Every rank recomputes the whole block, collectives
+                # included, in one order: no early stop.
+                with torch.utils.checkpoint.set_checkpoint_early_stop(
+                        False):
+                    x = checkpoint(block, x, segment_ids,
+                                   use_reentrant=False)
                 continue
             layer_cache = None if cache is None else cache[
                 "block_{}".format(i)]

@@ -117,7 +117,8 @@ def lockstep(batches, zero=None):
     collective. This wraps a local batch iterator so that exhausted
     processes keep yielding *zero batches* (all-zero copies of the last
     real batch, or of ``zero``) until every process agrees it is done.
-    Single-process: a plain passthrough.
+    Single-process: a plain passthrough. The agreement runs over every
+    process: all ranks of any mesh step together.
     """
     if not is_multiprocess():
         for b in batches:
@@ -168,7 +169,12 @@ def lockstep(batches, zero=None):
 
 
 def process_batch_size(global_batch_size, mesh=None):
-    """This process's share of a global batch size."""
+    """The rows this process is fed of a global batch: ``global /
+    processes``, as in the JAX package, whatever the mesh. Over a mesh
+    with ``tensor`` or ``seq`` above 1, ``DataFeed.sync_batches(...,
+    mesh=)`` concatenates the fed rows of each ``seq x tensor`` group, so
+    that a rank holds ``global / (data x fsdp)`` rows and the ranks'
+    rows make the global batch, in rank order."""
     procs = process_count()
     if global_batch_size % procs:
         raise ValueError(

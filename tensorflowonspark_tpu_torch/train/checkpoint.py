@@ -19,12 +19,19 @@ names only, so temporary and ``.force-backup-<step>`` directories are
 never steps. When to save and which steps ``max_to_keep`` deletes follow
 orbax's ``CheckpointManager`` (:class:`_StepStore`).
 
-Under a multi-process runtime (``torch.distributed``, data parallel) the
-save is collective, as the JAX package's is: every rank calls
-:meth:`CheckpointManager.save` with its (identical) replica, every rank
-makes the same save decision, rank 0 alone writes the step and its
-marker, and a barrier on the CPU group stands on each side of the commit,
-so that no rank goes on to read a half-committed step.
+Under a multi-process runtime (``torch.distributed``) the save is
+collective, as the JAX package's is: every rank calls
+:meth:`CheckpointManager.save`, every rank makes the same save decision,
+rank 0 alone writes the step and its marker, and a barrier on the CPU
+group stands on each side of the commit, so that no rank goes on to read a
+half-committed step. A state whose parameters are sharded over a mesh
+(``TrainState.sharding``) is written whole: every rank takes part in
+gathering each parameter and each of its optimizer moments to the full
+tensor, and the step holds the same full tree an unsharded run writes. A
+restore cuts each rank's shards out of the full tree, so a step saved
+under one mesh restores under any other (``fsdp=2, tensor=2`` and
+``data=1`` alike), and :meth:`CheckpointManager.restore_variables` serves
+it as it is.
 """
 
 import contextlib
@@ -218,16 +225,19 @@ class _StepStore:
             return False
         return step % self._interval == 0 or not self._steps
 
-    def save(self, step, snapshot, force=False):
+    def save(self, step, snapshot, force=False, collective=False):
         """Write ``snapshot()`` (the three objects of a step) as ``step``;
-        returns whether a save was made."""
+        returns whether a save was made. ``collective``: every rank calls
+        ``snapshot`` (a sharded state's gather), the writer keeps it."""
         if not force and not self.should_save(step):
             return False
         self.wait_until_finished()
         if step in self._steps:
             raise StepAlreadyExistsError(
                 "Checkpoint for step {} already exists.".format(step))
-        objs = snapshot() if self._writer else None
+        objs = snapshot() if self._writer or collective else None
+        if not self._writer:
+            objs = None
         if not self._async:
             self._write(step, objs)  # a failed write leaves the list alone
         self._steps.append(step)
@@ -399,7 +409,7 @@ class CheckpointManager:
         try:
             saved = self._mgr.save(
                 step, lambda: _snapshot(state, clone=self._async),
-                force=force)
+                force=force, collective=state.sharding is not None)
         except BaseException:
             if rewriting:
                 self._restore_backup(step, backup)
@@ -661,6 +671,10 @@ class CheckpointManager:
                 )
                 return state
             raise
+        if state.sharding is not None:
+            params = state.sharding.local_state_dict(params)
+            opt_state = _optimizer_tree(state, opt_state,
+                                        state.sharding.local)
         with torch.no_grad():
             _copy_into(state.params, params, "params")
             _copy_into(state.model_state, model_state, "model_state")
@@ -691,7 +705,30 @@ class CheckpointManager:
 def _snapshot(state, clone):
     """The three objects of a step: parameters, buffers and optimizer state
     on the host. ``clone``: copy even CPU tensors (an async save must not
-    see the live tensors' later updates)."""
-    return (_host(dict(state.params), clone),
+    see the live tensors' later updates). A sharded state's parameters and
+    moments are gathered to full tensors first (collective)."""
+    params, opt_state = dict(state.params), state.optimizer.state_dict()
+    if state.sharding is not None:
+        params = state.sharding.full_state_dict(params)
+        opt_state = _optimizer_tree(state, opt_state, state.sharding.full)
+    return (_host(params, clone),
             _host(dict(state.model_state), clone),
-            _host(state.optimizer.state_dict(), clone))
+            _host(opt_state, clone))
+
+
+def _optimizer_tree(state, opt_state, fn):
+    """``opt_state`` with every per-parameter tensor shaped like its
+    parameter's shard (or full tensor) passed through ``fn(name, t)``:
+    the optimizer numbers parameters in ``state.params`` order."""
+    names = list(state.params)
+    out = dict(opt_state)
+    out["state"] = {}
+    for idx, per in opt_state["state"].items():
+        name = names[idx]
+        layout = state.sharding.layouts[name]
+        shard = state.params[name]
+        out["state"][idx] = {
+            k: fn(name, v) if isinstance(v, torch.Tensor) and v.dim()
+            and tuple(v.shape) in (tuple(shard.shape), layout.shape) else v
+            for k, v in per.items()}
+    return out

@@ -97,7 +97,9 @@ class DevicePrefetch:
     has a thread-safe ``close()``, closes it too, so a producer blocked
     inside the source unwinds. ``placer`` defaults to a
     :class:`BatchPlacer` for ``device`` (the card unless ``"cpu"`` is
-    asked for).
+    asked for). ``Trainer.fit`` passes the trainer's
+    ``parallel.mesh.BatchPlacer``, which also cuts the rank's sequence
+    chunk out of each batch of its rows.
     """
 
     def __init__(self, source, depth=2, placer=None, device="cuda"):

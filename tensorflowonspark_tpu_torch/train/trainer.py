@@ -11,15 +11,18 @@ place with each forward, in microbatch order, as the scan carries
 ``model_state``. :meth:`Trainer.fit` is the overlapped loop: device
 prefetch, asynchronous metrics and checkpoints.
 
-``mesh=MeshConfig(data=-1).build()`` trains data-parallel over the
-``torch.distributed`` process group, one replica a process (see
-:meth:`Trainer.train_step`); any other mesh axis, ``rules``, and a model
-with BatchNorm under ``data > 1`` (the JAX package takes its statistics
-over the global batch) are the later part of ROADMAP A10. The persistent
-compile cache is ROADMAP A12; ``donate`` has no meaning without XLA
-buffers.
+``mesh=MeshConfig(data=, fsdp=, seq=, tensor=).build()`` trains over the
+``torch.distributed`` process group, one device a process, as the JAX
+``Trainer`` trains over the same mesh: the batch shards over ``data x
+fsdp``, parameters and optimizer state over ``fsdp`` and ``tensor``
+through the logical-axis ``rules`` (:mod:`..parallel.sharding`), and the
+sequence over ``seq``. BatchNorm takes global-batch statistics
+(``models/resnet.py``). See :meth:`Trainer.train_step` for the reduction.
+The persistent compile cache is ROADMAP A12; ``donate`` has no meaning
+without XLA buffers.
 """
 
+import contextlib
 import dataclasses
 import inspect
 import logging
@@ -30,8 +33,10 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import device_info, telemetry
+from tensorflowonspark_tpu_torch.parallel import collectives as coll
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowonspark_tpu_torch.parallel import multihost
+from tensorflowonspark_tpu_torch.parallel import sharding as sharding_lib
 from tensorflowonspark_tpu_torch.train import checkpoint as checkpoint_lib
 from tensorflowonspark_tpu_torch.train import losses as losses_lib
 from tensorflowonspark_tpu_torch.train import metrics as metrics_lib
@@ -73,7 +78,11 @@ class TrainState:
     objects, by ``state_dict`` name), the optimizer over them, and the
     model's buffers by ``state_dict`` name (``model_state``: BatchNorm's
     running statistics, the counterpart of the JAX
-    ``model_state["batch_stats"]``; empty for the transformer).
+    ``model_state["batch_stats"]``; empty for the transformer). Under a
+    mesh that shards parameters, ``params`` and the optimizer's moments
+    are this rank's shards and ``sharding`` (a
+    :class:`~tensorflowonspark_tpu_torch.parallel.sharding.ModelSharding`)
+    maps them to the full tensors checkpoints hold.
 
     Where the JAX state is an immutable pytree, ``train_step`` updates these
     tensors, the buffers and the optimizer's moments in place and returns a
@@ -84,6 +93,7 @@ class TrainState:
     params: dict
     optimizer: torch.optim.Optimizer
     model_state: dict = dataclasses.field(default_factory=dict)
+    sharding: object = None
 
 
 class Trainer:
@@ -97,46 +107,65 @@ class Trainer:
     ``device="cpu"`` is passed; under a process group it is this rank's
     device (``ctx.device`` after ``ctx.initialize_distributed()``).
 
-    ``mesh``: a :class:`~tensorflowonspark_tpu_torch.parallel.mesh.DataMesh`
-    (``MeshConfig(data=-1).build()``, the default as in the JAX package)
-    or its ``MeshConfig``. With a data axis above 1 every process holds
-    one replica and feeds its own local batch; :meth:`init` broadcasts
-    rank 0's weights, and :meth:`train_step` all-reduces the gradients so
-    that the step is the JAX step on the global batch. ``eval_step`` and
-    ``predict`` run on the rank's own batch.
+    ``mesh``: a :class:`~tensorflowonspark_tpu_torch.parallel.mesh.
+    ProcessMesh` (``MeshConfig(...).build()``; the default
+    ``MeshConfig().build()`` is data-parallel, as in the JAX package) or
+    its ``MeshConfig``; ``rules``: the logical-axis rules (default
+    ``DEFAULT_RULES``). A batch handed to a step holds this rank's rows
+    (the global batch's rows of its ``data x fsdp`` coordinate; ranks
+    that differ only in ``tensor`` or ``seq`` hold the same rows) at the
+    full sequence length; the step cuts the rank's sequence chunk
+    (:attr:`batch_placer`). :meth:`init` broadcasts rank 0's weights and
+    then keeps each rank's shard. ``eval_step`` returns the global-batch
+    loss and this rank's outputs (its rows and chunk, all of the
+    vocabulary); ``predict`` this rank's outputs.
     """
 
     def __init__(self, model, optimizer=None, mesh=None, rules=None,
                  loss_fn=None, input_key="x", label_key="y",
                  model_kwargs=None, grad_accum=1, remat=False,
                  input_fn=None, compile_cache=None, device="cuda"):
-        if rules is not None:
-            raise NotImplementedError(
-                "rules: logical-axis sharding is the later part of ROADMAP "
-                "A10; the port's mesh has a data axis only")
         if mesh is None:
             mesh = mesh_lib.MeshConfig().build()
         elif isinstance(mesh, mesh_lib.MeshConfig):
             mesh = mesh.build()
-        if not isinstance(mesh, mesh_lib.DataMesh):
-            raise NotImplementedError(
-                "mesh {!r}: only the data-parallel mesh of "
-                "MeshConfig(data=...).build() is ported; sharded meshes are "
-                "the later part of ROADMAP A10".format(type(mesh).__name__))
-        self.mesh = mesh
-        # The data-parallel degree: one replica a process.
-        self.data_parallel = mesh.data
-        if self.data_parallel != multihost.process_count():
+        if not isinstance(mesh, mesh_lib.ProcessMesh):
+            raise TypeError("mesh must be a MeshConfig or its built "
+                            "ProcessMesh, got {!r}".format(mesh))
+        if mesh.size != multihost.process_count():
             raise ValueError(
-                "mesh data axis {} does not match the {} process(es) of "
-                "the group".format(self.data_parallel,
-                                   multihost.process_count()))
-        if self.data_parallel > 1 and any(
-                "BatchNorm" in type(m).__name__ for m in model.modules()):
+                "mesh {} spans {} processes; the group has {}".format(
+                    mesh.shape, mesh.size, multihost.process_count()))
+        self.mesh = mesh
+        self.rules = rules or mesh_lib.DEFAULT_RULES
+        shape = mesh.shape
+        (batch,) = mesh_lib.resolve_spec(shape, ("batch",), self.rules)
+        (seq,) = mesh_lib.resolve_spec(shape, ("sequence",), self.rules)
+        batch_axes = mesh_lib.spec_axes(batch)
+        seq_axes = mesh_lib.spec_axes(seq)
+        if not set(batch_axes) <= {"data", "fsdp"} or \
+                not set(seq_axes) <= {"seq"}:
             raise NotImplementedError(
-                "BatchNorm under data > 1: the JAX package takes the "
-                "statistics over the global batch; the port does not yet "
-                "(ROADMAP A10, global-batch BatchNorm)")
+                "rules shard the batch over {} and the sequence over {}; "
+                "the port's trainer takes data/fsdp and seq".format(
+                    batch_axes, seq_axes))
+        if shape["fsdp"] > 1 and "fsdp" not in batch_axes:
+            raise NotImplementedError(
+                "fsdp={} with a batch that does not shard over fsdp "
+                "(rules {!r})".format(shape["fsdp"], self.rules["batch"]))
+        if shape["seq"] > 1 and not hasattr(model, "param_axes"):
+            raise NotImplementedError(
+                "seq={}: {} takes no sequence chunks".format(
+                    shape["seq"], type(model).__name__))
+        # Each rank's loss is its summand of the global loss over these
+        # axes; tensor ranks compute the same summand.
+        loss_axes = batch_axes + seq_axes
+        self._loss_group = mesh.group(*loss_axes)
+        # An fsdp-gathered parameter's gradient arrives summed over fsdp
+        # (the gather's reduce-scatter); the rest still needs that sum.
+        self._sharded_grad_group = mesh.group(
+            *(a for a in loss_axes if a != "fsdp"))
+        self._sharding = None
         if compile_cache is not None:
             raise NotImplementedError(
                 "compile_cache is not ported (ROADMAP A12)")
@@ -145,9 +174,8 @@ class Trainer:
         self.device = device_info.resolve_device(device)
         self.model = model
         self.optimizer_factory = optimizer or adam(1e-3)
-        self.loss_fn = loss_fn or (
-            lambda out, batch: losses_lib.softmax_cross_entropy(
-                out, batch[label_key], batch.get("mask")))
+        self.label_key = label_key
+        self.loss_fn = loss_fn or self._cross_entropy
         self.input_key = input_key
         # Optional input transform applied before the model (e.g. uint8
         # pixels to scaled floats on the device).
@@ -165,14 +193,35 @@ class Trainer:
         self._has_positions_kwarg = "positions" in params
         self._placer = None
 
+    def _cross_entropy(self, out, batch):
+        """The default loss: softmax cross-entropy, vocab-parallel when the
+        model's logits are a tensor group's slabs."""
+        slab = getattr(self.model, "vocab_slab", None)
+        group, start = slab() if slab is not None else (None, 0)
+        if group is None:
+            return losses_lib.softmax_cross_entropy(
+                out, batch[self.label_key], batch.get("mask"))
+        return losses_lib.vocab_parallel_cross_entropy(
+            out, batch[self.label_key], group, start, batch.get("mask"))
+
     @property
     def batch_placer(self):
-        """The trainer's batch placement, shared with ``DevicePrefetch`` by
-        :meth:`fit`: a prefetched batch's tensors already lie on the
-        trainer's device, and ``train_step`` takes them without a copy."""
+        """The trainer's batch placement (a ``parallel.mesh.BatchPlacer``:
+        the rank's sequence chunk cut, tensors on the trainer's device),
+        shared with ``DevicePrefetch`` by :meth:`fit`: a prefetched batch
+        passes through ``train_step`` without a second placement."""
         if self._placer is None:
-            self._placer = prefetch_lib.BatchPlacer(self.device)
+            self._placer = mesh_lib.BatchPlacer(self.mesh, self.rules,
+                                                self.device)
         return self._placer
+
+    def _scope(self):
+        """The ambient mesh and rules of a step (``jax.set_mesh`` and
+        ``use_rules`` in the JAX trainer)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mesh_lib.use_mesh(self.mesh))
+        stack.enter_context(mesh_lib.use_rules(self.rules))
+        return stack
 
     # -- init ---------------------------------------------------------------
 
@@ -184,29 +233,40 @@ class Trainer:
         model then moves to the trainer's device."""
         if seed is not None and params is not None:
             raise ValueError("init takes seed or params, not both")
+        if self._sharding is not None:
+            # A second init starts from the full parameters again.
+            self._sharding.unshard_model(self.model)
+            self._sharding = None
         if params is not None:
             self.model.load_state_dict(params)
         elif seed is not None:
             self.model.reset_parameters(seed)
         self.model.to(self.device)
-        if self.data_parallel > 1:
+        if self.mesh.size > 1:
             # Identical replicas: every rank takes rank 0's weights and
-            # buffers (the optimizer state is made fresh below, alike).
+            # buffers (the optimizer state is made fresh below, alike),
+            # then keeps its own shard of each sharded parameter.
             by_dtype = {}
             for t in self.model.state_dict().values():
                 by_dtype.setdefault(t.dtype, []).append(t)
             for tensors in by_dtype.values():
                 _broadcast_from_rank0(tensors)
+            self._sharding = sharding_lib.ModelSharding(
+                self.model, self.mesh, self.rules)
+            self._sharding.shard_model(self.model)
         named = dict(self.model.named_parameters())
         return TrainState(step=0, params=named,
                           optimizer=self.optimizer_factory(
                               list(named.values())),
-                          model_state=dict(self.model.named_buffers()))
+                          model_state=dict(self.model.named_buffers()),
+                          sharding=self._sharding)
 
     # -- steps --------------------------------------------------------------
 
     def _place(self, batch):
-        return {key: torch.as_tensor(val, device=self.device)
+        batch = self.batch_placer(batch)
+        return {key: val if isinstance(val, torch.Tensor)
+                else torch.as_tensor(val, device=self.device)
                 for key, val in batch.items()}
 
     def _normalize_batch(self, batch):
@@ -274,26 +334,32 @@ class Trainer:
         (MoE is ROADMAP A11). After the step each parameter's ``.grad``
         holds the gradient it applied.
 
-        Data-parallel (a mesh with ``data > 1``), ``batch`` is this rank's
-        local batch and the step is the JAX step on the global batch, the
-        ranks' batches concatenated: the masked mean over the global batch
+        Over a mesh of more than one process, ``batch`` holds this rank's
+        rows (see the class docstring) and the step is the JAX step on the
+        global batch: the masked mean over the global batch's tokens
         divides by ``max(global mask sum, 1)``. Each rank back-propagates
         its masked *sum* (its masked mean times its mask sum, each
-        microbatch's as a weight under ``grad_accum``); one SUM all-reduce
-        carries the gradients, the weighted losses and the mask sums; the
-        sums of gradients and losses are divided by the global mask sum
-        (``max(., 1)``, or ``1e-6`` under ``grad_accum`` as the JAX scan
-        clamps). A rank on a lockstep zero batch (mask all 0) adds nothing
-        and counts nothing, where averaging local means (plain DDP) would
-        count its zero mean and halve the step. Without a mask each
-        (micro)batch weighs 1."""
+        microbatch's as a weight under ``grad_accum``) — its own summand
+        of the global loss, which ranks of a tensor group share. The
+        collectives inside the model (fsdp gathers, whose backward sums
+        over fsdp; the tensor pairs; the ring's exchanges) deliver each
+        rank the gradient of the summands it touched; then one SUM
+        all-reduce over the ``data x fsdp x seq`` group (``data x seq``
+        for fsdp-gathered shards) sums the gradients, and the losses and
+        mask sums are summed alike; gradients and loss are divided by
+        the global mask sum (``max(., 1)``, or ``1e-6`` under
+        ``grad_accum`` as the JAX scan clamps). A rank on a lockstep zero
+        batch (mask all 0) adds nothing and counts nothing, where
+        averaging local means (plain DDP) would count its zero mean and
+        halve the step. Without a mask each (micro)batch weighs 1."""
         batch = self._normalize_batch(self._place(batch))
         state.optimizer.zero_grad(set_to_none=True)
         was_training = self.model.training
         self.model.train()
         try:
-            if self.data_parallel > 1:
-                loss = self._data_parallel_backward(state, batch)
+            if self.mesh.size > 1:
+                with self._scope():
+                    loss = self._sharded_backward(state, batch)
             elif self.grad_accum == 1:
                 loss = self._backward(batch)
             else:
@@ -310,7 +376,7 @@ class Trainer:
             return batch["mask"].sum().float()
         return torch.ones((), dtype=torch.float32, device=self.device)
 
-    def _data_parallel_backward(self, state, batch):
+    def _sharded_backward(self, state, batch):
         micro = ([batch] if self.grad_accum == 1
                  else self._microbatches(batch))
         local_loss = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -319,20 +385,29 @@ class Trainer:
             w = self._weight(mb)
             local_loss = local_loss + self._backward(mb, w) * w
             local_w = local_w + w
-        params = list(state.params.values())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        flat = torch.cat([g.reshape(-1).float() for g in grads]
-                         + [local_loss.reshape(1), local_w.reshape(1)])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        total = torch.clamp_min(flat[-1],
+        sums = coll.sum_(torch.stack([local_loss, local_w]),
+                         self._loss_group)
+        total = torch.clamp_min(sums[1],
                                 1.0 if self.grad_accum == 1 else 1e-6)
-        offset = 0
-        for p, g in zip(params, grads):
-            n = g.numel()
-            p.grad = (flat[offset:offset + n] / total).view_as(p).to(p.dtype)
-            offset += n
-        return flat[-2] / total
+        sharding = state.sharding
+        buckets = {}
+        for name, p in state.params.items():
+            gathered = sharding is not None and sharding.fsdp_sharded(name)
+            group = self._sharded_grad_group if gathered \
+                else self._loss_group
+            buckets.setdefault(id(group), (group, []))[1].append(p)
+        for group, params in buckets.values():
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            flat = coll.sum_(torch.cat([g.reshape(-1).float()
+                                        for g in grads]), group)
+            offset = 0
+            for p, g in zip(params, grads):
+                n = g.numel()
+                p.grad = (flat[offset:offset + n] / total).view_as(p).to(
+                    p.dtype)
+                offset += n
+        return sums[0] / total
 
     def _accumulate(self, micro):
         """Backward through each microbatch with weight w_i / sum(w): w_i is
@@ -351,28 +426,55 @@ class Trainer:
     def eval_step(self, state, batch):
         """Forward pass and loss without parameter updates: ``{"loss",
         "outputs"}``. The weights are the model's, which ``state.params``
-        names."""
+        names. Over a mesh the loss is the global batch's masked mean and
+        the outputs this rank's rows and sequence chunk over the whole
+        vocabulary."""
         batch = self._normalize_batch(self._place(batch))
         was_training = self.model.training
         self.model.eval()
         try:
-            out = self._outputs(batch)
-            return {"loss": self.loss_fn(out, batch), "outputs": out}
+            with self._scope():
+                out = self._outputs(batch)
+                loss = self.loss_fn(out, batch)
+                if self.mesh.size > 1:
+                    w = self._weight(batch)
+                    loss = losses_lib.global_masked_mean(
+                        loss * w, w, self._loss_group)
+                return {"loss": loss, "outputs": self._whole_vocab(out)}
         finally:
             self.model.train(was_training)
 
     @torch.no_grad()
     def predict(self, state, inputs):
-        """Model outputs for a raw input array (no loss)."""
-        x = torch.as_tensor(inputs, device=self.device)
+        """Model outputs for a raw input array (no loss): over a mesh,
+        ``inputs`` are this rank's rows at the full sequence length and
+        the outputs its rows and chunk over the whole vocabulary."""
+        x = self.batch_placer(torch.as_tensor(inputs))
         if self.input_fn is not None:
             x = self.input_fn(x)
         was_training = self.model.training
         self.model.eval()
         try:
-            return self.model(x, **self.model_kwargs)
+            with self._scope():
+                return self._whole_vocab(self.model(x, **self.model_kwargs))
         finally:
             self.model.train(was_training)
+
+    def _whole_vocab(self, out):
+        """Vocab-parallel logits gathered over the tensor group (slabs
+        padded to the first slab's width, the padding dropped)."""
+        slab = getattr(self.model, "vocab_slab", None)
+        group = slab()[0] if slab is not None else None
+        if group is None:
+            return out
+        vocab = self.model.cfg.vocab_size
+        layout = self._sharding.layouts["embed.embedding"]
+        width = layout.chunk[0] * (self.mesh.shape["fsdp"]
+                                   if "fsdp" in layout.spec[0] else 1)
+        if out.shape[-1] < width:
+            out = torch.nn.functional.pad(out, (0, width - out.shape[-1]))
+        return coll.gather_cat(out.contiguous(), group,
+                               out.dim() - 1)[..., :vocab]
 
     # -- training loop ------------------------------------------------------
 

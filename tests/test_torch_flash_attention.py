@@ -263,12 +263,14 @@ def test_dispatcher_routes_pallas_and_rejects_sequence_parallel():
                                        segment_ids=seg)
     # Flash and dense sum in other orders: measured 3.6e-7.
     np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=2e-6)
-    for impl in ("ring", "ring_flash", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            attention.causal_attention(q, k, v, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        attention.causal_attention(q, k, v, impl="ring_flash",
-                                   ring_layout="zigzag")
+    # Without a seq group the sequence-parallel routes are dense (the JAX
+    # dispatcher's degenerate fallback); tests/test_torch_ring_attention.py
+    # holds them over a group.
+    for impl, layout in (("ring", "contiguous"), ("ring_flash", "contiguous"),
+                         ("ulysses", "contiguous"), ("ring_flash", "zigzag")):
+        got = attention.causal_attention(q, k, v, impl=impl, segment_ids=seg,
+                                         ring_layout=layout)
+        assert torch.equal(got, dense)
     with pytest.raises(ValueError, match="zigzag"):
         attention.causal_attention(q, k, v, impl="pallas",
                                    ring_layout="zigzag")

@@ -87,7 +87,9 @@ def _sources():
              os.path.join(ROOT, "scripts", "torch_block_ab.py"),
              os.path.join(ROOT, "scripts", "torch_flash_ab.py"),
              os.path.join(ROOT, "scripts", "torch_paged_ab.py"),
-             os.path.join(ROOT, "tests", "torch_cluster_programs.py")]
+             os.path.join(ROOT, "scripts", "torch_shard_run.py"),
+             os.path.join(ROOT, "tests", "torch_cluster_programs.py"),
+             os.path.join(ROOT, "tests", "torch_shard_programs.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

@@ -226,14 +226,24 @@ def test_device_info_never_guesses_on_the_cpu():
 
 
 def test_unported_impls_raise():
-    """The sequence-parallel implementations are not ported; ``"pallas"``
-    (the flash kernels) is, and ``tests/test_torch_trainer.py`` holds it."""
+    """The sequence-parallel implementations are ported: without a seq
+    axis they run dense attention, as the JAX dispatcher falls back, so
+    the model equals the dense one (``tests/test_torch_sharded_trainer.py``
+    holds them over a mesh); zigzag is a ring_flash layout only."""
+    tokens = torch.arange(1, 9, dtype=torch.int64)[None]
+    dense = factory.get_model("transformer", device="cpu",
+                              attention_impl="dense", dtype=torch.float32,
+                              **LM_KW)(tokens)
     for impl in ("ring", "ring_flash", "ulysses"):
         tm = factory.get_model("transformer", device="cpu",
                                attention_impl=impl, dtype=torch.float32,
                                **LM_KW)
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tm(torch.zeros((1, 4), dtype=torch.int64))
+        assert torch.equal(tm(tokens), dense)
+    tm = factory.get_model("transformer", device="cpu",
+                           attention_impl="ulysses", ring_layout="zigzag",
+                           dtype=torch.float32, **LM_KW)
+    with pytest.raises(ValueError, match="ring_flash schedule"):
+        tm(tokens)
 
 
 # (cache_len, cache index i, s_step, kv heads): one chunk and several, a

@@ -47,6 +47,7 @@ from tensorflowonspark_tpu.parallel import MeshConfig
 from tensorflowonspark_tpu.train import Trainer as JaxTrainer
 from tensorflowonspark_tpu.train import losses as jax_losses
 from tensorflowonspark_tpu_torch import convert
+from tensorflowonspark_tpu_torch.parallel import MeshConfig as PortMeshConfig
 from tensorflowonspark_tpu_torch.models import factory
 from tensorflowonspark_tpu_torch.train import (
     Trainer,
@@ -433,10 +434,14 @@ def test_losses_match_jax():
 
 def test_unported_arguments_raise_and_the_card_is_the_default():
     model = _port_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(TypeError, match="MeshConfig"):
         Trainer(model, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Trainer(model, rules=(), device="cpu")
+        Trainer(model, mesh=PortMeshConfig(data=1, pipe=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        Trainer(model, mesh=PortMeshConfig(data=1, expert=2), device="cpu")
+    rules = dict(trainer.mesh_lib.DEFAULT_RULES, mlp=None)
+    assert Trainer(model, rules=rules, device="cpu").rules is rules
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         Trainer(model, compile_cache="cache", device="cpu")
     with pytest.raises(ValueError, match="grad_accum"):

@@ -287,3 +287,45 @@ def retry_if_first(iterator):
     if os.environ["TPU_FRAMEWORK_EXECUTOR_IDX"] == "0":
         raise backend.RetryTask("wrong executor")
     return ["ran"]
+
+
+def train_lm_tensor_parallel(args, ctx):
+    """Tensor-parallel LM training through the feed (``args["mesh"]``,
+    e.g. ``{"data": 1, "tensor": 2}``): ``sync_batches(..., mesh=)``
+    hands the ranks of a ``seq x tensor`` group the same rows (their fed
+    rows concatenated), and ``Trainer.fit`` trains the sharded model on
+    them. Each rank records the batches it trained on and its losses."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig, multihost
+    from tensorflowonspark_tpu_torch.train import trainer as trainer_lib
+
+    torch.set_num_threads(1)
+    ctx.initialize_distributed(device="cpu")
+    rank = multihost.process_index()
+    mesh = MeshConfig(**args["mesh"]).build()
+    tr = trainer_lib.Trainer(_lm(args, ctx.device),
+                             optimizer=trainer_lib.adamw(args["lr"]),
+                             mesh=mesh, device=ctx.device)
+    state = tr.init(params=torch.load(args["init"], weights_only=True))
+    seen = []
+
+    def batches():
+        df = ctx.get_data_feed(train_mode=True)
+        example = np.zeros((1, args["seq"] + 1), np.int64)
+        for arrays, mask in df.sync_batches(args["batch_size"],
+                                            example=example, mesh=mesh):
+            b = _lm_batch(arrays, mask)
+            seen.append(b)
+            yield b
+
+    state, history = tr.fit(state, batches(), flush_every=1)
+    out = os.path.join(args["outdir"], "rank{}".format(rank))
+    np.savez(out + "_batches.npz", **{
+        "{}_{}".format(k, i): v for i, b in enumerate(seen)
+        for k, v in b.items()})
+    _dump(out + ".json", {
+        "steps": len(seen), "losses": [h["loss"] for h in history],
+        "backend": ctx.distributed_backend,
+        "forbidden": forbidden_modules()})
+    multihost.shutdown()
