@@ -15,9 +15,10 @@ calls and fails (non-zero exit) if any phase fails:
                called twice and held bitwise equal to itself), and the
                flash-attention forward,
                dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
-               GQA, f32, ragged (s 1000) and non-causal rectangular, and at
+               GQA, f32, ragged (s 1000) and non-causal rectangular, at
                GPT-2-small's width split into head widths 32 and 128 (SDPA's
-               forward, and its backward alone, timed at each width);
+               forward, and its backward alone, timed at each width), and
+               at the mesh paths' per-call batches b1, b2 and b4;
 3. serve    — ``ServingEngine`` at GPT-2-small width (bf16, random seeded
                weights, page_size 128, decode_horizon 1, no sharing, no
                preemption) serves mixed requests, once with a bf16 pool and
@@ -146,6 +147,32 @@ calls and fails (non-zero exit) if any phase fails:
                equal on both ranks; then B1-B3 at the ring's block shapes
                (a 512 x 512 zigzag stripe pair, a fully masked held
                block) against their plain versions;
+   moe      — ``bench.py``'s ``bench_moe`` model (GPT-2-small widths, 8
+               experts, every other layer MoE, flash route, b8 x s1024
+               bf16, AdamW 3e-4): (a) 4 steps through ``Trainer.train_step``,
+               losses falling, B1-B3 12 launches a step, the load-balance
+               term above 0 (its balance ``aux / (0.01 x 6)`` printed),
+               step 1's loss and gradient norms in bf16 against B1-B3's
+               plain versions on the card with routing teacher-forced
+               (the dense route read beside them), and in f32 against the
+               dense attention route, step ms, peak memory and a profiled
+               window; (b) the trained weights served
+               by a bf16 engine at horizon 8 and 1 on ``serve_default``'s
+               load: every request finished, no page left, B4 launched
+               decode calls x horizon x 12 times, horizon 8's streams
+               bitwise horizon 1's and solo decode's teacher-forced to near
+               ties; (c) ``expert=2`` over two gloo ranks on the card at 2
+               layers (layer 1 MoE): f32 step 1's loss and gradients
+               against one rank, bf16 losses falling, each rank holding
+               half of every expert weight;
+   pipe     — ``pipelined_transformer`` at GPT-2-small width, 4 layers,
+               b8 x s1024, flash route, over two gloo ranks on the card:
+               GPipe (2 stages) and interleaved (4 stages, 2 rounds), 4
+               microbatches each: f32 step 1's loss and gradients against
+               one rank on the same weights (the sequential path), bf16
+               losses falling, B1-B3 launches a rank = microbatches x local
+               layers a step, half of every stage parameter a rank, step
+               ms and collective bytes a rank;
 7. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry (horizon 1; and horizon 4 with a joining
                request, prefix sharers, a COW duplicate, a swap and a
@@ -154,10 +181,10 @@ calls and fails (non-zero exit) if any phase fails:
 8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The B1-B3 rows' ``launches`` add the executors' launches of the cluster,
-recover and shard phases (each executor resets its counts before its loop and
+recover, shard, moe and pipe phases (each executor resets its counts before its loop and
 reports them; a recover incarnation appends its counts to its audit log
 at every step, since a crashed one returns nothing) to the train
-phase's. The last two lines of standard output are the
+phase's; the B4 row adds the moe phase's serving. The last two lines of standard output are the
 ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. In the record, ``ms`` and ``library_ms``
 are device times (:func:`device_ms`: the call's kernels alone, timed with
@@ -166,6 +193,7 @@ the card held busy until the host has queued the call); ``call_ms`` and
 wrapper's host work included.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -603,9 +631,11 @@ def sdpa_yardsticks(torch, c):
 
 # name: (dtype kind, flash_case arguments). "ragged" and "full" reach the
 # partial last tile and the masked-tile path, and the non-causal schedule;
-# the last six split GPT-2-small's width 768 into heads of 32 and 128, the
-# kernels' other instances ("main_d32" and "main_d128" are timed beside
-# "main").
+# the six after them split GPT-2-small's width 768 into heads of 32 and
+# 128, the kernels' other instances ("main_d32" and "main_d128" are timed
+# beside "main"); the last three are the batch a call of the mesh paths
+# (b2: a pipe phase microbatch; b4: the moe phase's (c); b1: a microbatch
+# of torch_shard_run.py's pipe=4 cases).
 FLASH_CASES = [
     ("main", "bf16", dict(b=8, s=1024, h=12, h_kv=12, segments="none")),
     ("packed", "bf16", dict(b=8, s=1024, h=12, h_kv=12, segments="packed")),
@@ -628,6 +658,9 @@ FLASH_CASES = [
                             d=128)),
     ("d32f32", "f32", dict(b=4, s=1024, h=24, h_kv=24, segments="packed",
                            d=32)),
+    ("mb1", "bf16", dict(b=1, s=1024, h=12, h_kv=12, segments="none")),
+    ("mb2", "bf16", dict(b=2, s=1024, h=12, h_kv=12, segments="none")),
+    ("mb4", "bf16", dict(b=4, s=1024, h=12, h_kv=12, segments="none")),
 ]
 # The cases timed in flash_timings, by head width.
 FLASH_TIMED = {64: "main", 32: "main_d32", 128: "main_d128"}
@@ -3708,27 +3741,8 @@ def _resnet_batch(batch, seed=3):
 def shard_rank(rank, world, port, outdir):
     """One rank of the shard phase (top level: the spawned process
     re-imports this file). Runs cases (a)-(d) and saves its results."""
-    import traceback
-
-    import torch
-    import torch.distributed as dist
-
-    try:
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.cuda.set_device(0)
-        dist.init_process_group(
-            "gloo", init_method="tcp://127.0.0.1:{}".format(port),
-            world_size=world, rank=rank)
-        results = _shard_cases(torch, rank)
-        torch.save(results, os.path.join(outdir, "rank{}.pt".format(rank)))
-        dist.barrier()
-        dist.destroy_process_group()
-    except BaseException:
-        with open(os.path.join(outdir, "rank{}.err".format(rank)), "w") as f:
-            f.write(traceback.format_exc())
-        os._exit(1)
+    _gloo_rank(rank, world, port, outdir,
+               lambda torch: _shard_cases(torch, rank))
 
 
 def _shard_cases(torch, rank):
@@ -3890,37 +3904,6 @@ def ring_block_checks(torch, fa):
     return errs
 
 
-def _run_shard_group(torch, outdir):
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    procs = [ctx.Process(target=shard_rank, args=(r, SHARD_WORLD, port,
-                                                  outdir))
-             for r in range(SHARD_WORLD)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + 600
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    errors = [open(os.path.join(outdir, "rank{}.err".format(r))).read()
-              for r in range(SHARD_WORLD)
-              if os.path.exists(os.path.join(outdir, "rank{}.err".format(r)))]
-    if errors or any(p.exitcode != 0 for p in procs):
-        raise AssertionError("shard ranks failed (exit codes {}):\n{}".format(
-            [p.exitcode for p in procs], "\n".join(errors)))
-    return [torch.load(os.path.join(outdir, "rank{}.pt".format(r)),
-                       weights_only=False) for r in range(SHARD_WORLD)]
-
-
 def _rel(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
 
@@ -3944,7 +3927,7 @@ def shard_phase(torch, fa, card):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = _run_shard_group(torch, tmp)
+        ranks = _run_group(torch, shard_rank, tmp, SHARD_WORLD)
     group_s = time.perf_counter() - t0
     layers = SHARD_LM["num_layers"]
 
@@ -4111,6 +4094,563 @@ def shard_phase(torch, fa, card):
     return launches
 
 
+# -- every mesh axis: MoE and pipeline -----------------------------------------
+
+# bench.py:481-526 ``bench_moe``: GPT-2-small widths, 8 experts, every other
+# layer MoE (six of twelve), flash route, no remat, bf16 compute over f32
+# weights, AdamW 3e-4, b8 x s1024 of RandomState(0) tokens with y = x.
+MOE_LM = dict(GPT2_SMALL, num_experts=8, moe_every=2,
+              attention_impl="pallas")
+MOE_STEPS = 4
+# (c): two gloo ranks on the card under expert=2, GPT-2-small width at 2
+# layers (layer 1 MoE), b4 x s1024.
+MOE_SHARD_LM = dict(MOE_LM, num_layers=2)
+MOE_GRAD_PARAMS = ("embed.embedding", "block_1.moe.router.kernel",
+                   "block_0.attn.qkv.kernel", "ln_f.scale")
+# The pipe phase: two gloo ranks on the card, ``pipelined_transformer`` at
+# GPT-2-small width, 4 layers, b8 x s1024, flash route, no remat.
+PIPE_LM = dict(GPT2_SMALL, num_layers=4, attention_impl="pallas")
+PIPE_CASES = {"gpipe": dict(num_stages=2, num_microbatches=4),
+              "interleaved": dict(num_stages=4, num_rounds=2,
+                                  num_microbatches=4)}
+PIPE_GRAD_PARAMS = ("embed.embedding", "pos_embed", "ln_f.scale")
+AXES_WORLD = 2
+
+
+def _run_group(torch, target, outdir, world=AXES_WORLD, timeout=600):
+    """Run ``target(rank, world, port, outdir)`` on ``world`` spawned
+    ranks; returns each rank's saved results."""
+    import multiprocessing as mp
+    import socket
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=target, args=(r, world, port, outdir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = [open(os.path.join(outdir, "rank{}.err".format(r))).read()
+              for r in range(world)
+              if os.path.exists(os.path.join(outdir, "rank{}.err".format(r)))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError("ranks failed (exit codes {}):\n{}".format(
+            [p.exitcode for p in procs], "\n".join(errors)))
+    return [torch.load(os.path.join(outdir, "rank{}.pt".format(r)),
+                       weights_only=False) for r in range(world)]
+
+
+def _gloo_rank(rank, world, port, outdir, cases):
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method="tcp://127.0.0.1:{}".format(port),
+            world_size=world, rank=rank)
+        results = cases(torch)
+        torch.save(results, os.path.join(outdir, "rank{}.pt".format(rank)))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(outdir, "rank{}.err".format(rank)), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _mesh_steps(torch, name, kw, mesh_kw, dtype, batch, steps, grads=()):
+    """``steps`` train steps of ``name`` built from seed 0 under
+    ``mesh_kw`` (one rank when None): losses, aux losses, step ms by CUDA
+    events, each step's B1-B3 launches and collective bytes, the bytes of
+    each parameter held, and step 1's gradients of ``grads`` with their
+    norms."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig
+    from tensorflowonspark_tpu_torch.parallel import collectives as coll
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    model = factory.get_model(name, dtype=dtype, device="cuda", seed=0, **kw)
+    mesh = None if mesh_kw is None else MeshConfig(**mesh_kw).build()
+    tr = Trainer(model, optimizer=trainer.adamw(3e-4), mesh=mesh,
+                 device="cuda")
+    state = tr.init()
+    out = {"losses": [], "aux": [], "ms": [], "launches": [], "bytes": [],
+           "held": {k: p.numel() * p.element_size()
+                    for k, p in state.params.items()}}
+    for i in range(steps):
+        before = dict(fa.launches)
+        coll.reset_traffic()
+        stop = _timer(torch)
+        state, m = tr.train_step(state, batch)
+        out["ms"].append(stop())
+        out["losses"].append(float(m["loss"]))
+        out["aux"].append(float(m["aux_loss"]))
+        out["launches"].append({n: fa.launches[n] - before[n]
+                                for n in fa.launches})
+        out["bytes"].append(coll.traffic["bytes"])
+        if i == 0:
+            out["grads"] = _shard_grads(state, grads)
+            out["norms"] = _norms(out["grads"])
+    del tr, state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_rank_cases(torch):
+    batch = lm_batch(SHARD_BATCH, 1024, MOE_SHARD_LM["vocab_size"])
+    return {"f32": _mesh_steps(torch, "moe_transformer", MOE_SHARD_LM,
+                               dict(data=1, expert=2), torch.float32, batch,
+                               1, MOE_GRAD_PARAMS),
+            "bf16": _mesh_steps(torch, "moe_transformer", MOE_SHARD_LM,
+                                dict(data=1, expert=2), torch.bfloat16,
+                                batch, SHARD_STEPS)}
+
+
+def moe_rank(rank, world, port, outdir):
+    """One rank of the moe phase's (c) (top level: spawned ranks re-import
+    this file)."""
+    _gloo_rank(rank, world, port, outdir, _moe_rank_cases)
+
+
+def _pipe_rank_cases(torch):
+    batch = lm_batch(8, 1024, PIPE_LM["vocab_size"])
+    out = {}
+    for case, kw in PIPE_CASES.items():
+        kw = dict(PIPE_LM, **kw)
+        out[case] = {
+            "f32": _mesh_steps(torch, "pipelined_transformer", kw,
+                               dict(data=1, pipe=2), torch.float32, batch,
+                               1, PIPE_GRAD_PARAMS),
+            "bf16": _mesh_steps(torch, "pipelined_transformer", kw,
+                                dict(data=1, pipe=2), torch.bfloat16, batch,
+                                SHARD_STEPS)}
+    return out
+
+
+def pipe_rank(rank, world, port, outdir):
+    """One rank of the pipe phase (top level, as :func:`moe_rank`)."""
+    _gloo_rank(rank, world, port, outdir, _pipe_rank_cases)
+
+
+def _f32_against(label, got, ref):
+    """Step 1 in f32 of a rank against one rank: the loss, the gradient
+    norms and each gradient's largest difference over its largest value
+    (the shard phase's tolerances). Returns the worst relative error."""
+    if _rel(got["losses"][0], ref["losses"][0]) > SHARD_F32_LOSS_RTOL:
+        raise AssertionError("{} f32 loss {} against one rank's {}".format(
+            label, got["losses"][0], ref["losses"][0]))
+    errs = {n: _rel(got["norms"][n], v) for n, v in ref["norms"].items()}
+    for n, g in ref["grads"].items():
+        errs[n + " (max)"] = float((got["grads"][n] - g).abs().max()
+                                   / g.abs().max())
+    bad = {n: e for n, e in errs.items() if e > SHARD_F32_GRAD_RTOL}
+    if bad:
+        raise AssertionError("{} f32 gradients against one rank: "
+                             "{}".format(label, bad))
+    return max(errs.values())
+
+
+def _falling(label, losses):
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("{} losses not finite and falling: {}".format(
+            label, losses))
+
+
+def _halved(label, held, full, names):
+    for n in names:
+        if 2 * held[n] != full[n]:
+            raise AssertionError("{}: {} holds {} of {} bytes, not half"
+                                 .format(label, n, held[n], full[n]))
+    return sum(held[n] for n in names), sum(full[n] for n in names)
+
+
+class _routing:
+    """Teacher-forced routing of every MoE layer
+    (``models.moe._top_k_routing(picks=...)``): with no ``picks``, records
+    the top-k picks of each routing call, the argmax's own, so the step is
+    unchanged; with ``picks``, replays them in call order."""
+
+    def __init__(self, picks=None):
+        self.replay, self.picks = picks, []
+
+    def __enter__(self):
+        from tensorflowonspark_tpu_torch.models import moe
+
+        self.moe, self.orig = moe, moe._top_k_routing
+        replay = None if self.replay is None else iter(self.replay)
+
+        def route(probs, k, capacity):
+            if replay is not None:
+                picks = next(replay)
+            else:
+                remaining, picks = probs.detach(), []
+                for _ in range(k):
+                    idx = remaining.argmax(-1)
+                    picks.append(idx)
+                    remaining = remaining.scatter(-1, idx[..., None], 0.0)
+                self.picks.append(picks)
+            return self.orig(probs, k, capacity, picks=picks)
+
+        moe._top_k_routing = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k_routing = self.orig
+
+    def differ(self, other):
+        """Routing decisions (token x layer) whose picks differ."""
+        n = 0
+        for a, b in zip(self.picks, other.picks):
+            diff = a[0] != b[0]
+            for x, y in zip(a[1:], b[1:]):
+                diff |= x != y
+            n += int(diff.sum())
+        return n
+
+
+def _step_gate(label, loss, norms, dloss, dnorms, note=""):
+    """Raises unless the flash step's loss and gradient norms are within
+    ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_NORM_RTOL`` of the reference
+    step's."""
+    rel = _rel(loss, dloss)
+    norm_rel = {n: _rel(norms[n], v) for n, v in dnorms.items()}
+    log("moe    (a) step 1 {} flash: loss {:.6f} vs {:.6f} (rel "
+        "{:.2e}, limit {:g}); gradient norms rel {} (limit {:g}){}".format(
+            label, loss, dloss, rel, TRAIN_LOSS_RTOL,
+            {n: "{:.2e}".format(v) for n, v in norm_rel.items()},
+            TRAIN_GRAD_NORM_RTOL, note))
+    if rel > TRAIN_LOSS_RTOL or max(norm_rel.values()) > \
+            TRAIN_GRAD_NORM_RTOL:
+        raise AssertionError("moe step 1: flash and dense disagree in "
+                             "{}".format(label))
+
+
+@contextlib.contextmanager
+def _plain_flash(fa):
+    """B1-B3's plain versions for CUDA tensors too (the wrappers take them
+    only for CPU tensors): the kernels' own rounding points — f32 scores,
+    P rounded to bf16 for the PV product — on the card, launching
+    nothing."""
+    saved = fa._forward, fa._bwd_dq, fa._bwd_dkv
+
+    def fwd(q, k, v, q_seg, k_seg, lens, causal, block_q, block_k):
+        return fa.flash_forward_reference(q, k, v, q_seg, k_seg,
+                                          causal=causal,
+                                          block_k=block_k or fa.BLOCK)
+
+    def dq(q, k, v, do, lse, delta, q_seg, k_seg, lens, causal, block_q,
+           block_k):
+        return fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, q_seg,
+                                         k_seg, causal=causal,
+                                         block_k=block_k or fa.BLOCK)
+
+    def dkv(q, k, v, do, lse, delta, q_seg, k_seg, lens, causal, block_q,
+            block_k):
+        return fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, q_seg,
+                                          k_seg, causal=causal,
+                                          block_q=block_q or fa.BLOCK)
+
+    fa._forward, fa._bwd_dq, fa._bwd_dkv = fwd, dq, dkv
+    try:
+        yield
+    finally:
+        fa._forward, fa._bwd_dq, fa._bwd_dkv = saved
+
+
+def moe_step1_routes(torch, fa, initial, batch, flash_loss, flash_norms,
+                     flash_routing):
+    """Step 1 of ``bench_moe`` held to the flash step's loss and gradient
+    norms (``_step_gate``) from its initial weights: in bf16 through
+    B1-B3's plain versions on the card, routed by the flash step's picks
+    (teacher-forced: top-k, a discrete choice, would flip near-tie tokens
+    where the two round apart); in f32 through the dense attention route,
+    each step routing by its own argmax. The bf16 dense route, whose
+    scores round to bf16 where B1 keeps them f32, is read beside them.
+    Returns the f32 flash step's B1-B3 launches."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    def step1(dtype, impl, picks=None, plain=False):
+        model = factory.get_model("moe_transformer", dtype=dtype,
+                                  device="cuda", seed=0,
+                                  **dict(MOE_LM, attention_impl=impl))
+        model.load_state_dict(initial)
+        tr = Trainer(model, optimizer=trainer.adamw(3e-4), device="cuda")
+        before = dict(fa.launches)
+        with _routing(picks) as routing, \
+                (_plain_flash(fa) if plain else contextlib.nullcontext()):
+            state, m = tr.train_step(tr.init(), batch)
+        counts = {n: fa.launches[n] - before[n] for n in fa.launches}
+        out = (float(m["loss"]), grad_norms(state, MOE_GRAD_PARAMS),
+               routing, counts)
+        del model, tr, state
+        torch.cuda.empty_cache()
+        return out
+
+    picks = flash_routing.picks
+    ploss, pnorms, _, pcounts = step1(torch.bfloat16, "pallas", picks,
+                                      plain=True)
+    dloss, dnorms, _, dcounts = step1(torch.bfloat16, "dense", picks)
+    if any(pcounts.values()) or any(dcounts.values()):
+        raise AssertionError("the plain and dense steps launched {} and "
+                             "{}".format(pcounts, dcounts))
+    _step_gate("bf16", flash_loss, flash_norms, ploss, pnorms,
+               "; against B1-B3's plain versions, routing teacher-forced "
+               "to the flash step's picks; the dense route reads loss rel "
+               "{:.2e}, gradient norms rel {}".format(
+                   _rel(flash_loss, dloss),
+                   {n: "{:.2e}".format(_rel(flash_norms[n], v))
+                    for n, v in dnorms.items()}))
+    floss, fnorms, frouting, fcounts = step1(torch.float32, "pallas")
+    want = dict.fromkeys(fa.launches, MOE_LM["num_layers"])
+    if fcounts != want:
+        raise AssertionError("f32 flash step launched {}; want {}".format(
+            fcounts, want))
+    dloss, dnorms, drouting, _ = step1(torch.float32, "dense")
+    _step_gate("f32", floss, fnorms, dloss, dnorms,
+               "; against the dense route, each by its own routing, {} "
+               "decisions differ".format(frouting.differ(drouting)))
+    return dict(fcounts)
+
+
+def moe_phase(torch, fa, pa, card):
+    """Phase ``moe``: ``bench_moe``'s model (a) trained 4 steps on the
+    flash route, 12 B1-B3 launches a step, step 1 against B1-B3's plain
+    versions in bf16 (routing teacher-forced) and the dense route in f32
+    (``moe_step1_routes``), the load-balance
+    term above 0; (b) served by a bf16 engine at horizon
+    1 and at the defaults (horizon 8) on ``serve_default``'s load, B4
+    launches = decode calls x horizon x 12, horizon 8's streams equal
+    horizon 1's bitwise and solo decode teacher-forced to near ties; (c)
+    expert=2 over two gloo ranks on the card at 2 layers, f32 step 1
+    against one rank, bf16 losses falling, expert bytes a rank half.
+    Returns the B1-B3 launches of (a) and (c) and B4's of (b)."""
+    import gc
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # (a)
+    model = factory.get_model("moe_transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0, **MOE_LM)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tr = Trainer(model, optimizer=trainer.adamw(3e-4), device="cuda")
+    state = tr.init()
+    batch = lm_batch(8, 1024, MOE_LM["vocab_size"])
+    per_layer = dict.fromkeys(fa.launches, MOE_LM["num_layers"])
+    fa.reset_launches()
+    losses, aux, ms = [], [], []
+    for i in range(MOE_STEPS):
+        before = dict(fa.launches)
+        stop = _timer(torch)
+        if i == 0:
+            with _routing() as flash_routing:
+                state, m = tr.train_step(state, batch)
+        else:
+            state, m = tr.train_step(state, batch)
+        ms.append(stop())
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux_loss"]))
+        counts = {n: fa.launches[n] - before[n] for n in fa.launches}
+        if counts != per_layer:
+            raise AssertionError("moe step {} launched {}; want {}".format(
+                i, counts, per_layer))
+        if i == 0:
+            norms = grad_norms(state, MOE_GRAD_PARAMS)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    _falling("moe", losses)
+    if not all(np.isfinite(aux)) or min(aux) <= 0:
+        raise AssertionError("moe aux losses {}".format(aux))
+    moe_layers = MOE_LM["num_layers"] // MOE_LM["moe_every"]
+    balance = [a / (0.01 * moe_layers) for a in aux]
+    step_ms = float(np.median(ms[1:]))
+    log("moe    (a) bench_moe: GPT-2-small width, 8 experts, {} MoE layers, "
+        "b8 s1024 bf16 pallas adamw(3e-4): losses {} aux {} (balance "
+        "aux/(0.01 x {}) {}); B1-B3 {} a step; step {:.2f} ms median of "
+        "steps 2-{} ({} ms), {:.0f} tokens/s; peak {:.2f} GB; {}".format(
+            moe_layers, ["{:.4f}".format(x) for x in losses],
+            ["{:.5f}".format(x) for x in aux], moe_layers,
+            ["{:.4f}".format(x) for x in balance], MOE_LM["num_layers"],
+            step_ms, MOE_STEPS, ["{:.1f}".format(x) for x in ms],
+            8 * 1024 / step_ms * 1e3, peak / 2 ** 30, card))
+    profile_train_step(torch, tr, state, batch, label="moe b8 s1024 bf16",
+                       top_ops=8)
+    launches = {n: launches[n] + 2 * MOE_LM["num_layers"]
+                for n in launches}
+    if dict(fa.launches) != launches:
+        raise AssertionError("moe profiled steps launched {}; want "
+                             "{}".format(fa.launches, launches))
+    del tr, state
+    torch.cuda.empty_cache()
+    f32 = moe_step1_routes(torch, fa, initial, batch, losses[0], norms,
+                           flash_routing)
+    launches = {n: launches[n] + f32[n] for n in launches}
+    f32_launches = f32["flash_fwd"]
+    del initial
+    torch.cuda.empty_cache()
+
+    # (b) the trained weights served.
+    variables = decoding.serving_variables(model.state_dict(),
+                                           torch.bfloat16)
+    vocab = MOE_LM["vocab_size"]
+    rs = np.random.RandomState(0)
+    shapes = SERVE_DEFAULT_SHAPES
+    reqs = [(rs.randint(1, vocab, size=shapes[i % 4][0]).astype(np.int32),
+             shapes[i % 4][1]) for i in range(24)]
+    streams, b4 = {}, 0
+    for horizon in (8, 1):
+        engine = default_engine(model, variables, decode_horizon=horizon)
+        streams[horizon], _, d = serve_counted(torch, engine, pa,
+                                               submit_all(reqs))
+        st = engine.stats()
+        engine.close()
+        b4 += d["launches"]
+        log("moe    (b) serve horizon {}: requests 24 tokens {} decode calls "
+            "{} B4 launches {} (calls x {} x {}) decode tok/s {:.1f} "
+            "ttft_p50 {:.2f} ms ({})".format(
+                horizon, sum(n for _, n in reqs), d["decode_steps"],
+                d["launches"], horizon, MOE_LM["num_layers"],
+                d["decode_tokens"] / d["decode_seconds"], st["ttft_ms_p50"],
+                card))
+    if streams[8] != streams[1]:
+        bad = sum(a != b for a, b in zip(streams[8], streams[1]))
+        raise AssertionError("moe: {} of 24 horizon-8 streams differ from "
+                             "horizon 1".format(bad))
+    compared, stops, worst = _solo_teacher_forced(torch, model, reqs,
+                                                  streams[1])
+    log("moe    (b) 24 horizon-8 streams equal horizon 1 bitwise; against "
+        "solo decode teacher-forced: {} tokens, {} near-tie stops (largest "
+        "gap {:.1f} bf16 steps)".format(compared, stops, worst))
+    del model, variables
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) expert=2 over two gloo ranks on the card.
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _run_group(torch, moe_rank, tmp)
+    group_s = time.perf_counter() - t1
+    sbatch = lm_batch(SHARD_BATCH, 1024, MOE_SHARD_LM["vocab_size"])
+    ref = _mesh_steps(torch, "moe_transformer", MOE_SHARD_LM, None,
+                      torch.float32, sbatch, 1, MOE_GRAD_PARAMS)
+    experts = [n for n in ref["held"] if n.endswith(("w_up", "w_down"))]
+    worst = 0.0
+    for idx, r in enumerate(ranks):
+        worst = max(worst, _f32_against("expert=2 rank {}".format(idx),
+                                        r["f32"], ref))
+        _falling("expert=2 rank {}".format(idx), r["bf16"]["losses"])
+        held, full = _halved("expert=2 rank {}".format(idx),
+                             r["bf16"]["held"], ref["held"], experts)
+        want = dict.fromkeys(fa.launches, MOE_SHARD_LM["num_layers"])
+        for counts in r["f32"]["launches"] + r["bf16"]["launches"]:
+            if counts != want:
+                raise AssertionError("expert=2 launched {}; want {}".format(
+                    counts, want))
+        for n in launches:
+            launches[n] += sum(c[n] for c in r["f32"]["launches"]
+                               + r["bf16"]["launches"])
+        f32_launches += sum(c["flash_fwd"] for c in r["f32"]["launches"])
+    r0 = ranks[0]
+    log("moe    (c) expert=2 over gloo, 2 ranks on the card, GPT-2-small "
+        "width 2 layers b{} s1024: f32 step 1 loss {:.6f} against one rank "
+        "{:.6f}, gradients and norms within {:.2e}; bf16 losses {}; expert "
+        "bytes a rank {} of {}; step ms a rank {}; collective bytes a rank "
+        "a step {}; ranks {:.1f} s".format(
+            SHARD_BATCH, r0["f32"]["losses"][0], ref["losses"][0], worst,
+            ["{:.5f}".format(x) for x in r0["bf16"]["losses"]], held, full,
+            [["{:.1f}".format(x) for x in r["bf16"]["ms"]] for r in ranks],
+            r0["bf16"]["bytes"], group_s))
+    log("moe    phase {:.1f} s; B1-B3 launches {} (each: {} of the f32 "
+        "kernels, in the f32 steps), B4 {}".format(
+            time.perf_counter() - t0, launches, f32_launches, b4))
+    return launches, b4
+
+
+def pipe_phase(torch, fa, card):
+    """Phase ``pipe``: two gloo ranks on the card, the pipelined LM at
+    GPT-2-small width and 4 layers, b8 x s1024, GPipe (2 stages) and
+    interleaved (4 stages, 2 rounds), 4 microbatches: f32 step 1 against
+    one rank on the same weights (the sequential path), bf16 losses
+    falling, B1-B3 launches a rank = microbatches x local layers a step,
+    stage bytes a rank half. Returns the ranks' B1-B3 launches."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.models import pipelined
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _run_group(torch, pipe_rank, tmp)
+    group_s = time.perf_counter() - t0
+    batch = lm_batch(8, 1024, PIPE_LM["vocab_size"])
+    launches = dict.fromkeys(fa.launches, 0)
+    f32_launches = 0
+    for case, kw in PIPE_CASES.items():
+        kw = dict(PIPE_LM, **kw)
+        ref = _mesh_steps(torch, "pipelined_transformer", kw, None,
+                          torch.float32, batch, 1, PIPE_GRAD_PARAMS)
+        local = PIPE_LM["num_layers"] // AXES_WORLD
+        # Each layer runs once a microbatch (parallel/pipeline.py).
+        want = dict.fromkeys(fa.launches, kw["num_microbatches"] * local)
+        worst = 0.0
+        for idx, r in enumerate(ranks):
+            got = r[case]
+            label = "pipe {} rank {}".format(case, idx)
+            worst = max(worst, _f32_against(label, got["f32"], ref))
+            _falling(label, got["bf16"]["losses"])
+            held, full = _halved(label, got["bf16"]["held"], ref["held"],
+                                 pipelined.STAGE_PARAM_KEYS)
+            for counts in got["f32"]["launches"] + got["bf16"]["launches"]:
+                if counts != want:
+                    raise AssertionError("{} launched {}; the schedule "
+                                         "wants {}".format(label, counts,
+                                                           want))
+                for n in launches:
+                    launches[n] += counts[n]
+            f32_launches += sum(c["flash_fwd"]
+                                for c in got["f32"]["launches"])
+        r0 = ranks[0][case]
+        log("pipe   {} {}: GPT-2-small width {} layers b8 s1024, {} "
+            "microbatches: f32 step 1 loss {:.6f} against one rank {:.6f}, "
+            "gradients and norms within {:.2e}; bf16 losses {}; B1-B3 {} a "
+            "step a rank; stage bytes a rank {} of {}; step ms a rank {}; "
+            "collective bytes a rank a step {}".format(
+                case, {k: v for k, v in kw.items()
+                       if k in ("num_stages", "num_rounds")},
+                PIPE_LM["num_layers"], kw["num_microbatches"],
+                r0["f32"]["losses"][0], ref["losses"][0], worst,
+                ["{:.5f}".format(x) for x in r0["bf16"]["losses"]],
+                want["flash_fwd"], held, full,
+                [["{:.1f}".format(x) for x in r[case]["bf16"]["ms"]]
+                 for r in ranks], r0["bf16"]["bytes"]))
+    log("pipe   phase {:.1f} s (ranks {:.1f} s) on {}; B1-B3 launches of "
+        "both ranks {} (each: {} of the f32 kernels, in the f32 steps)"
+        .format(time.perf_counter() - t0, group_s, card, launches,
+                f32_launches))
+    return launches
+
+
 # -- HTTP ----------------------------------------------------------------------
 
 _CLIENT = r"""
@@ -4221,6 +4761,9 @@ def main():
     cluster_launches = cluster_phase(torch, fa, card)
     recover_launches = recover_phase(torch, fa, card)
     shard_launches = shard_phase(torch, fa, card)
+    fa.reset_launches()
+    moe_launches, moe_b4 = moe_phase(torch, fa, pa, card)
+    pipe_launches = pipe_phase(torch, fa, card)
     toy_model = toy_greedy_phase(torch)
     full_width_teacher_forced(torch)
     http_phase(torch, toy_model)
@@ -4229,7 +4772,7 @@ def main():
     rows = [dict(name="paged_decode",
                  source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
                  replaces="tensorflowonspark_tpu/ops/paged_attention.py:65",
-                 launches=launches, max_abs_err=max_err, **t)]
+                 launches=launches + moe_b4, max_abs_err=max_err, **t)]
     replaces = {"flash_fwd": 127, "flash_bwd_dq": 195, "flash_bwd_dkv": 256}
     for name, line in replaces.items():
         rows.append(dict(
@@ -4238,7 +4781,8 @@ def main():
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
             launches=flash_launches[name] + cluster_launches[name]
-            + recover_launches[name] + shard_launches[name],
+            + recover_launches[name] + shard_launches[name]
+            + moe_launches[name] + pipe_launches[name],
             **flash_times[name]))
     # B5's row: one launch of a stage-1 block, the mean of its two (K1
     # without, K3 with the prologue); B6's: the stage-1 block's K2.

@@ -11,7 +11,13 @@ four times, through ``Trainer.train_step`` over
 * ``seq_zigzag``  — (ii) ``seq=4``, ``ring_flash`` with the zigzag layout,
   b1 x s4096 (``max_seq_len`` raised to 4096: the ring is there for long
   sequences; widths are unchanged);
-* ``seq_ulysses`` — (iii) ``seq=4``, Ulysses, b1 x s4096.
+* ``seq_ulysses`` — (iii) ``seq=4``, Ulysses, b1 x s4096;
+* ``pipe_gpipe``, ``pipe_interleaved`` — (iv) ``pipe=4``,
+  ``pipelined_transformer`` on the flash route, b8 x s1024, 8
+  microbatches: GPipe over 4 stages, and interleaved over 12 stages in 3
+  rounds;
+* ``moe_expert``  — (v) ``bench.py``'s ``bench_moe`` model (8 experts,
+  every other layer MoE, flash route) under ``expert=4``, b8 x s1024.
 
 For each case every rank records its losses (finite and falling is
 required), its step time by CUDA events, its peak memory, its B1-B3
@@ -29,7 +35,9 @@ vocabulary slab), so the layer norm before the head reads a few percent
 apart. Every rank writes ``<out>/rank<r>.json`` (``--out``, default the
 git-ignored ``build/shard_run``); the script prints one summary line a
 case, the card's name and power limit, and a JSON object of all of it
-last. Exit 0 only when every check held; 2 without four cards.
+last. Exit 0 only when every check held; 2 without four cards. The
+one-card reference of (iv) is the pipelined LM's sequential path on the
+same seeded weights.
 """
 
 import argparse
@@ -58,6 +66,21 @@ CASES = {
                         model=dict(attention_impl="ulysses",
                                    max_seq_len=4096),
                         batch=1, seq=4096),
+    "pipe_gpipe": dict(mesh=dict(data=1, pipe=4),
+                       name="pipelined_transformer",
+                       model=dict(attention_impl="pallas", num_stages=4,
+                                  num_microbatches=8),
+                       batch=8, seq=1024),
+    "pipe_interleaved": dict(mesh=dict(data=1, pipe=4),
+                             name="pipelined_transformer",
+                             model=dict(attention_impl="pallas",
+                                        num_stages=12, num_rounds=3,
+                                        num_microbatches=8),
+                             batch=8, seq=1024),
+    "moe_expert": dict(mesh=dict(data=1, expert=4), name="moe_transformer",
+                       model=dict(attention_impl="pallas", num_experts=8,
+                                  moe_every=2),
+                       batch=8, seq=1024),
 }
 LR = 3e-4
 # Step 1 against the one-card trainer: the bf16 loss; in f32 the loss and
@@ -67,6 +90,15 @@ LOSS_RTOL = 5e-3
 F32_LOSS_RTOL = 1e-5
 F32_GRAD_NORM_RTOL = 1e-3
 NORM_PARAMS = ("ln_f.scale", "block_0.ln1.scale", "block_11.ln2.bias")
+# Every rank holds these whole in the pipelined and the MoE LM.
+CASE_NORM_PARAMS = {
+    "pipelined_transformer": ("ln_f.scale", "embed.embedding", "pos_embed"),
+    "moe_transformer": NORM_PARAMS + ("block_1.moe.router.kernel",),
+}
+
+
+def _norm_params(c):
+    return CASE_NORM_PARAMS.get(c.get("name"), NORM_PARAMS)
 
 
 def log(*args):
@@ -79,24 +111,24 @@ def lm_batch(batch, seq, vocab):
     return {"x": tokens, "y": tokens}
 
 
-def _lm(torch, kw, dtype=None):
+def _lm(torch, c, kw, dtype=None):
     from tensorflowonspark_tpu_torch.models import factory
 
-    return factory.get_model("transformer", dtype=dtype or torch.bfloat16,
-                             device="cuda", seed=0,
-                             **dict(GPT2_SMALL, **kw))
+    return factory.get_model(c.get("name", "transformer"),
+                             dtype=dtype or torch.bfloat16, device="cuda",
+                             seed=0, **dict(GPT2_SMALL, **kw))
 
 
-def _step1(torch, trainer_kw, kw, dtype, feed):
+def _step1(torch, trainer_kw, c, kw, dtype, feed):
     """Loss and gradient norms of step 1 on ``feed`` in ``dtype``."""
     from tensorflowonspark_tpu_torch.train import Trainer, trainer
 
-    tr = Trainer(_lm(torch, kw, dtype), optimizer=trainer.adamw(LR),
+    tr = Trainer(_lm(torch, c, kw, dtype), optimizer=trainer.adamw(LR),
                  device="cuda", **trainer_kw)
     st = tr.init()
     st, m = tr.train_step(st, feed(tr))
     out = (float(m["loss"]), {n: float(st.params[n].grad.float().norm())
-                              for n in NORM_PARAMS})
+                              for n in _norm_params(c)})
     del tr, st
     torch.cuda.empty_cache()
     return out
@@ -127,7 +159,7 @@ def run_case(torch, name, rank):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mesh = MeshConfig(**c["mesh"]).build()
-    tr = Trainer(_lm(torch, c["model"]), optimizer=trainer.adamw(LR),
+    tr = Trainer(_lm(torch, c, c["model"]), optimizer=trainer.adamw(LR),
                  mesh=mesh, device="cuda")
     state = tr.init()
     batch = lm_batch(c["batch"], c["seq"], tr.model.cfg.vocab_size)
@@ -151,7 +183,7 @@ def run_case(torch, name, rank):
         launches.append({k: fa.launches[k] - before[k] for k in before})
         if step == 0:
             norms = {n: float(state.params[n].grad.float().norm())
-                     for n in NORM_PARAMS}
+                     for n in _norm_params(c)}
     traffic = dict(coll.traffic)
     from torch.profiler import ProfilerActivity, profile
 
@@ -170,7 +202,7 @@ def run_case(torch, name, rank):
     del tr, state
     torch.cuda.empty_cache()
     out["f32_loss"], out["f32_norms"] = _step1(
-        torch, {"mesh": mesh}, c["model"], torch.float32, lambda t: fed)
+        torch, {"mesh": mesh}, c, c["model"], torch.float32, lambda t: fed)
     dist.barrier()
     return out
 
@@ -182,7 +214,7 @@ def reference(torch, name):
     c = CASES[name]
     kw = dict(c["model"], attention_impl="pallas", ring_layout="contiguous")
     return {str(dtype).split(".")[-1]: _step1(
-        torch, {}, kw, dtype,
+        torch, {}, c, kw, dtype,
         lambda t: lm_batch(c["batch"], c["seq"], t.model.cfg.vocab_size))
         for dtype in (torch.bfloat16, torch.float32)}
 
@@ -250,6 +282,10 @@ def check(name, docs, refs):
     for d in docs:
         if impl == "ulysses":
             want = 0
+        elif c.get("name") == "pipelined_transformer":
+            # Each rank runs its layers once a microbatch.
+            want = c["model"]["num_microbatches"] * layers \
+                // c["mesh"]["pipe"]
         elif impl == "ring_flash":
             want = attention.ring_flash_launches(
                 WORLD, c["model"]["ring_layout"])[d["rank"]] * layers
@@ -260,7 +296,8 @@ def check(name, docs, refs):
                 fails.append("rank {} launched {} a step; want {}".format(
                     d["rank"], counts, want))
     summary = {
-        "mesh": c["mesh"], "batch": c["batch"], "seq": c["seq"],
+        "mesh": c["mesh"], "model": c.get("name", "transformer"),
+        "batch": c["batch"], "seq": c["seq"],
         "attention_impl": impl, "losses": losses,
         "ref_step1_loss": ref_loss, "ref_step1_norms": ref_norms,
         "step1_norms": r0["norms"], "f32_step1": [r0["f32_loss"],

@@ -7,7 +7,12 @@ torch.Tensor}``:
 * ``params_from_flax(params, cfg)`` for
   :class:`~tensorflowonspark_tpu_torch.models.transformer.TransformerLM`,
   whose kernels keep flax's layouts: a renaming; ``params_for_mesh``
-  converts them full and keeps this rank's shards over a mesh;
+  converts them full and keeps this rank's shards over a mesh. The MoE
+  LM's config adds each MoE block's ``moe/router/kernel``, ``moe/w_up``
+  and ``moe/w_down`` in place of its ``mlp``; the pipelined LM's, the
+  top-level stage parameters (``qkv``, ``attn_out``, ``ln*_*``, ``up``,
+  ``down``), reshaped from the factored layout of the pipe degree they
+  were made under to the port's, which is the same for every degree;
 * ``resnet_params_from_flax(variables, model)`` for the port's ResNets:
   ``params`` and ``batch_stats`` together, conv kernels HWIO -> OIHW;
 * ``fused_block_params_from_jax(params)`` for
@@ -45,6 +50,18 @@ def _expected(cfg):
         "ln_f/scale": (e,),
         "ln_f/bias": (e,),
     }
+    if hasattr(cfg, "num_stages"):
+        from tensorflowonspark_tpu_torch.models import pipelined
+
+        lead = pipelined._stage_lead(cfg)
+        for key, shape in pipelined._stage_shapes(cfg).items():
+            shapes[key] = lead + shape
+        return shapes
+    moe_layer = None
+    if hasattr(cfg, "num_experts"):
+        from tensorflowonspark_tpu_torch.models.moe import is_moe_layer
+
+        moe_layer = is_moe_layer
     for i in range(cfg.num_layers):
         b = "block_{}/".format(i)
         for ln in ("ln1", "ln2"):
@@ -56,18 +73,35 @@ def _expected(cfg):
             shapes[b + "attn/q/kernel"] = (e, h, d)
             shapes[b + "attn/kv/kernel"] = (e, 2, h_kv, d)
         shapes[b + "attn/out/kernel"] = (e, e)
-        shapes[b + "mlp/up/kernel"] = (e, cfg.mlp_dim)
-        shapes[b + "mlp/down/kernel"] = (cfg.mlp_dim, e)
+        if moe_layer is not None and moe_layer(cfg, i):
+            x = cfg.num_experts
+            shapes[b + "moe/router/kernel"] = (e, x)
+            shapes[b + "moe/w_up"] = (x, e, cfg.mlp_dim)
+            shapes[b + "moe/w_down"] = (x, cfg.mlp_dim, e)
+        else:
+            shapes[b + "mlp/up/kernel"] = (e, cfg.mlp_dim)
+            shapes[b + "mlp/down/kernel"] = (cfg.mlp_dim, e)
     return shapes
 
 
 def params_from_flax(params, cfg):
     """The port's ``state_dict`` (f32 CPU tensors) for the flax ``params``
-    tree of a ``TransformerLM`` with config ``cfg`` (the port's
-    :class:`TransformerConfig`)."""
+    tree of a ``TransformerLM``, ``MoETransformerLM`` or
+    ``PipelinedTransformerLM`` with config ``cfg`` (the port's config);
+    the pipelined LM's stage parameters may come in the factored layout
+    of any pipe degree."""
     flat = _flat(params)
     expected = _expected(cfg)
     _check_names(flat, expected, "flax params and the config")
+    if hasattr(cfg, "num_stages"):
+        from tensorflowonspark_tpu_torch.models import pipelined
+
+        # The (v, n, g, l, ...) tree as pipe degree 1's, unit axis dropped.
+        flat.update({k: np.asarray(a)[:, 0] for k, a in
+                     pipelined.convert_stage_layout(
+                         {k: np.asarray(flat[k])
+                          for k in pipelined.STAGE_PARAM_KEYS},
+                         cfg.num_rounds, 1).items()})
     out = {}
     for name, shape in expected.items():
         arr = np.asarray(flat[name])

@@ -1,13 +1,20 @@
-"""Model registry (port of ``models/factory.py``): the transformer LM, the
-ResNet family, the MLP and linear regression; the rest of the zoo follows
-in later slices (ROADMAP A11)."""
+"""Model registry (port of ``models/factory.py``): the transformer LM, its
+MoE and pipelined variants, the ResNet family, the MLP and linear
+regression; the rest of the zoo follows in later slices (ROADMAP A11)."""
 
-from tensorflowonspark_tpu_torch.models import mlp, resnet, transformer
+from tensorflowonspark_tpu_torch.models import (
+    mlp, moe, pipelined, resnet, transformer,
+)
 
 _REGISTRY = {
     "transformer": lambda device="cuda", seed=0, **kw:
         transformer.TransformerLM(transformer.TransformerConfig(**kw),
                                   device=device, seed=seed),
+    "moe_transformer": lambda device="cuda", seed=0, **kw:
+        moe.MoETransformerLM(moe.MoEConfig(**kw), device=device, seed=seed),
+    "pipelined_transformer": lambda device="cuda", seed=0, **kw:
+        pipelined.PipelinedTransformerLM(pipelined.PipelinedConfig(**kw),
+                                         device=device, seed=seed),
     "mlp": mlp.MLP,
     "linear_regression": mlp.LinearRegression,
     "resnet18": resnet.ResNet18,
@@ -24,7 +31,7 @@ _REGISTRY = {
 def get_model(name, **kwargs):
     """Construct a registered model; ``device`` (default ``"cuda"``) and
     ``seed`` go to the model, every other keyword to its config (the
-    transformer) or constructor (``num_classes``, ``width``, ``dtype``,
+    transformers) or constructor (``num_classes``, ``width``, ``dtype``,
     ``in_features``, ...). Raises with the known names otherwise."""
     if name not in _REGISTRY:
         raise ValueError(

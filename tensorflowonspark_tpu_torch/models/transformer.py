@@ -556,12 +556,24 @@ class TransformerLM(nn.Module):
         self.embed = Embed(cfg)
         self.pos_embed = nn.Parameter(torch.empty(cfg.max_seq_len,
                                                   cfg.embed_dim))
-        for i in range(cfg.num_layers):
-            self.add_module("block_{}".format(i), Block(cfg))
+        self.build_blocks()
         self.ln_f = LayerNorm(cfg.embed_dim, cfg.dtype)
         self.reset_parameters(seed)
         self.to(dev)
         self.eval()
+
+    def block_for_layer(self, i):
+        """The block class of layer ``i``: the hook the MoE LM overrides
+        to mix block types without duplicating the scaffold (the JAX
+        ``block_for_layer``)."""
+        return Block
+
+    def build_blocks(self):
+        """Make the block stack (``block_<i>``); schedule variants (the
+        pipelined LM) override it with their own parameters."""
+        for i in range(self.cfg.num_layers):
+            self.add_module("block_{}".format(i),
+                            self.block_for_layer(i)(self.cfg))
 
     @torch.no_grad()
     def reset_parameters(self, seed):
@@ -648,7 +660,8 @@ class TransformerLM(nn.Module):
                             "tensor={} does not divide the {} attention "
                             "heads".format(tensor, h))
                 attn.tp_group = attn.out.tp_group = sharding.tensor_group
-            if sharding.tensor_dims("block_{}.mlp.up.kernel".format(i)):
+            up = "block_{}.mlp.up.kernel".format(i)
+            if up in sharding.layouts and sharding.tensor_dims(up):
                 if cfg.mlp_dim % tensor:
                     raise ValueError("tensor={} does not divide mlp_dim "
                                      "{}".format(tensor, cfg.mlp_dim))
@@ -657,6 +670,26 @@ class TransformerLM(nn.Module):
             self.embed.tp_group = sharding.tensor_group
             self.embed.vocab_start = sharding.tensor_slab(
                 "embed.embedding", 0)[0]
+
+    def apply_blocks(self, x, segment_ids=None, decode=False, pages=None,
+                     seq_lens=None, cache=None):
+        """Run the block stack: the hook schedule variants (pipeline
+        parallelism) override, as in the JAX model."""
+        remat = self.cfg.remat and not decode and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks()):
+            if remat:
+                # Every rank recomputes the whole block, collectives
+                # included, in one order: no early stop.
+                with torch.utils.checkpoint.set_checkpoint_early_stop(
+                        False):
+                    x = checkpoint(block, x, segment_ids,
+                                   use_reentrant=False)
+                continue
+            layer_cache = None if cache is None else cache[
+                "block_{}".format(i)]
+            x = block(x, segment_ids, decode, pages=pages, seq_lens=seq_lens,
+                      cache=layer_cache)
+        return x
 
     def vocab_slab(self):
         """``(tensor group, start)`` of the logits this model emits: the
@@ -781,20 +814,8 @@ class TransformerLM(nn.Module):
                 x = x + pos_embed[:seq_len][None].to(cfg.dtype)
             else:
                 x = x + pos_embed[positions.long()].to(cfg.dtype)
-        remat = cfg.remat and not decode and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks()):
-            if remat:
-                # Every rank recomputes the whole block, collectives
-                # included, in one order: no early stop.
-                with torch.utils.checkpoint.set_checkpoint_early_stop(
-                        False):
-                    x = checkpoint(block, x, segment_ids,
-                                   use_reentrant=False)
-                continue
-            layer_cache = None if cache is None else cache[
-                "block_{}".format(i)]
-            x = block(x, segment_ids, decode, pages=pages, seq_lens=seq_lens,
-                      cache=layer_cache)
+        x = self.apply_blocks(x, segment_ids, decode, pages=pages,
+                              seq_lens=seq_lens, cache=cache)
         x = self.ln_f(x)
         # Weight-tied head in the model dtype; logits upcast after.
         logits = self.embed.attend(x)

@@ -16,9 +16,12 @@ group ``data x fsdp``, the gradient groups ``data x fsdp x seq`` and
 ``data x seq``, and ``seq x tensor``. Families whose size is 1 have no
 group; collectives over them are no-ops.
 
-``data``, ``fsdp``, ``seq`` and ``tensor`` may exceed 1; ``pipe`` (ROADMAP
-A10, pipeline parallelism) and ``expert`` (ROADMAP A11,
-``moe_transformer``) raise. The logical-axis rules (:data:`DEFAULT_RULES`,
+Every axis may exceed 1. ``pipe`` carries pipeline parallelism
+(:mod:`.pipeline`, ``models/pipelined.py``) and ``expert`` the MoE LM's
+experts (``models/moe.py``). Compositions the port does not yet hold
+against the JAX package raise ``NotImplementedError`` naming their ROADMAP
+item (:data:`UNCHECKED_COMPOSITIONS`): ``pipe`` and ``expert`` each compose
+with ``data`` only. The logical-axis rules (:data:`DEFAULT_RULES`,
 :func:`use_rules`, :func:`active_rules`) and their resolution
 (:func:`resolve_spec`, size-1 axes dropped) are the JAX package's; where
 JAX turns a spec into a ``NamedSharding``, the port slices each parameter
@@ -59,10 +62,19 @@ DEFAULT_RULES = {
 
 # The axis families the mesh makes a process group for, in AXES order.
 GROUP_AXES = (
-    ("data",), ("fsdp",), ("seq",), ("tensor",),
+    ("data",), ("fsdp",), ("pipe",), ("expert",), ("seq",), ("tensor",),
     ("data", "fsdp"), ("data", "seq"), ("data", "fsdp", "seq"),
     ("seq", "tensor"),
 )
+
+# Axis pairs that build in the JAX package but that the port has not held
+# against it: each raises, naming the ROADMAP item that would.
+UNCHECKED_COMPOSITIONS = {
+    ("fsdp", "pipe"): "A10c", ("pipe", "seq"): "A10c",
+    ("pipe", "tensor"): "A10c", ("pipe", "expert"): "A10c",
+    ("fsdp", "expert"): "A11c", ("expert", "seq"): "A11c",
+    ("expert", "tensor"): "A11c",
+}
 
 _ambient = threading.local()
 
@@ -174,20 +186,24 @@ class MeshConfig:
         if devices is not None:
             raise ValueError("the port's mesh spans the process group; "
                              "pass no device list")
-        if self.pipe != 1:
-            raise NotImplementedError(
-                "mesh axis pipe={}: pipeline parallelism "
-                "(parallel/pipeline.py, models/pipelined.py) is not ported "
-                "(ROADMAP A10)".format(self.pipe))
-        if self.expert != 1:
-            raise NotImplementedError(
-                "mesh axis expert={}: expert parallelism belongs to "
-                "moe_transformer, which is not ported (ROADMAP "
-                "A11)".format(self.expert))
-        mesh = ProcessMesh(self.sizes(multihost.process_count()),
-                           multihost.process_index())
+        declared = (self.data, self.fsdp, self.pipe, self.expert, self.seq,
+                    self.tensor)
+        _check_compositions(declared)
+        sizes = self.sizes(multihost.process_count())
+        _check_compositions(sizes)
+        mesh = ProcessMesh(sizes, multihost.process_index())
         logger.info("mesh: %s over %d process(es)", mesh.shape, mesh.size)
         return mesh
+
+
+def _check_compositions(sizes):
+    live = {a for a, n in zip(AXES, sizes) if n > 1}
+    for (a, b), item in UNCHECKED_COMPOSITIONS.items():
+        if a in live and b in live:
+            raise NotImplementedError(
+                "mesh axes {}={} with {}={}: this composition is not held "
+                "against the JAX package yet (ROADMAP {})".format(
+                    a, sizes[AXES.index(a)], b, sizes[AXES.index(b)], item))
 
 
 class ProcessMesh:

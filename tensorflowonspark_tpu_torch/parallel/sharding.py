@@ -21,7 +21,10 @@ How a shard is used:
   — ZeRO-3, as the JAX package's embed-axis sharding behaves;
 * ``tensor``: the module computes on its slab (Megatron's column- and
   row-parallel layers, the vocab-parallel embedding and head); the model
-  decides which dimension that may be (:meth:`tensor_slab`).
+  decides which dimension that may be (:meth:`tensor_slab`);
+* ``pipe`` and ``expert``: the module computes with the rank's shard as
+  it is — a pipe rank's stage chunks (``parallel/pipeline.py``), an
+  expert rank's experts (``models/moe.py``).
 
 :meth:`ModelSharding.full` rebuilds a full tensor from every rank's shard
 (checkpoints), :meth:`ModelSharding.local` cuts the rank's shard out of a
@@ -32,6 +35,10 @@ import torch
 
 from tensorflowonspark_tpu_torch.parallel import collectives as coll
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+
+
+# The mesh axes a parameter may shard over.
+_PARAM_AXES = ("fsdp", "pipe", "expert", "tensor")
 
 
 class _Layout:
@@ -56,8 +63,9 @@ class ModelSharding:
     """The layout of ``model``'s parameters over ``mesh`` under ``rules``.
 
     Parameters named in ``model.param_axes()`` with a mesh axis above 1
-    are sharded; the rest are replicated. Only ``fsdp`` and ``tensor`` may
-    shard a parameter, ``fsdp`` innermost in its entry."""
+    are sharded; the rest are replicated. ``fsdp``, ``tensor``, ``pipe``
+    and ``expert`` may shard a parameter, ``fsdp`` innermost in its
+    entry."""
 
     def __init__(self, model, mesh, rules=None):
         self.mesh = mesh
@@ -74,11 +82,11 @@ class ModelSharding:
                                  "parameter".format(name, logical, p.dim()))
             layout = _Layout(mesh, p.shape, spec)
             for axes in layout.spec:
-                bad = [a for a in axes if a not in ("fsdp", "tensor")]
+                bad = [a for a in axes if a not in _PARAM_AXES]
                 if bad:
                     raise NotImplementedError(
-                        "{}: parameters shard over fsdp and tensor only, "
-                        "not {} (rules {})".format(name, bad, logical))
+                        "{}: parameters shard over {} only, not {} (rules "
+                        "{})".format(name, _PARAM_AXES, bad, logical))
                 if "fsdp" in axes and axes[-1] != "fsdp":
                     raise NotImplementedError(
                         "{}: fsdp must be the innermost axis of a spec "

@@ -31,7 +31,9 @@ tensor, and the step holds the same full tree an unsharded run writes. A
 restore cuts each rank's shards out of the full tree, so a step saved
 under one mesh restores under any other (``fsdp=2, tensor=2`` and
 ``data=1`` alike), and :meth:`CheckpointManager.restore_variables` serves
-it as it is.
+it as it is. The pipelined LM's full stage parameters have one layout
+for every pipe degree (``models/pipelined.py``), so its steps restore
+across degrees in the same way.
 """
 
 import contextlib

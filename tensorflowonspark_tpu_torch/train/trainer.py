@@ -11,13 +11,18 @@ place with each forward, in microbatch order, as the scan carries
 ``model_state``. :meth:`Trainer.fit` is the overlapped loop: device
 prefetch, asynchronous metrics and checkpoints.
 
-``mesh=MeshConfig(data=, fsdp=, seq=, tensor=).build()`` trains over the
-``torch.distributed`` process group, one device a process, as the JAX
-``Trainer`` trains over the same mesh: the batch shards over ``data x
-fsdp``, parameters and optimizer state over ``fsdp`` and ``tensor``
-through the logical-axis ``rules`` (:mod:`..parallel.sharding`), and the
-sequence over ``seq``. BatchNorm takes global-batch statistics
-(``models/resnet.py``). See :meth:`Trainer.train_step` for the reduction.
+``mesh=MeshConfig(data=, fsdp=, pipe=, expert=, seq=, tensor=).build()``
+trains over the ``torch.distributed`` process group, one device a
+process, as the JAX ``Trainer`` trains over the same mesh: the batch
+shards over ``data x fsdp``, parameters and optimizer state over
+``fsdp``, ``tensor``, ``pipe`` (the pipelined LM's stages) and ``expert``
+(the MoE LM's experts) through the logical-axis ``rules``
+(:mod:`..parallel.sharding`), and the sequence over ``seq``. BatchNorm
+takes global-batch statistics (``models/resnet.py``). See
+:meth:`Trainer.train_step` for the reduction. A model that sows auxiliary
+losses (the MoE LM's load-balance terms, ``model.pop_aux_losses()``)
+trains on the task loss plus their sum, as the JAX trainer adds the
+``"losses"`` collection; eval leaves them out.
 The persistent compile cache is ROADMAP A12; ``donate`` has no meaning
 without XLA buffers.
 """
@@ -297,23 +302,41 @@ class Trainer:
                               use_reentrant=False)
         return self.model(x, **kwargs)
 
-    def _backward(self, batch, weight=None):
-        """Forward and backward of one (micro)batch; returns the detached
-        loss. Under the whole-forward checkpoint the backward runs the
-        forward again, in train mode, and that would move the running
-        statistics a second time; the JAX recompute re-applies no update.
-        So the buffers as the first forward left them are put back after
-        the backward."""
+    def _sown(self):
+        """The sum of the auxiliary losses the model sowed in its last
+        forward (``model.pop_aux_losses()``), or None."""
+        pop = getattr(self.model, "pop_aux_losses", None)
+        terms = pop() if pop is not None else []
+        if not terms:
+            return None
+        return torch.stack([t.float() for t in terms]).sum()
+
+    def _backward(self, batch, weight=None, aux_weight=None):
+        """Forward and backward of one (micro)batch: back-propagates the
+        task loss times ``weight`` plus the sown auxiliary losses times
+        ``aux_weight`` (default ``weight``); returns both, detached (the
+        auxiliary 0 without any). Under the whole-forward checkpoint the
+        backward runs the forward again, in train mode, and that would move
+        the running statistics a second time; the JAX recompute re-applies
+        no update. So the buffers as the first forward left them are put
+        back after the backward."""
+        self._sown()  # drop what a forward outside a step left behind
         loss = self.loss_fn(self._outputs(batch), batch)
+        aux = self._sown()
         kept = ({name: buf.clone() for name, buf in
                  self.model.named_buffers()}
                 if self._whole_forward_remat else {})
-        (loss if weight is None else loss * weight).backward()
+        objective = loss if weight is None else loss * weight
+        if aux is not None:
+            w = weight if aux_weight is None else aux_weight
+            objective = objective + (aux if w is None else aux * w)
+        objective.backward()
         if kept:
             with torch.no_grad():
                 for name, buf in self.model.named_buffers():
                     buf.copy_(kept[name])
-        return loss.detach()
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        return loss.detach(), zero if aux is None else aux.detach()
 
     def _microbatches(self, batch):
         k = self.grad_accum
@@ -329,10 +352,14 @@ class Trainer:
 
     def train_step(self, state, batch):
         """One optimizer step on ``batch`` (a dict of arrays or tensors).
-        Returns ``(state, {"loss", "aux_loss"})`` with 0-d device tensors;
-        ``aux_loss`` is 0, since the ported models add no auxiliary losses
-        (MoE is ROADMAP A11). After the step each parameter's ``.grad``
-        holds the gradient it applied.
+        Returns ``(state, {"loss", "aux_loss"})`` with 0-d device tensors:
+        ``aux_loss`` is the sum of the auxiliary losses the model sowed
+        (the MoE LM's load-balance terms; 0 for a model without any) and
+        ``loss`` the task loss plus it, the objective the step descended,
+        as the JAX trainer reports them (under ``grad_accum`` both are the
+        microbatches' weighted means). Nothing of them is kept in the
+        state. After the step each parameter's ``.grad`` holds the gradient
+        it applied.
 
         Over a mesh of more than one process, ``batch`` holds this rank's
         rows (see the class docstring) and the step is the JAX step on the
@@ -351,7 +378,11 @@ class Trainer:
         ``grad_accum`` as the JAX scan clamps). A rank on a lockstep zero
         batch (mask all 0) adds nothing and counts nothing, where
         averaging local means (plain DDP) would count its zero mean and
-        halve the step. Without a mask each (micro)batch weighs 1."""
+        halve the step. Without a mask each (micro)batch weighs 1. The
+        auxiliary terms are the global batch's (``models/moe.py``), the
+        same on every rank, so each rank back-propagates them times the
+        global weight: summed over the group and divided by it, each
+        rank's share of their gradient counts once."""
         batch = self._normalize_batch(self._place(batch))
         state.optimizer.zero_grad(set_to_none=True)
         was_training = self.model.training
@@ -359,17 +390,16 @@ class Trainer:
         try:
             if self.mesh.size > 1:
                 with self._scope():
-                    loss = self._sharded_backward(state, batch)
+                    loss, aux = self._sharded_backward(state, batch)
             elif self.grad_accum == 1:
-                loss = self._backward(batch)
+                loss, aux = self._backward(batch)
             else:
-                loss = self._accumulate(self._microbatches(batch))
+                loss, aux = self._accumulate(self._microbatches(batch))
             state.optimizer.step()
         finally:
             self.model.train(was_training)
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
         return (dataclasses.replace(state, step=state.step + 1),
-                {"loss": loss, "aux_loss": zero})
+                {"loss": loss + aux, "aux_loss": aux})
 
     def _weight(self, batch):
         if "mask" in batch:
@@ -381,10 +411,18 @@ class Trainer:
                  else self._microbatches(batch))
         local_loss = torch.zeros((), dtype=torch.float32, device=self.device)
         local_w = torch.zeros((), dtype=torch.float32, device=self.device)
-        for mb in micro:
-            w = self._weight(mb)
-            local_loss = local_loss + self._backward(mb, w) * w
+        aux_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        weights = [self._weight(mb) for mb in micro]
+        # Each microbatch's global weight, for the auxiliary terms.
+        global_w = (coll.sum_(torch.stack(weights), self._loss_group)
+                    if hasattr(self.model, "pop_aux_losses") else None)
+        for i, (mb, w) in enumerate(zip(micro, weights)):
+            aw = None if global_w is None else global_w[i]
+            loss, aux = self._backward(mb, w, aux_weight=aw)
+            local_loss = local_loss + loss * w
             local_w = local_w + w
+            if aw is not None:
+                aux_sum = aux_sum + aux * aw
         sums = coll.sum_(torch.stack([local_loss, local_w]),
                          self._loss_group)
         total = torch.clamp_min(sums[1],
@@ -407,20 +445,24 @@ class Trainer:
                 p.grad = (flat[offset:offset + n] / total).view_as(p).to(
                     p.dtype)
                 offset += n
-        return sums[0] / total
+        return sums[0] / total, aux_sum / total
 
     def _accumulate(self, micro):
         """Backward through each microbatch with weight w_i / sum(w): w_i is
         its mask sum (1 without a mask), so uneven masks reproduce the
-        full-batch masked mean. Returns the weighted mean loss."""
+        full-batch masked mean. Returns the weighted mean task and
+        auxiliary losses."""
         one = torch.ones((), dtype=torch.float32, device=self.device)
         weights = [mb["mask"].sum().float() if "mask" in mb else one
                    for mb in micro]
         total = torch.clamp_min(torch.stack(weights).sum(), 1e-6)
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for mb, w in zip(micro, weights):
-            loss = loss + self._backward(mb, w / total) * w
-        return loss / total
+            task, sown = self._backward(mb, w / total)
+            loss = loss + task * w
+            aux = aux + sown * w
+        return loss / total, aux / total
 
     @torch.no_grad()
     def eval_step(self, state, batch):

@@ -76,7 +76,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "paths", "reservation", "telemetry", "telemetry_store",
                  "parallel.mesh", "parallel.multihost", "supervisor",
                  "elastic", "backend_remote", "tools.agent",
-                 "testing.faults", "testing.programs", "models.mlp"):
+                 "testing.faults", "testing.programs", "models.mlp",
+                 "parallel.pipeline", "models.moe", "models.pipelined"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -84,8 +85,10 @@ def test_importing_every_port_module_loads_no_jax():
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_bf16_routes.py"),
              os.path.join(ROOT, "scripts", "torch_block_ab.py"),
              os.path.join(ROOT, "scripts", "torch_flash_ab.py"),
+             os.path.join(ROOT, "scripts", "torch_fork_scan.py"),
              os.path.join(ROOT, "scripts", "torch_paged_ab.py"),
              os.path.join(ROOT, "scripts", "torch_shard_run.py"),
              os.path.join(ROOT, "tests", "torch_cluster_programs.py"),

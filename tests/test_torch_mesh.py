@@ -5,10 +5,10 @@ Sizes, the wildcard and its errors as the JAX ``MeshConfig``; rank ``r``
 at the coordinate of JAX device ``r`` in ``MeshConfig(...).build(
 jax.devices()[:4])``; spec resolution equal to ``_resolve_spec`` on
 ``DEFAULT_RULES``; each rank's parameter shard and batch rows equal to
-what JAX places on device ``r``; ``pipe`` and ``expert`` still raise,
-naming their ROADMAP items. Rank coordinates need no process group: a
-``ProcessMesh`` built for rank ``r`` in one process has no groups but the
-same geometry.
+what JAX places on device ``r``; the compositions of ``pipe`` and
+``expert`` not yet held against JAX raise, naming their ROADMAP items.
+Rank coordinates need no process group: a ``ProcessMesh`` built for rank
+``r`` in one process has no groups but the same geometry.
 """
 
 import flax.linen as nn
@@ -73,9 +73,17 @@ def test_mesh_config_sizes_wildcard_and_errors():
 
 @pytest.mark.parametrize("axis,item", [("pipe", "A10"), ("expert", "A11")])
 def test_pipe_and_expert_raise_naming_their_items(axis, item):
-    for size in (2, -1):
+    """``pipe`` and ``expert`` compose with ``data`` only: every other
+    pairing raises, naming the ROADMAP item that would hold it against
+    JAX; alone they need their ranks, as any axis does."""
+    for other in ("fsdp", "seq", "tensor"):
         with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-            MeshConfig(data=1, **{axis: size}).build()
+            MeshConfig(data=1, **{axis: 2, other: 2}).build()
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        MeshConfig(data=1, pipe=2, expert=2).build()
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        MeshConfig(data=1, **{axis: 2}).build()
+    assert MeshConfig(data=1, **{axis: -1}).build().shape[axis] == 1
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))

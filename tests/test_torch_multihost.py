@@ -54,9 +54,9 @@ def test_single_process_passthrough_and_mesh():
         MeshConfig(data=-1, fsdp=-1).sizes(4)
     with pytest.raises(ValueError, match="needs 2 devices"):
         MeshConfig(data=2).build()
-    for axis in ("fsdp", "seq", "tensor"):
+    for axis in ("fsdp", "pipe", "expert", "seq", "tensor"):
         mesh = MeshConfig(data=1, **{axis: -1}).build()
         assert mesh.shape[axis] == 1 and mesh.group(axis) is None
     for axis, item in (("pipe", "A10"), ("expert", "A11")):
         with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-            MeshConfig(data=1, **{axis: -1}).build()
+            MeshConfig(data=1, tensor=2, **{axis: 2}).build()

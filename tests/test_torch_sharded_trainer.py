@@ -6,8 +6,10 @@ once per session) trains the fp32 toy LM (2 layers, 4 heads, embed 32,
 vocab 64) for three AdamW (1e-3) steps on each mesh: (data 2, fsdp 2) and
 (data 2, tensor 2) on the dense route, (fsdp 2, tensor 2) on the flash
 route, (seq 4) ``ring_flash`` zigzag and (seq 2, tensor 2) Ulysses,
-and (data 2, tensor 2) again with ``grad_accum=2`` and ``remat=True``,
-whose trained state also runs ``eval_step`` and ``predict``. The
+(data 2, tensor 2) again with ``grad_accum=2`` and ``remat=True``,
+whose trained state also runs ``eval_step`` and ``predict``, and (data
+2, tensor 2) with GQA (4 query heads on 2 KV heads: the split q/kv
+projections under tensor parallelism). The
 batches are global, numpy-seeded packed rows with a padded tail; a rank
 trains on its rows and cuts its sequence chunk, and the zigzag case lays
 tokens, targets, segment ids and positions out with ``zigzag_layout``
@@ -97,13 +99,17 @@ def _jax_init(case):
 
 
 def _prepare(outdir):
-    """The JAX init as the port's state_dict, and a step saved by one
-    process under data 1 (one step on the first batch)."""
-    _, state = _jax_init("data2_fsdp2")
-    params = convert.params_from_flax(
-        jax.device_get(nn.meta.unbox(state.params)), _port_cfg())
-    path = os.path.join(outdir, "params.pt")
-    torch.save(params, path)
+    """The JAX inits (MHA and GQA) as the port's state_dicts, and a step
+    saved by one process under data 1 (one step on the first batch)."""
+    paths = {}
+    for key, case in (("params_gqa", "data2_tensor2_gqa"),
+                      ("params", "data2_fsdp2")):
+        _, state = _jax_init(case)
+        params = convert.params_from_flax(
+            jax.device_get(nn.meta.unbox(state.params)),
+            _port_cfg(**progs.TRAIN_CASES[case][1]))
+        paths[key] = os.path.join(outdir, key + ".pt")
+        torch.save(params, paths[key])
     tr = trainer.Trainer(progs._lm({}, params),
                          optimizer=trainer.adamw(progs.TRAIN_LR),
                          device="cpu")
@@ -113,15 +119,16 @@ def _prepare(outdir):
     mgr = ckpt_lib.CheckpointManager(ckpt)
     mgr.save(st)
     mgr.close()
-    return {"params": path, "ckpt_data1": ckpt}
+    return dict(paths, ckpt_data1=ckpt)
 
 
-def _port_cfg():
+def _port_cfg(**kw):
     from tensorflowonspark_tpu_torch.models.transformer import (
         TransformerConfig,
     )
 
-    return TransformerConfig(dtype=torch.float32, **progs.LM_KW)
+    kw.pop("attention_impl", None)
+    return TransformerConfig(dtype=torch.float32, **progs.LM_KW, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -137,7 +144,8 @@ def jax_run(request, group):
     trainer on the case's mesh, once a module for each case."""
     case = request.param
     tr, state = _jax_init(case)
-    init = torch.load(group["args"]["params"], weights_only=True)
+    init = torch.load(group["args"][progs.init_key(case)],
+                      weights_only=True)
     for name, arr in _flat_numpy(state.params).items():
         assert np.array_equal(init[name].numpy(), arr), name
     losses, grads1 = [], None

@@ -12,7 +12,8 @@ inputs (:func:`attention_inputs`, :func:`lm_batches`, :func:`bn_batch`).
 
 :func:`cached_group` runs a group once per pytest session, whichever
 xdist worker asks first: the results go to a directory under the
-session's shared temporary root, behind a file lock.
+session's shared temporary root, behind a file lock, and no two groups
+run at once.
 """
 
 import datetime
@@ -110,13 +111,29 @@ def cached_group(tmp_path_factory, key, world, program, args=None,
     with filelock.FileLock(outdir + ".lock"):
         done = os.path.join(outdir, "results.pt")
         if not os.path.exists(done):
-            args = dict(args or {}, outdir=outdir)
-            if prepare is not None:
-                args.update(prepare(outdir))
-            results = run_group(world, program, args,
-                                os.path.join(outdir, "ranks"), timeout)
-            torch.save({"args": args, "ranks": results}, done)
-        return torch.load(done, weights_only=False)
+            # One group at a time in the session: groups run side by side
+            # keep every core busy, and then the JAX package's tests on
+            # the 8-device CPU mesh can miss XLA's 40 s collective
+            # rendezvous, which aborts their worker.
+            with filelock.FileLock(os.path.join(str(root),
+                                                "shard-groups.lock")):
+                try:
+                    args = dict(args or {}, outdir=outdir)
+                    if prepare is not None:
+                        args.update(prepare(outdir))
+                    saved = {"args": args, "ranks": run_group(
+                        world, program, args, os.path.join(outdir, "ranks"),
+                        timeout)}
+                except Exception:
+                    # Later callers fail with this error and do not run
+                    # the group again, each up to its timeout.
+                    saved = {"error": traceback.format_exc()}
+            torch.save(saved, done)
+        saved = torch.load(done, weights_only=False)
+    if "error" in saved:
+        raise RuntimeError("the {} group failed in this session:\n{}".format(
+            key, saved["error"]))
+    return saved
 
 
 def case_result(ranks, case):
@@ -248,7 +265,17 @@ TRAIN_CASES = {
                              dict(attention_impl="ulysses")),
     "data2_tensor2_accum_remat": (dict(data=2, tensor=2),
                                   dict(attention_impl="dense")),
+    "data2_tensor2_gqa": (dict(data=2, tensor=2),
+                          dict(attention_impl="dense", num_kv_heads=2)),
 }
+
+
+def init_key(case):
+    """The initial weights of a case: the MHA init, or the GQA one."""
+    return "params_gqa" if "num_kv_heads" in TRAIN_CASES[case][1] \
+        else "params"
+
+
 # Trainer options of a case (both sides), and the case whose trained
 # state also runs eval_step and predict.
 TRAIN_OPTIONS = {"data2_tensor2_accum_remat": dict(grad_accum=2, remat=True)}
@@ -307,12 +334,13 @@ def trainer_cases(rank, world, args):
     from tensorflowonspark_tpu_torch.parallel import MeshConfig
     from tensorflowonspark_tpu_torch.train import checkpoint, trainer
 
-    params = torch.load(args["params"], weights_only=True)
+    inits = {key: torch.load(args[key], weights_only=True)
+             for key in ("params", "params_gqa")}
 
     def run(case):
         mesh_kw, impl_kw = TRAIN_CASES[case]
         mesh = MeshConfig(**mesh_kw).build()
-        tr = trainer.Trainer(_lm(impl_kw, params),
+        tr = trainer.Trainer(_lm(impl_kw, inits[init_key(case)]),
                              optimizer=trainer.adamw(TRAIN_LR), mesh=mesh,
                              device="cpu", **TRAIN_OPTIONS.get(case, {}))
         state = tr.init()
@@ -410,3 +438,233 @@ def bn_cases(rank, world, args):
                           for k, b in state.model_state.items()}}
 
     return _cases(["data2"], run)
+
+
+# -- pipeline parallelism ---------------------------------------------------------
+
+PP_S, PP_D, PP_B = 4, 8, 16
+# pipeline() cases: (pipe size, stages, rounds, microbatches, layout). A
+# four-rank group runs every case; a pipe of 2 leaves data 2 beside it.
+PIPELINE_CASES = {
+    "gpipe_pipe4": (4, 4, 1, 4, "stacked"),
+    "grouped_pipe2": (2, 4, 1, 4, "stacked"),
+    "interleaved_pipe2_mb2": (2, 4, 2, 2, "factored"),
+    "interleaved_pipe2_mb4": (2, 4, 2, 4, "factored"),
+    "interleaved_pipe2_shard": (2, 8, 2, 4, "shard"),
+}
+PIPELINE_WORLD = 4
+# The JAX ValueErrors a pipe group raises, each a call that trips one.
+PIPELINE_ERRORS = ("not_multiple", "interleaved_stacked",
+                   "too_few_microbatches", "indivisible", "factored_lead")
+
+PP_LM_KW = dict(vocab_size=64, num_layers=4, num_heads=2, embed_dim=32,
+                mlp_dim=64, max_seq_len=16, remat=False)
+PP_TRAIN_B, PP_TRAIN_S = 8, 16
+# Trainer cases: (mesh, model) over four ranks, and over two.
+PP_TRAIN_CASES = {
+    "data2_pipe2_gpipe": (dict(data=2, pipe=2),
+                          dict(num_stages=2, num_microbatches=4)),
+}
+PP_INTERLEAVED_CASES = {
+    "pipe2_interleaved": (dict(data=1, pipe=2),
+                          dict(num_stages=4, num_rounds=2,
+                               num_microbatches=4)),
+}
+PP_INTERLEAVED_WORLD = 2
+
+
+def pipeline_inputs(stages):
+    """``(per-stage params [{"w", "b"}], x, cotangent seed)``, numpy f32."""
+    rs = np.random.RandomState(stages)
+    params = [{"w": (rs.randn(PP_D, PP_D) * 0.3).astype(np.float32),
+               "b": (rs.randn(PP_D) * 0.1).astype(np.float32)}
+              for _ in range(stages)]
+    x = rs.randn(PP_B, PP_D).astype(np.float32)
+    return params, x
+
+
+def pp_stage_fn(p, x):
+    import torch
+
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pp_lm_batches(steps=TRAIN_STEPS):
+    out = []
+    for step in range(steps):
+        rs = np.random.RandomState(200 + step)
+        toks = rs.randint(0, PP_LM_KW["vocab_size"],
+                          size=(PP_TRAIN_B, PP_TRAIN_S + 1))
+        out.append({"x": toks[:, :-1].astype(np.int32),
+                    "y": toks[:, 1:].astype(np.int32)})
+    return out
+
+
+def _pp_lm(model_kw, params):
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import factory
+
+    model = factory.get_model("pipelined_transformer", device="cpu",
+                              dtype=torch.float32, **PP_LM_KW, **model_kw)
+    model.load_state_dict(params)
+    return model
+
+
+def _train_case(build, mesh_kw, batches, params, outdir=None):
+    """Three AdamW steps of ``build(params)`` under ``mesh_kw``: each
+    rank's losses, aux losses, full final parameters and the bytes of the
+    parameters it holds by name; the state is saved under ``outdir``."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig
+    from tensorflowonspark_tpu_torch.train import checkpoint, trainer
+
+    mesh = MeshConfig(**mesh_kw).build()
+    tr = trainer.Trainer(build(params), optimizer=trainer.adamw(TRAIN_LR),
+                         mesh=mesh, device="cpu")
+    state = tr.init()
+    rows = tr.batch_placer.rows(batches[0]["x"].shape[0])
+    losses, aux = [], []
+    for batch in batches:
+        state, m = tr.train_step(state, {k: v[rows]
+                                         for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux_loss"]))
+    full = {k: _numpy(v) for k, v in
+            state.sharding.full_state_dict(dict(state.params)).items()}
+    out = {"losses": losses, "aux": aux, "params": full,
+           "held": {k: p.numel() * p.element_size()
+                    for k, p in state.params.items()}}
+    if outdir is not None:
+        mgr = checkpoint.CheckpointManager(outdir)
+        mgr.save(state, force=True)
+        mgr.close()
+    return out
+
+
+def pipeline_cases(rank, world, args):
+    import torch
+
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
+    from tensorflowonspark_tpu_torch.parallel import pipeline as pp
+
+    def run(case):
+        pipe, stages, rounds, mb, layout = PIPELINE_CASES[case]
+        mesh = MeshConfig(data=world // pipe, pipe=pipe).build()
+        params, x = pipeline_inputs(stages)
+        stacked = pp.stack_stage_params(
+            [{k: torch.tensor(v) for k, v in p.items()} for p in params])
+        if layout != "stacked":
+            stacked = pp.factor_stage_params(stacked, rounds, pipe)
+        if layout == "shard":
+            d = mesh.coords["pipe"]
+            stacked = {k: v[:, d:d + 1].clone() for k, v in stacked.items()}
+        leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+        xt = torch.tensor(x, requires_grad=True)
+        with mesh_lib.use_mesh(mesh):
+            out = pp.pipeline(pp_stage_fn, leaves, xt, mb, num_rounds=rounds,
+                              factored=layout != "stacked")
+        (out ** 2).sum().backward()
+        return {"out": _numpy(out), "dx": _numpy(xt.grad),
+                "grads": {k: _numpy(v.grad) for k, v in leaves.items()},
+                "pipe_index": mesh.coords["pipe"]}
+
+    results = _cases(PIPELINE_CASES, run)
+
+    def error(name):
+        mesh = MeshConfig(data=world // 2, pipe=2).build()
+        params, x = pipeline_inputs(4)
+        stacked = pp.stack_stage_params(
+            [{k: torch.tensor(v) for k, v in p.items()} for p in params])
+        xt = torch.tensor(x)
+        call = {
+            "not_multiple": lambda: pp.pipeline(
+                pp_stage_fn, {k: v[:3] for k, v in stacked.items()}, xt, 4),
+            "interleaved_stacked": lambda: pp.pipeline(
+                pp_stage_fn, stacked, xt, 4, num_rounds=2),
+            "too_few_microbatches": lambda: pp.pipeline(
+                pp_stage_fn, pp.factor_stage_params(stacked, 2, 2), xt, 1,
+                num_rounds=2, factored=True),
+            "indivisible": lambda: pp.pipeline(pp_stage_fn, stacked, xt, 3),
+            "factored_lead": lambda: pp.pipeline(
+                pp_stage_fn, pp.factor_stage_params(stacked, 1, 4), xt, 4,
+                num_rounds=1, factored=True),
+        }[name]
+        with mesh_lib.use_mesh(mesh):
+            try:
+                call()
+            except ValueError as e:
+                return {"message": str(e)}
+        return {"message": None}
+
+    results.update(_cases(PIPELINE_ERRORS, error))
+    params = torch.load(args["params"], weights_only=True)
+
+    def train(case):
+        mesh_kw, model_kw = PP_TRAIN_CASES[case]
+        return _train_case(lambda p: _pp_lm(model_kw, p), mesh_kw,
+                           pp_lm_batches(), params)
+
+    results.update(_cases(PP_TRAIN_CASES, train))
+    return results
+
+
+def interleaved_cases(rank, world, args):
+    import torch
+
+    params = torch.load(args["params"], weights_only=True)
+
+    def train(case):
+        mesh_kw, model_kw = PP_INTERLEAVED_CASES[case]
+        return _train_case(lambda p: _pp_lm(model_kw, p), mesh_kw,
+                           pp_lm_batches(), params,
+                           os.path.join(args["outdir"], "ckpt_" + case))
+
+    return _cases(PP_INTERLEAVED_CASES, train)
+
+
+# -- expert parallelism -----------------------------------------------------------
+
+MOE_LM_KW = dict(vocab_size=64, num_layers=2, num_heads=2, embed_dim=32,
+                 mlp_dim=64, max_seq_len=64, num_experts=4, moe_every=2,
+                 remat=False)
+MOE_TRAIN_B, MOE_TRAIN_S = 8, 16
+MOE_WORLD = 4
+MOE_CASES = {"data2_expert2": dict(data=2, expert=2)}
+
+
+def moe_batches(steps=TRAIN_STEPS):
+    out = []
+    for step in range(steps):
+        rs = np.random.RandomState(300 + step)
+        out.append({
+            "x": rs.randint(0, MOE_LM_KW["vocab_size"],
+                            size=(MOE_TRAIN_B, MOE_TRAIN_S)).astype(np.int32),
+            "y": rs.randint(0, MOE_LM_KW["vocab_size"],
+                            size=(MOE_TRAIN_B, MOE_TRAIN_S)).astype(np.int32)})
+    return out
+
+
+def moe_lm(params, **kw):
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import factory
+
+    model = factory.get_model("moe_transformer", device="cpu",
+                              dtype=torch.float32, **dict(MOE_LM_KW, **kw))
+    model.load_state_dict(params)
+    return model
+
+
+def moe_cases(rank, world, args):
+    import torch
+
+    params = torch.load(args["params"], weights_only=True)
+
+    def train(case):
+        return _train_case(moe_lm, MOE_CASES[case], moe_batches(), params,
+                           os.path.join(args["outdir"], "ckpt_" + case))
+
+    return _cases(MOE_CASES, train)
