@@ -12,8 +12,10 @@ calls and fails (non-zero exit) if any phase fails:
                f32, bf16, int8, int8_bf16 and GQA f32; GQA and MQA bf16,
                head widths 32 and 128, edge rows, one long row, a wide
                table, d = 8 int8 and token-tiled f32 pages; every case
-               called twice and held bitwise equal to itself), and the
-               flash-attention forward,
+               called twice and held bitwise equal to itself; over a
+               verify window of 13 queries a row, ``paged_attention_window``'s
+               one launch bitwise equal to 13 one-token calls, at the main
+               shape and its GQA variant), and the flash-attention forward,
                dQ and dK/dV kernels (B1-B3) at the training shapes, packed,
                GQA, f32, ragged (s 1000) and non-causal rectangular, at
                GPT-2-small's width split into head widths 32 and 128 (SDPA's
@@ -37,6 +39,17 @@ calls and fails (non-zero exit) if any phase fails:
                a preemption drill in swap (streams bitwise the
                uninterrupted run's) and recompute mode; swap-out and
                swap-in times a page;
+   spec     — speculative decoding: (a) ``bench_serving_speculative``'s
+               latency regime (``serve_default``'s model as the stem-sharing
+               target and ``gpt2-draft`` pair, one slot, page 64, k 12,
+               horizon 8; prompts of 24-64 tokens, 64 new each) against the
+               same engine without a draft: tok/s, acceptance rate, rounds;
+               (b) a random-init draft at 8 rows, k 4 (every round rolls
+               back), bf16, f32 and int8 pools, against the same load
+               without a draft; every stream held against the baseline's
+               one-token paged steps teacher-forced (near ties excepted),
+               B4 launched verify calls x 12 + draft steps x 2 (+ decode
+               calls x 8 x 12) times, no page left;
    fleet    — the serving fleet plane at ``serve_default``'s geometry and
                load: (a) a prefill-role and a decode-role engine behind
                ``ServingFleet`` (the pages crossing through the handoff
@@ -181,16 +194,16 @@ calls and fails (non-zero exit) if any phase fails:
 8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The B1-B3 rows' ``launches`` add the executors' launches of the cluster,
-recover, shard, moe and pipe phases (each executor resets its counts before its loop and
-reports them; a recover incarnation appends its counts to its audit log
-at every step, since a crashed one returns nothing) to the train
-phase's; the B4 row adds the moe phase's serving. The last two lines of standard output are the
-``kernels`` JSON record and
-``{"ok": true, "device": {...}}``. In the record, ``ms`` and ``library_ms``
-are device times (:func:`device_ms`: the call's kernels alone, timed with
-the card held busy until the host has queued the call); ``call_ms`` and
-``plain_ms`` are CUDA events around the whole call (:func:`time_cold`), the
-wrapper's host work included.
+recover, shard, moe and pipe phases (each executor resets its counts
+before its loop and reports them; a recover incarnation appends its
+counts to its audit log at every step, since a crashed one returns
+nothing) to the train phase's; the B4 row adds the spec and moe phases'
+serving. The last two lines of standard output are the ``kernels`` JSON
+record and ``{"ok": true, "device": {...}}``. In the record, ``ms`` and
+``library_ms`` are device times (:func:`device_ms`: the call's kernels
+alone, timed with the card held busy until the host has queued the call);
+``call_ms`` and ``plain_ms`` are CUDA events around the whole call
+(:func:`time_cold`), the wrapper's host work included.
 """
 
 import contextlib
@@ -447,6 +460,43 @@ def paged_check(torch, pa, shape_name, kind, c):
     return err
 
 
+def window_check(torch, pa, w=13):
+    """B4 over a verify window (``paged_attention_window``: one launch over
+    b * W virtual rows) against W one-token calls at ``seq_len = lens + j``,
+    bitwise: a row's output depends only on its query, table and length.
+    W = 13 (the spec phase's k = 12), bf16 at the main shape and at its GQA
+    variant, each row's window ending inside its table."""
+    for name, h_kv in (("main", PAGED_MAIN["h_kv"]), ("gqa", 4)):
+        kw = dict(PAGED_MAIN, h_kv=h_kv)
+        lens = [max(0, n - w) for n in kw["lens"]]
+        c = paged_case(torch, 100 + h_kv, torch.bfloat16, False, kw["h"],
+                       h_kv, kw["d"], kw["ps"], kw["tw"], lens)
+        b = len(lens)
+        g = torch.Generator().manual_seed(h_kv)
+        q = torch.randn(b, w, kw["h"], kw["d"], generator=g).to(
+            torch.bfloat16).cuda()
+        args = (c["k_pages"], c["v_pages"], c["page_table"])
+        before = pa.launches
+        got = pa.paged_attention_window(q, *args, c["seq_lens"],
+                                        page_size=c["page_size"])
+        if pa.launches != before + 1:
+            raise AssertionError("paged_attention_window launched {} "
+                                 "kernels".format(pa.launches - before))
+        differ = 0
+        for j in range(w):
+            one = pa.paged_attention(q[:, j:j + 1].contiguous(), *args,
+                                     c["seq_lens"] + j,
+                                     page_size=c["page_size"])
+            differ += int((got[:, j:j + 1] != one).sum())
+        torch.cuda.synchronize()
+        log("kernel paged_decode window {:4s} W {} rows {}: {} of {} "
+            "outputs differ from the one-token calls".format(
+                name, w, b * w, differ, got.numel()))
+        if differ:
+            raise AssertionError("paged_attention_window {} differs from "
+                                 "one-token calls".format(name))
+
+
 def kernel_phase(torch, pa, device_info):
     cases = []
     for shape_name, shape in (("bench", PAGED_BENCH), ("main", PAGED_MAIN)):
@@ -467,6 +517,7 @@ def kernel_phase(torch, pa, device_info):
                        kw["lens"])
         cases.append((shape_name, kind, c,
                       paged_check(torch, pa, shape_name, kind, c)))
+    window_check(torch, pa, SPEC_K + 1)
     peak_bw = device_info.peak_bandwidth()
     if peak_bw is None:
         raise RuntimeError("no bandwidth figure for this card: {}".format(
@@ -1179,6 +1230,357 @@ def swap_timing(torch, engine, card, n_pages=3, reps=5):
             float(np.median(in_ms)) / n_pages, n_pages, reps, card))
 
 
+# -- speculative decoding -----------------------------------------------------
+
+# bench.py:1739-1809 ``bench_serving_speculative``: the latency regime (one
+# slot, page 64, k 12, horizon 8, prefill floor 32) on ``_serving_model``
+# with the stem-sharing ``gpt2-draft`` pair; prompts of 24, 32, 48 and 64
+# tokens, 64 new tokens each, every shape warmed once.
+SPEC_SHAPES = [(24, 64), (32, 64), (48, 64), (64, 64)]
+SPEC_K = 12
+SPEC_ENGINE = dict(max_slots=1, page_size=64, decode_horizon=8,
+                   prefill_floor=32)
+# The rollback path: a random-init draft (acceptance ~1/vocab, so every
+# round rejects) at 8 rows, k 4, horizon 8, page 64: bf16 and f32 targets
+# and a bf16 target over int8 pools, against the same load without a draft.
+SPEC_ROLLBACK_K = 4
+SPEC_ROLLBACK_ROWS = 8
+SPEC_ROLLBACK_CASES = [("bf16", "bfloat16", ""), ("f32", "float32", ""),
+                       ("int8", "bfloat16", "int8")]
+
+
+def stem_sharing_pair(torch, model, variables, draft_layers=2):
+    """bench.py:1688-1733 ``_speculative_pair`` on the port: the target's
+    blocks from ``draft_layers`` up get their residual writes zeroed
+    (``attn.out`` and ``mlp.down``, so each is x + 0) and the draft is the
+    registry's ``gpt2-draft`` reusing the target's stem (embedding,
+    positions, final norm, the first ``draft_layers`` blocks). Draft and
+    target then compute the same logits while the target still streams all
+    of its layers. Returns (target variables, draft model, draft
+    variables)."""
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch.models import factory
+
+    target = dict(variables)
+    for i in range(draft_layers, model.cfg.num_layers):
+        for name in ("attn.out.kernel", "mlp.down.kernel"):
+            key = "block_{}.{}".format(i, name)
+            target[key] = torch.zeros_like(target[key])
+    stem = {"embed", "pos_embed", "ln_f"} | {
+        "block_{}".format(i) for i in range(draft_layers)}
+    draft_vars = {k: v for k, v in target.items()
+                  if k.split(".")[0] in stem}
+    kw = {f.name: getattr(model.cfg, f.name)
+          for f in dataclasses.fields(model.cfg)}
+    kw["num_layers"] = draft_layers
+    draft = factory.get_model("gpt2-draft", device=str(model.device), **kw)
+    if set(draft.state_dict()) != set(draft_vars):
+        raise AssertionError("the draft's parameters are not the target's "
+                             "stem: {}".format(sorted(
+                                 set(draft.state_dict()) ^ set(draft_vars))))
+    return target, draft, draft_vars
+
+
+def _paged_teacher_forced(torch, model, kv, reqs, streams, page_size=64,
+                          prefill_floor=32):
+    """Each stream against the baseline engine's own computation,
+    teacher-forced: the prompt's prefill (the engine's chunk allocation)
+    scattered into a one-row pool of the stream's KV dtype, then one-token
+    paged steps along the stream (B4 on every step); see
+    :func:`_teacher_forced`."""
+    from tensorflowonspark_tpu_torch.serving import PagePool
+    from tensorflowonspark_tpu_torch.serving.runner import ModelRunner
+
+    longest = max(len(p) + n for p, n in reqs)
+    r = ModelRunner(model, None, max_slots=1, page_size=page_size,
+                    num_pages=1 + PagePool.pages_needed(longest, page_size),
+                    prefill_floor=prefill_floor, kv_quant=kv)
+    row = np.arange(1, 1 + r.table_width, dtype=np.int32)
+    table = torch.as_tensor(row[None], device=model.device)
+
+    def start(p, n):
+        alloc = r.prefill_alloc(len(p))
+        pc, logits = r.prefill_step(r.new_prefill_cache(alloc), p[None],
+                                    len(p) - 1, alloc)
+        r.scatter(pc, row, len(p), alloc)
+        return logits
+
+    def step(tok, pos):
+        return model(torch.tensor([[tok]], device=model.device),
+                     decode=True, pages=table,
+                     seq_lens=torch.tensor([pos], dtype=torch.int32,
+                                           device=model.device),
+                     cache=r.cache)[0, 0].float()
+
+    return _teacher_forced(torch, reqs, streams, start, step,
+                           "the baseline's paged steps")
+
+
+def _held(torch, model, kv, reqs, spec, base):
+    """Speculative streams against the baseline engine's: how many are
+    equal, every speculative stream held against the baseline's paged
+    steps teacher-forced, and the baseline's own streams where the two
+    differ (an equal one is covered by the first check). Returns the
+    summary text."""
+    differ = [i for i, (a, b) in enumerate(zip(spec, base)) if a != b]
+    held = _paged_teacher_forced(torch, model, kv, reqs, spec)
+    base_held = (_paged_teacher_forced(
+        torch, model, kv, [reqs[i] for i in differ],
+        [base[i] for i in differ]) if differ else (0, 0, 0.0))
+    return ("streams equal to the baseline's {} of {}; teacher-forced on "
+            "the baseline's paged steps: spec {} tokens, {} near-tie stops "
+            "(worst {:.1f} bf16 steps); the differing baseline streams {} "
+            "tokens, {} stops (worst {:.1f})".format(
+                len(spec) - len(differ), len(spec), *held, *base_held))
+
+
+class _SpanWindow:
+    """The engine's ``serve/*`` spans over one run, when ``on``: span
+    recording into a ring buffer (no export), median milliseconds by name
+    after :meth:`close`."""
+
+    NAMES = ("serve/draft", "serve/verify", "serve/draft_prefill",
+             "serve/decode_batch")
+
+    def __init__(self, on):
+        from tensorflowonspark_tpu_torch import telemetry
+
+        self.rec = None
+        if on and not telemetry.enabled():
+            self.rec = telemetry.configure(node_id="spec")
+        self.medians = {}
+
+    def close(self):
+        from tensorflowonspark_tpu_torch import telemetry
+
+        if self.rec is None:
+            return
+        by_name = {}
+        for sp in self.rec.spans():
+            if sp["name"] in self.NAMES:
+                by_name.setdefault(sp["name"], []).append(sp["dur"] * 1e3)
+        telemetry.disable()
+        self.medians = {k: (float(np.median(v)), len(v))
+                        for k, v in by_name.items()}
+
+    def text(self):
+        return "".join(
+            "; {} median {:.3f} ms of {}".format(k, *self.medians[k])
+            for k in self.NAMES if k in self.medians)
+
+
+def _spec_profile(torch, engine, card):
+    """One speculative round of one row at position 100 (the draft's k
+    steps, then the target's verify of k + 1 tokens), or without a draft
+    one decode call at the engine's horizon: host and device-busy ms,
+    idle share and device kernels (:func:`profile_window`)."""
+    r = engine.runner
+    k = engine.speculative_tokens
+    lens = np.full((1,), 100, np.int32)
+    zf, zi = np.zeros((1,), np.float32), np.zeros((1,), np.int32)
+    table = np.zeros((1, r.table_width), np.int32)
+    table[0, :3] = [1, 2, 3]
+    if k:
+        toks = np.ones((1, k + 1), np.int32)
+
+        def run():
+            engine.draft_runner.decode(toks[:, 0], engine._draft_table[:1],
+                                       lens, zf, zi, zf, horizon=k,
+                                       sampling=False)
+            r.verify(toks, table, lens)
+        what = "round (draft {} steps + verify {} tokens)".format(k, k + 1)
+    else:
+        def run():
+            r.decode(zi + 1, table, lens, zf, zi, zf,
+                     horizon=engine.decode_horizon, sampling=False)
+        what = "decode call (horizon {})".format(engine.decode_horizon)
+    host, wall, busy, kernels = profile_window(torch, run)
+    log("profile spec (a) {}, one row: host {:.3f} ms unprofiled; profiled "
+        "{:.3f} ms, device busy {:.3f} ms, idle share {:.3f}, {:.0f} device "
+        "kernels ({})".format(what, host, wall, busy, 1.0 - busy / wall,
+                              kernels, card))
+
+
+def _spec_run(torch, pa, engine, reqs):
+    """Serve ``reqs`` on a warmed engine with B4's count set to 0 just
+    before and read just after. Every request must finish with its token
+    count and no page stay in use; B4 must have launched verify calls x the
+    target's layers + draft steps x the draft's layers + decode calls x
+    horizon x the target's layers. Returns (streams, tokens/s, B4
+    launches, counter deltas)."""
+    from tensorflowonspark_tpu_torch.serving import FINISHED
+
+    keys = ("spec_rounds", "spec_drafted", "spec_accepted", "decode_steps")
+    before = engine.stats()
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, n) for p, n in reqs]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    dur = time.perf_counter() - t0
+    launches = pa.launches
+    after = engine.stats()
+    d = {k: after[k] - before[k] for k in keys}
+    streams = []
+    for (p, n), h in zip(reqs, handles):
+        toks = h.result(timeout=5)
+        if h.state != FINISHED or len(toks) != n:
+            raise AssertionError("request ended {} with {} of {} tokens"
+                                 .format(h.state, len(toks), n))
+        streams.append(toks)
+    k = engine.speculative_tokens
+    draft_layers = (engine.draft_runner.model.cfg.num_layers
+                    if engine.draft_runner is not None else 0)
+    want = (d["spec_rounds"] * engine.num_layers
+            + d["spec_rounds"] * k * draft_layers
+            + d["decode_steps"] * engine.decode_horizon * engine.num_layers)
+    if launches != want:
+        raise AssertionError(
+            "paged_decode launched {} times; {} verify calls x {} + {} draft "
+            "steps x {} + {} decode calls x {} x {} = {}".format(
+                launches, d["spec_rounds"], engine.num_layers,
+                d["spec_rounds"] * k, draft_layers, d["decode_steps"],
+                engine.decode_horizon, engine.num_layers, want))
+    if engine.pool.pages_in_use:
+        raise AssertionError("pages leaked: {}".format(
+            engine.pool.pages_in_use))
+    return streams, sum(n for _, n in reqs) / dur, launches, d
+
+
+def _spec_engine(model, variables, reqs_warm, draft=None, k=0, **kw):
+    """A warmed engine (one drained request a shape) with or without a
+    draft ``(model, variables)``."""
+    from tensorflowonspark_tpu_torch.serving import ServingEngine
+
+    if draft is not None:
+        kw.update(draft_model=draft[0], draft_variables=draft[1],
+                  speculative_tokens=k)
+    engine = ServingEngine(model, variables, device="cuda", **kw)
+    for p, n in reqs_warm:
+        engine.submit(p, n)
+    engine.run_until_idle()
+    return engine
+
+
+def spec_phase(torch, pa, card):
+    """Speculative decoding on the card: (a) ``bench_serving_speculative``'s
+    latency regime, spec against baseline tok/s, the acceptance rate and the
+    rounds, streams held against the baseline's teacher-forced; (b) the
+    rollback path, a noise draft at 8 rows in bf16, f32 and over int8
+    pools, against the same load without a draft; (c) in every run B4
+    launched verify calls x 12 + draft steps x 2 (+ decode calls x 8 x 12
+    without a draft) times, no page left. Returns B4's launches over the
+    counted runs."""
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+    from tensorflowonspark_tpu_torch.serving import PagePool
+
+    t_phase = time.perf_counter()
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device="cuda", seed=0, **SERVE_DEFAULT_LM)
+    variables = decoding.serving_variables(model.state_dict(),
+                                           torch.bfloat16)
+    target_vars, draft, draft_vars = stem_sharing_pair(torch, model,
+                                                       variables)
+    vocab = model.cfg.vocab_size
+    rs = np.random.RandomState(0)
+    reqs = [(rs.randint(1, vocab, size=p).astype(np.int32), n)
+            for p, n in SPEC_SHAPES]
+    warm = [(rs.randint(1, vocab, size=p).astype(np.int32), n)
+            for p, n in SPEC_SHAPES]
+    ps = SPEC_ENGINE["page_size"]
+    per_req = PagePool.pages_needed(
+        max(p + n for p, n in SPEC_SHAPES)
+        + max(SPEC_ENGINE["decode_horizon"] - 1, SPEC_K), ps)
+    num_pages = 1 + (per_req + 1) * SPEC_ENGINE["max_slots"]
+    launches = 0
+    runs = {}
+    for name, pair in (("baseline", None), ("spec", (draft, draft_vars))):
+        engine = _spec_engine(model, target_vars, warm, draft=pair, k=SPEC_K,
+                              num_pages=num_pages, **SPEC_ENGINE)
+        spans = _SpanWindow(pair is not None)
+        streams, tok_s, n_b4, d = _spec_run(torch, pa, engine, reqs)
+        spans.close()
+        _spec_profile(torch, engine, card)
+        engine.close()
+        launches += n_b4
+        runs[name] = (streams, tok_s, d)
+        log("spec (a) {:8s}: 4 requests, 256 tokens, {:.1f} tok/s, rounds "
+            "{} drafted {} accepted {} decode calls {}, B4 launches {}{} "
+            "({})".format(name, tok_s, d["spec_rounds"], d["spec_drafted"],
+                          d["spec_accepted"], d["decode_steps"], n_b4,
+                          spans.text(), card))
+    spec, base = runs["spec"], runs["baseline"]
+    rate = spec[2]["spec_accepted"] / max(1, spec[2]["spec_drafted"])
+    log("spec (a) latency regime (k {}, one slot, horizon 8): spec {:.1f} "
+        "tok/s, baseline {:.1f} tok/s, speedup {:.3f}, acceptance rate "
+        "{:.4f}, rounds {}; {} ({})".format(
+            SPEC_K, spec[1], base[1], spec[1] / base[1], rate,
+            spec[2]["spec_rounds"],
+            _held(torch, model, "", reqs, spec[0], base[0]), card))
+    del draft, draft_vars, target_vars
+    launches += _spec_rollback(torch, pa, model, variables, card)
+    del model, variables
+    torch.cuda.empty_cache()
+    log("spec phase {:.1f} s".format(time.perf_counter() - t_phase))
+    return launches
+
+
+def _spec_rollback(torch, pa, model, variables, card):
+    """(b): a random-init draft at 8 rows, every case against the same
+    load without a draft, both held against the baseline's teacher-forced
+    paged steps."""
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+
+    vocab = model.cfg.vocab_size
+    rs = np.random.RandomState(1)
+    reqs = [(rs.randint(1, vocab, size=int(rs.randint(16, 129))).astype(
+        np.int32), 32) for _ in range(SPEC_ROLLBACK_ROWS)]
+    warm = [(rs.randint(1, vocab, size=64).astype(np.int32), 32)]
+    kw = dict(max_slots=SPEC_ROLLBACK_ROWS, page_size=64, decode_horizon=8,
+              prefill_floor=32)
+    launches = 0
+    for name, dtype_name, kv in SPEC_ROLLBACK_CASES:
+        dtype = getattr(torch, dtype_name)
+        if dtype == torch.bfloat16:
+            target, tvars = model, variables
+        else:
+            target = factory.get_model("transformer", dtype=dtype,
+                                       device="cuda", seed=0,
+                                       **SERVE_DEFAULT_LM)
+            tvars = None
+        draft = factory.get_model("gpt2-draft", dtype=dtype, device="cuda",
+                                  seed=1, vocab_size=vocab)
+        dvars = (decoding.serving_variables(draft.state_dict(), dtype)
+                 if dtype == torch.bfloat16 else draft.state_dict())
+        runs = {}
+        for run, pair in (("baseline", None), ("spec", (draft, dvars))):
+            engine = _spec_engine(target, tvars, warm, draft=pair,
+                                  k=SPEC_ROLLBACK_K, kv_cache_dtype=kv, **kw)
+            runs[run] = _spec_run(torch, pa, engine, reqs)
+            engine.close()
+            launches += runs[run][2]
+        (spec, spec_tok_s, spec_b4, d), (base, base_tok_s, base_b4, _) = \
+            runs["spec"], runs["baseline"]
+        log("spec (b) rollback {:4s}: {} rows, k {}: rounds {} drafted {} "
+            "accepted {}, B4 launches {} (= {} x {} + {} x 2) against "
+            "baseline {}; {}; {:.1f} against {:.1f} tok/s ({})".format(
+                name, SPEC_ROLLBACK_ROWS, SPEC_ROLLBACK_K, d["spec_rounds"],
+                d["spec_drafted"], d["spec_accepted"], spec_b4,
+                d["spec_rounds"], model.cfg.num_layers,
+                d["spec_rounds"] * SPEC_ROLLBACK_K, base_b4,
+                _held(torch, target, kv, reqs, spec, base), spec_tok_s,
+                base_tok_s, card))
+        if not d["spec_rounds"] or d["spec_accepted"] == d["spec_drafted"]:
+            raise AssertionError("the noise draft's rounds did not roll "
+                                 "back: {}".format(d))
+        del draft, dvars
+        if target is not model:
+            del target
+        torch.cuda.empty_cache()
+    return launches
+
+
 # -- the serving fleet plane --------------------------------------------------
 
 # The fleet phase serves ``serve_default``'s model and load (24 requests,
@@ -1870,43 +2272,61 @@ def _serve_greedy(torch, model, variables, reqs, pa):
     return streams, launches, steps
 
 
-def _solo_teacher_forced(torch, model, reqs, streams):
-    """Each engine stream against solo decode teacher-forced on the
-    engine's own tokens (what solo ``generate`` computes up to the first
-    difference). Returns (tokens compared, near-tie stops, largest gap at
-    a stop in bf16 steps)."""
-    from tensorflowonspark_tpu_torch.models import decoding
-
+def _teacher_forced(torch, reqs, streams, start, step, what):
+    """Each stream against a model teacher-forced on the stream's own
+    tokens: ``start(p, n)`` gives the logits after prompt ``p`` (``n``
+    tokens to follow), ``step(tok, pos)`` those after ``tok`` at position
+    ``pos``. A stream stops at its first difference, which must be a near
+    tie (the top two logits within ``BF16_NEAR_TIE_ULPS`` bf16 steps).
+    Returns (tokens compared, near-tie stops, largest gap at a stop in
+    bf16 steps)."""
     compared = stops = 0
     worst = 0.0
     with torch.no_grad():
         for (p, n), toks in zip(reqs, streams):
-            cache = decoding.init_cache(
-                model, 1, decoding._bucketed_cache_len(
-                    len(p) + n, model.cfg.max_seq_len))
-            logits = model(torch.as_tensor(p[None],
-                                           device=model.device).long(),
-                           decode=True, cache=cache)[0, -1].float()
+            logits = start(p, n)
             for j, tok in enumerate(toks):
-                solo_tok = int(torch.argmax(logits))
+                want = int(torch.argmax(logits))
                 compared += 1
-                if solo_tok != tok:
+                if want != tok:
                     top2 = torch.topk(logits, 2).values
                     top, second = float(top2[0]), float(top2[1])
                     ulps = (top - second) / bf16_ulp(top)
                     if ulps > BF16_NEAR_TIE_ULPS:
                         raise AssertionError(
-                            "served stream differs from solo at step {}: "
-                            "engine {} solo {} (top-2 gap {} = {:.1f} bf16 "
-                            "steps)".format(j, tok, solo_tok, top - second,
-                                            ulps))
+                            "served stream differs from {} at step {}: "
+                            "engine {}, {} {} (top-2 gap {} = {:.1f} bf16 "
+                            "steps)".format(what, j, tok, what, want,
+                                            top - second, ulps))
                     stops += 1
                     worst = max(worst, ulps)
                     break
                 if j + 1 < len(toks):
-                    logits = model(torch.tensor([[tok]], device=model.device),
-                                   decode=True, cache=cache)[0, -1].float()
+                    logits = step(tok, len(p) + j)
     return compared, stops, worst
+
+
+def _solo_teacher_forced(torch, model, reqs, streams):
+    """Each engine stream against solo decode teacher-forced on the
+    engine's own tokens (what solo ``generate`` computes up to the first
+    difference); see :func:`_teacher_forced`."""
+    from tensorflowonspark_tpu_torch.models import decoding
+
+    cache = {}
+
+    def start(p, n):
+        cache.clear()
+        cache.update(decoding.init_cache(
+            model, 1, decoding._bucketed_cache_len(
+                len(p) + n, model.cfg.max_seq_len)))
+        return model(torch.as_tensor(p[None], device=model.device).long(),
+                     decode=True, cache=cache)[0, -1].float()
+
+    def step(tok, pos):
+        return model(torch.tensor([[tok]], device=model.device),
+                     decode=True, cache=cache)[0, -1].float()
+
+    return _teacher_forced(torch, reqs, streams, start, step, "solo")
 
 
 def whole_path_phase(torch, fa, pa, card, plain_step_ms):
@@ -4743,6 +5163,7 @@ def main():
     fa.reset_launches()
     launches = main_phase(torch, pa)
     launches += serve_default_phase(torch, pa, card)
+    launches += spec_phase(torch, pa, card)
     t0 = time.perf_counter()
     launches += fleet_phase(torch, pa, card)
     log("fleet phase {:.1f} s".format(time.perf_counter() - t0))

@@ -12,8 +12,12 @@ the JAX package's filter semantics; ``eos_token`` freezes finished rows at
 ``pad_token``. Random draws come from a ``torch.Generator``; they are not
 ``jax.random``'s bits, so sampled streams match the JAX package only in
 distribution.
+
+``speculative_lengths`` is the engine's greedy acceptance rule: numpy in,
+numpy out, the JAX function's arithmetic.
 """
 
+import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch.models.transformer import _NEG_INF
@@ -178,3 +182,29 @@ def generate(model, variables, prompt, max_new_tokens, rng=None,
         out.append(nxt)
         tok = nxt
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+def speculative_lengths(draft, greedy):
+    """Greedy speculative acceptance (the JAX package's
+    ``speculative_lengths``): the lossless temperature-0 case of Leviathan
+    et al.'s rejection sampling, where acceptance is an exact token match.
+
+    ``draft``: (rows, k) int, the draft's k proposals a row; ``greedy``:
+    (rows, W >= k) int, the target's greedy argmax at each verify position
+    (``serving.runner.ModelRunner.verify``): column j is the target's next
+    token after the j-th verify input (column 0 the row's newest real
+    token, columns 1..k the proposals).
+
+    Returns ``(accepted, emitted)`` int64 (rows,) arrays: ``accepted`` is
+    the longest proposal prefix the target reproduces (the first mismatch's
+    index, k when all match); ``emitted`` the accepted prefix plus the
+    target's correction token, capped at k. With no bonus token on full
+    acceptance, draft and target caches both hold exactly the emitted
+    prefix, and the k-th proposal becomes the next round's input. Every
+    emitted token is ``greedy[row, :emitted]``, the target's own choice."""
+    draft = np.asarray(draft)
+    greedy = np.asarray(greedy)
+    k = draft.shape[1]
+    match = draft == greedy[:, :k]
+    accepted = np.where(match.all(axis=1), k, match.argmin(axis=1))
+    return accepted, np.minimum(accepted + 1, k)

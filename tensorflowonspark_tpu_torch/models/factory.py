@@ -1,15 +1,27 @@
 """Model registry (port of ``models/factory.py``): the transformer LM, its
-MoE and pipelined variants, the ResNet family, the MLP and linear
-regression; the rest of the zoo follows in later slices (ROADMAP A11)."""
+MoE and pipelined variants, the speculative-decoding draft ``gpt2-draft``,
+the ResNet family, the MLP and linear regression; the rest of the zoo
+follows in later slices (ROADMAP A11)."""
 
 from tensorflowonspark_tpu_torch.models import (
     mlp, moe, pipelined, resnet, transformer,
 )
 
+# The shared speculative-decoding draft geometry: GPT-2-small's stem
+# (width, heads, vocab, context 512) cut to 2 layers, so a draft can share
+# the target's embedding and head; keywords override it.
+GPT2_DRAFT = dict(vocab_size=50257, num_layers=2, num_heads=12, embed_dim=768,
+                  mlp_dim=3072, max_seq_len=512, remat=False,
+                  decode_attention="chunked")
+
 _REGISTRY = {
     "transformer": lambda device="cuda", seed=0, **kw:
         transformer.TransformerLM(transformer.TransformerConfig(**kw),
                                   device=device, seed=seed),
+    "gpt2-draft": lambda device="cuda", seed=0, **kw:
+        transformer.TransformerLM(
+            transformer.TransformerConfig(**{**GPT2_DRAFT, **kw}),
+            device=device, seed=seed),
     "moe_transformer": lambda device="cuda", seed=0, **kw:
         moe.MoETransformerLM(moe.MoEConfig(**kw), device=device, seed=seed),
     "pipelined_transformer": lambda device="cuda", seed=0, **kw:

@@ -203,9 +203,9 @@ class MoEBlock(nn.Module):
         self.moe = MoEMLP(cfg)
 
     def forward(self, x, segment_ids=None, decode=False, pages=None,
-                seq_lens=None, cache=None):
+                seq_lens=None, cache=None, verify=False):
         x = x + self.attn(self.ln1(x), segment_ids, decode, pages=pages,
-                          seq_lens=seq_lens, cache=cache)
+                          seq_lens=seq_lens, cache=cache, verify=verify)
         return x + self.moe(self.ln2(x), decode=decode)
 
 

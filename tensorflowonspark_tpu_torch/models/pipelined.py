@@ -185,7 +185,7 @@ class PipelinedTransformerLM(transformer_lib.TransformerLM):
         return super()._forward(tokens, segment_ids, decode, *args)
 
     def apply_blocks(self, x, segment_ids=None, decode=False, pages=None,
-                     seq_lens=None, cache=None):
+                     seq_lens=None, cache=None, verify=False):
         cfg = self.cfg
         layers = cfg.num_layers // cfg.num_stages
         remat = cfg.remat and torch.is_grad_enabled()

@@ -366,7 +366,7 @@ class Attention(nn.Module):
         self.out = OutProj(cfg)
 
     def forward(self, x, segment_ids=None, decode=False, pages=None,
-                seq_lens=None, cache=None):
+                seq_lens=None, cache=None, verify=False):
         cfg = self.cfg
         attention_ops.check_impl(cfg.attention_impl, cfg.ring_layout)
         if self.tp_group is not None:
@@ -384,7 +384,7 @@ class Attention(nn.Module):
             if segment_ids is not None:
                 raise NotImplementedError(
                     "decode mode does not support segment_ids")
-            out = self._decode_step(q, k, v, cache, pages, seq_lens)
+            out = self._decode_step(q, k, v, cache, pages, seq_lens, verify)
         elif head_major:
             out = flash_attention.flash_attention_head_major(
                 q, k, v, segment_ids=segment_ids)
@@ -396,7 +396,7 @@ class Attention(nn.Module):
         out = out.reshape(out.shape[:2] + (-1,))
         return self.out(out)
 
-    def _decode_step(self, q, k, v, cache, pages, seq_lens):
+    def _decode_step(self, q, k, v, cache, pages, seq_lens, verify=False):
         """Append this call's K/V to the layer's cache and attend over the
         visible prefix.
 
@@ -405,7 +405,14 @@ class Attention(nn.Module):
         position ``seq_lens[r]`` — page ``pages[r, seq_lens[r] //
         page_size]``, slot ``seq_lens[r] % page_size`` (inactive rows
         carry an all-trash table and write page 0) — then the
-        ``ops.paged_attention`` kernel walks the pages. Without them the
+        ``ops.paged_attention`` kernel walks the pages. With ``verify``
+        (the speculative verify) a row carries W tokens, token j at
+        position ``seq_lens[r] + j``: all W land in the pool first, then
+        ``paged_attention_window`` runs the kernel once over the ``b * W``
+        query rows, query j seeing positions up to its own — the JAX
+        package's causal window, each position's attention the bits of a
+        one-token step there. Table slots past the row's width clamp to
+        its last entry, as the JAX flush does. Without them the
         cache is a private contiguous one: the call's tokens (one decode
         step or a whole prompt chunk) land at ``cache_index`` and every
         query j attends to slots ``<= cache_index + j`` (walked in
@@ -417,15 +424,18 @@ class Attention(nn.Module):
         if pages is not None:
             if seq_lens is None:
                 raise ValueError("paged decode needs seq_lens")
-            if s_step != 1:
+            if s_step != 1 and not verify:
                 raise ValueError(
                     "paged decode carries one token per row; got "
                     "{}".format(s_step))
             k_pages, v_pages = cache["k_pages"], cache["v_pages"]
             n_pages, ps = k_pages.shape[:2]
-            page_ids = pages.gather(1, (seq_lens // ps)[:, None].long())[:, 0]
-            dest = (page_ids * ps + seq_lens % ps).long()
-            k_new, v_new = k[:, 0], v[:, 0]
+            pos = (seq_lens[:, None].long()
+                   + torch.arange(s_step, device=seq_lens.device)[None, :])
+            slot = torch.clamp_max(pos // ps, pages.shape[1] - 1)
+            dest = (pages.gather(1, slot).long() * ps + pos % ps).reshape(-1)
+            k_new = k.reshape(b * s_step, h_kv, d)
+            v_new = v.reshape(b * s_step, h_kv, d)
             k_scales = cache.get("k_scales")
             v_scales = cache.get("v_scales")
             # In place, where the JAX step returns an updated pool: the
@@ -440,9 +450,10 @@ class Attention(nn.Module):
                 (dest,), k_new.to(k_pages.dtype))
             v_pages.view(n_pages * ps, h_kv, d).index_put_(
                 (dest,), v_new.to(v_pages.dtype))
-            return pa_ops.paged_attention(
-                q.contiguous(), k_pages, v_pages, pages, seq_lens,
-                page_size=ps, k_scales=k_scales, v_scales=v_scales)
+            attend = (pa_ops.paged_attention_window if verify
+                      else pa_ops.paged_attention)
+            return attend(q.contiguous(), k_pages, v_pages, pages, seq_lens,
+                          page_size=ps, k_scales=k_scales, v_scales=v_scales)
         cached_k, cached_v = cache["cached_key"], cache["cached_value"]
         cache_len = cached_k.shape[1]
         i = cache["cache_index"]
@@ -495,9 +506,9 @@ class Block(nn.Module):
         self.mlp = MLPBlock(cfg)
 
     def forward(self, x, segment_ids=None, decode=False, pages=None,
-                seq_lens=None, cache=None):
+                seq_lens=None, cache=None, verify=False):
         x = x + self.attn(self.ln1(x), segment_ids, decode, pages=pages,
-                          seq_lens=seq_lens, cache=cache)
+                          seq_lens=seq_lens, cache=cache, verify=verify)
         cfg = self.cfg
         if (cfg.mlp_remat and not cfg.remat and not decode
                 and torch.is_grad_enabled()):
@@ -672,7 +683,7 @@ class TransformerLM(nn.Module):
                 "embed.embedding", 0)[0]
 
     def apply_blocks(self, x, segment_ids=None, decode=False, pages=None,
-                     seq_lens=None, cache=None):
+                     seq_lens=None, cache=None, verify=False):
         """Run the block stack: the hook schedule variants (pipeline
         parallelism) override, as in the JAX model."""
         remat = self.cfg.remat and not decode and torch.is_grad_enabled()
@@ -688,7 +699,7 @@ class TransformerLM(nn.Module):
             layer_cache = None if cache is None else cache[
                 "block_{}".format(i)]
             x = block(x, segment_ids, decode, pages=pages, seq_lens=seq_lens,
-                      cache=layer_cache)
+                      cache=layer_cache, verify=verify)
         return x
 
     def vocab_slab(self):
@@ -701,33 +712,40 @@ class TransformerLM(nn.Module):
                 for i in range(self.cfg.num_layers)]
 
     def forward(self, tokens, segment_ids=None, decode=False,
-                positions=None, pages=None, seq_lens=None, cache=None):
+                positions=None, pages=None, seq_lens=None, cache=None,
+                verify=False):
         """``tokens``: int (batch, seq). Without ``decode`` this runs the
         full causal forward, with optional packed ``segment_ids``/
         ``positions``; in train mode it records the autograd graph (see the
         module docstring). ``decode=True`` runs against ``cache``: a
         contiguous cache (position = tokens the cache has absorbed, one step
         or a prompt chunk per call), or with ``pages``/``seq_lens`` the paged
-        pool — one token per row, row r at position ``seq_lens[r]``. Returns
-        f32 logits (model-dtype logits with ``upcast_logits=False``)."""
+        pool — one token per row, row r at position ``seq_lens[r]``; with
+        ``verify`` as well (the speculative verify, the JAX model's
+        ``window={"causal": True, ...}``) a row carries W tokens at
+        positions ``seq_lens[r] .. seq_lens[r] + W - 1``, all written into
+        the pool. Returns f32 logits (model-dtype logits with
+        ``upcast_logits=False``)."""
         with torch.set_grad_enabled(torch.is_grad_enabled() and self.training
                                     and not decode):
             return self._forward(tokens, segment_ids, decode, positions,
-                                 pages, seq_lens, cache)
+                                 pages, seq_lens, cache, verify)
 
     def _forward(self, tokens, segment_ids, decode, positions, pages,
-                 seq_lens, cache):
+                 seq_lens, cache, verify=False):
         mesh = getattr(self, "_mesh", None)
         if mesh is None:
             return self._forward_local(tokens, segment_ids, decode,
-                                       positions, pages, seq_lens, cache)
+                                       positions, pages, seq_lens, cache,
+                                       verify)
         if decode:
             raise NotImplementedError(
                 "decode on a sharded model: serve the full parameters "
                 "(CheckpointManager.restore_variables)")
         with mesh_lib.use_mesh(mesh):
             return self._forward_local(tokens, segment_ids, decode,
-                                       positions, pages, seq_lens, cache)
+                                       positions, pages, seq_lens, cache,
+                                       verify)
 
     def _seq_positions(self, seq_len, segment_ids, positions):
         """Positions of this rank's chunk under a seq axis, or None
@@ -760,7 +778,7 @@ class TransformerLM(nn.Module):
         return pos[chunk][None]
 
     def _forward_local(self, tokens, segment_ids, decode, positions, pages,
-                       seq_lens, cache):
+                       seq_lens, cache, verify=False):
         cfg = self.cfg
         if decode and cfg.ring_layout == "zigzag":
             raise NotImplementedError(
@@ -776,18 +794,26 @@ class TransformerLM(nn.Module):
                     "decode mode derives positions from the cache")
             if cache is None:
                 raise ValueError("decode mode needs a cache")
+        if verify and (not decode or pages is None):
+            raise ValueError("verify runs in paged decode (decode=True with "
+                             "pages/seq_lens)")
         if decode and pages is not None:
             if seq_lens is None:
                 raise ValueError("paged decode needs seq_lens")
-            if seq_len != 1:
+            if seq_len != 1 and not verify:
                 raise ValueError(
                     "paged decode carries one token per row; got "
                     "{}".format(seq_len))
-            # Positions past the table clamp, as the JAX gather does: only
-            # a decode horizon's junk steps past a row's budget reach them,
-            # and their outputs are never emitted.
-            pos = torch.clamp_max(seq_lens.long(), cfg.max_seq_len - 1)
-            x = x + pos_embed[pos][:, None, :].to(cfg.dtype)
+            # Row r's token j sits at position seq_lens[r] + j. Positions
+            # past the table clamp, as the JAX gather does: only junk steps
+            # past a row's budget reach them (a horizon's, or a verify round
+            # straddling the budget's end), and their outputs are never
+            # emitted.
+            pos = torch.clamp_max(
+                seq_lens[:, None].long()
+                + torch.arange(seq_len, device=seq_lens.device)[None, :],
+                cfg.max_seq_len - 1)
+            x = x + pos_embed[pos].to(cfg.dtype)
         elif decode:
             pos = cache["position"]
             if pos + seq_len > cfg.max_seq_len:
@@ -815,7 +841,7 @@ class TransformerLM(nn.Module):
             else:
                 x = x + pos_embed[positions.long()].to(cfg.dtype)
         x = self.apply_blocks(x, segment_ids, decode, pages=pages,
-                              seq_lens=seq_lens, cache=cache)
+                              seq_lens=seq_lens, cache=cache, verify=verify)
         x = self.ln_f(x)
         # Weight-tied head in the model dtype; logits upcast after.
         logits = self.embed.attend(x)

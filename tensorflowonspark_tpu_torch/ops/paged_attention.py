@@ -23,6 +23,12 @@ scratch (m_c, sums, PV partials) and keeps a zero-initialised state buffer
 per device and stream (ticket, counts, flags), which every call leaves
 zero.
 
+``paged_attention_window`` is the speculative verify's route through the
+same kernel: a window of W queries a row becomes W virtual rows of one
+launch, row (r, j) reading row r's table up to position ``seq_lens[r] +
+j``. A row's output depends only on its query, table and length, so each
+window position gets the bits a one-token call at that position gives.
+
 ``paged_attention_reference`` is the PyTorch rendition of the JAX
 package's ``_paged_cache_attention`` single-token walk (gather, dequantize,
 repeat over the group, online softmax page by page). The wrapper runs it
@@ -126,6 +132,29 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
                          "{}".format(q.device))
     return _launch(q, k_pages, v_pages, page_table, seq_lens, page_size,
                    k_scales, v_scales)
+
+
+def paged_attention_window(q, k_pages, v_pages, page_table, seq_lens, *,
+                           page_size, k_scales=None, v_scales=None):
+    """Causal-window paged attention: ``q`` (b, W, h, d) holds W queries a
+    row, row r's j-th at position ``seq_lens[r] + j``, whose K/V (the
+    whole window's) must already sit in the pool. Query j sees positions
+    ``0 .. seq_lens[r] + j``: the pool's earlier tokens and window slots
+    ``i <= j``, the JAX package's causal window. One
+    :func:`paged_attention` call over ``b * W`` virtual rows (each row's
+    table repeated W times, lengths ``seq_lens[r] + j``), so the CPU takes
+    the plain version and the card one kernel launch. Returns (b, W, h,
+    d) in q's dtype."""
+    b, w, h, d = q.shape
+    if seq_lens.shape != (b,):
+        raise ValueError("seq_lens must be (batch,)")
+    steps = torch.arange(w, dtype=seq_lens.dtype, device=seq_lens.device)
+    out = paged_attention(
+        q.reshape(b * w, 1, h, d), k_pages, v_pages,
+        page_table.repeat_interleave(w, dim=0),
+        (seq_lens[:, None] + steps[None, :]).reshape(b * w),
+        page_size=page_size, k_scales=k_scales, v_scales=v_scales)
+    return out.reshape(b, w, h, d)
 
 
 def _launch(q, k_pages, v_pages, page_table, seq_lens, page_size, k_scales,

@@ -2,8 +2,8 @@
 ``tensorflowonspark_tpu.serving``): the scheduler, cache-manager and
 model-runner split, the engine and the page-pool ledger; drain and
 migration between engines; disaggregated prefill/decode with the handoff
-wire codec; the fleet router over local and HTTP replicas; and the
-SLO-driven autoscaler. Speculative decoding is not ported (ROADMAP A7b).
+wire codec; the fleet router over local and HTTP replicas; the SLO-driven
+autoscaler; and speculative decoding with a draft model.
 
 The HTTP plane (``train.metrics.MetricsServer``) serves it: ``POST
 /v1/generate``, ``POST /v1/migrate`` and ``GET /v1/serving``.

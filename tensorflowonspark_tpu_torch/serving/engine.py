@@ -16,7 +16,12 @@ One :meth:`ServingEngine.step` is the whole scheduling policy:
    junk into the ``horizon - 1`` slack slots its reservation includes —
    cheaper than throttling the whole batch to the smallest remaining
    budget); rows that finish free their pages and slot the moment the
-   call returns, and their post-terminal tokens are dropped.
+   call returns, and their post-terminal tokens are dropped. With a draft
+   model attached (``speculative_tokens=k``) an all-greedy batch runs a
+   speculative round instead: the draft proposes ``k`` tokens a row, one
+   batched target forward verifies them, and rejection is an extent
+   rollback; every emitted token is the target's own greedy choice, so
+   the stream equals solo ``generate()``'s.
 
 A blocked higher-priority admission may **preempt** a strictly
 lower-priority resident (``preempt="swap"``: its pages go to host memory
@@ -45,10 +50,6 @@ behind ``POST /v1/migrate``) at the moment it would have joined the decode
 batch, its first token already emitted. A refused or failed handoff
 replays the request here from its host copy. ``role="decode"`` is routing
 metadata for ``ServingFleet``.
-
-Outside this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item when turned on; the defaults are the "off" values):
-``draft_model``/``draft_variables``/``speculative_tokens``.
 """
 
 import collections
@@ -61,6 +62,7 @@ import weakref
 import numpy as np
 
 from tensorflowonspark_tpu_torch import device_info, telemetry
+from tensorflowonspark_tpu_torch.models import decoding
 from tensorflowonspark_tpu_torch.serving import scheduler as sched_mod
 from tensorflowonspark_tpu_torch.serving.cache import PagePool
 from tensorflowonspark_tpu_torch.serving.runner import (
@@ -198,6 +200,7 @@ def _publish_gauges():
     totals = dict.fromkeys(
         ("pages_total", "slots", "pool_bytes", "in_use", "shared_pages",
          "refcount_total", "cow_copies_total", "preemptions",
+         "spec_rounds", "spec_drafted", "spec_accepted",
          "handoffs_out", "handoffs_in", "handoff_fallbacks"), 0.0)
     for eng in engines:
         active += sum(1 for s in eng.scheduler.slots if s is not None)
@@ -211,6 +214,8 @@ def _publish_gauges():
                     "cow_copies_total"):
             totals[key] += pool[key]
         totals["preemptions"] += eng.scheduler.preemptions
+        for key in ("spec_rounds", "spec_drafted", "spec_accepted"):
+            totals[key] += getattr(eng, key)
         totals["handoffs_out"] += eng.handoffs_out
         totals["handoffs_in"] += eng.handoffs_in
         totals["handoff_fallbacks"] += eng.handoff_fallbacks
@@ -222,6 +227,12 @@ def _publish_gauges():
                 "handoffs_out", "handoffs_in", "handoff_fallbacks"):
         telemetry.set_gauge("serve_" + key, totals[key])
     telemetry.set_gauge("serve_pages_in_use", totals["in_use"])
+    # Speculation: lifetime rounds and the acceptance rate (accepted over
+    # proposed drafts), the dial that says whether a draft pays for itself.
+    telemetry.set_gauge("serve_spec_rounds", totals["spec_rounds"])
+    telemetry.set_gauge(
+        "serve_spec_acceptance_rate",
+        totals["spec_accepted"] / max(1.0, totals["spec_drafted"]))
     # The prefix index ships as a compact chain-key digest so a fleet
     # router in another process can affinity-route to this node
     # (fleet.RemoteEngine.match_tokens). The digest needs one page size to
@@ -235,12 +246,6 @@ def _publish_gauges():
         telemetry.set_gauge("serve_page_size", float(sizes.pop()))
         telemetry.set_node_extra("serve_prefix_digest",
                                  sorted(set(digest))[:512])
-
-
-def _not_ported(arg, item):
-    raise NotImplementedError(
-        "{} is not ported yet (ROADMAP {}); leave it at its default".format(
-            arg, item))
 
 
 def _percentiles_ms(samples):
@@ -283,6 +288,22 @@ class ServingEngine:
     scales beside it); prefill stays full precision and the kernel
     dequantizes in registers.
 
+    ``draft_model``/``draft_variables`` with ``speculative_tokens=k`` turn
+    greedy decode into speculative rounds: the draft proposes ``k`` tokens
+    a row from its own fixed-page pool (``runner.decode`` at horizon k),
+    the target verifies all of them in ONE forward through its paged pool
+    (``runner.verify``: the k + 1 tokens' K/V written in place, then the
+    paged-attention kernel over the ``max_slots x (k + 1)`` query rows),
+    and every emitted token is the target's own greedy argmax, so a stream
+    equals solo ``generate()``'s at any acceptance rate. Rejected tokens
+    roll back by extent: their K/V stays in the row's pages, unread. The
+    reservation slack is ``max(decode_horizon - 1, k)``. The draft's vocab
+    must be the target's and its context must cover ``max_model_len``;
+    rounds run only while every RUNNING row is greedy (one sampled row
+    falls the batch back to normal decode, and the drafts catch up by
+    replay afterwards). The registry's draft geometry is
+    ``models.factory.get_model("gpt2-draft")``.
+
     ``role`` (``"both"``, ``"prefill"`` or ``"decode"``) and ``handoff_fn``
     disaggregate prefill from decode: a ``"prefill"`` engine with a
     ``handoff_fn(req, payload) -> bool`` hands each finished prefill's pages
@@ -300,9 +321,6 @@ class ServingEngine:
                  preempt="swap", draft_model=None, draft_variables=None,
                  speculative_tokens=0, role="both", handoff_fn=None,
                  device="cuda"):
-        if draft_model is not None or draft_variables is not None \
-                or speculative_tokens:
-            _not_ported("speculative decoding", "A7b, speculative verify")
         role = str(role or "both")
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
@@ -317,15 +335,34 @@ class ServingEngine:
                 "{!r}".format(preempt))
         self.preempt = preempt
         self.decode_horizon = max(1, int(decode_horizon))
+        self.speculative_tokens = max(0, int(speculative_tokens))
+        if self.speculative_tokens and draft_model is None:
+            raise ValueError(
+                "speculative_tokens > 0 requires a draft_model")
+        if draft_model is not None and draft_variables is None:
+            raise ValueError("draft_model requires draft_variables")
         # A decode call runs every row the full horizon, so a row ending
-        # mid-call writes up to horizon - 1 junk slots past its budget:
-        # the reservation (and the table row) covers them.
-        slack = self.decode_horizon - 1
+        # mid-call writes up to horizon - 1 junk slots past its budget; a
+        # verify writes k positions past the row's extent. The reservation
+        # (and the table row) covers the larger: the same junk-past-budget
+        # slots, so the max, not the sum.
+        slack = max(self.decode_horizon - 1, self.speculative_tokens)
         self.device = device_info.resolve_device(device)
         model.to(self.device)
         cfg = model.cfg
         max_model_len = int(min(
             max_model_len or cfg.max_seq_len, cfg.max_seq_len))
+        if self.speculative_tokens:
+            dcfg = draft_model.cfg
+            if int(dcfg.vocab_size) != int(cfg.vocab_size):
+                raise ValueError(
+                    "draft vocab ({}) must match the target's ({}) — "
+                    "speculative acceptance compares token ids".format(
+                        dcfg.vocab_size, cfg.vocab_size))
+            if int(dcfg.max_seq_len) < max_model_len:
+                raise ValueError(
+                    "draft max_seq_len ({}) must cover max_model_len "
+                    "({})".format(dcfg.max_seq_len, max_model_len))
         kv_cache_dtype = str(kv_cache_dtype or "")
         if kv_cache_dtype in ("fp", "auto"):
             kv_cache_dtype = ""
@@ -348,6 +385,24 @@ class ServingEngine:
             extra_table_tokens=slack, kv_quant=kv_cache_dtype,
             rng_seed=rng_seed)
         self.pool.page_bytes = self.runner.pool_bytes // num_pages
+        self.draft_runner = None
+        self._draft_table = None
+        if self.speculative_tokens:
+            # The draft's pool skips the allocator: slot s owns pages [1 +
+            # s*tw, 1 + (s+1)*tw) for good (page 0 stays the trash page),
+            # since draft extents mirror the target's and the target pool
+            # already applies the backpressure.
+            tw = self.runner.table_width
+            draft_model.to(self.device)
+            self.draft_runner = ModelRunner(
+                draft_model, draft_variables, max_slots=max_slots,
+                page_size=page_size, num_pages=1 + int(max_slots) * tw,
+                max_model_len=max_model_len, prefill_chunk=prefill_chunk,
+                prefill_floor=prefill_floor, extra_table_tokens=slack,
+                kv_quant=kv_cache_dtype, rng_seed=rng_seed)
+            self._draft_table = (
+                1 + np.arange(int(max_slots))[:, None] * tw
+                + np.arange(tw)[None, :]).astype(np.int32)
         self.vocab_size = int(cfg.vocab_size)
         self.num_layers = int(cfg.num_layers)
         self.max_slots = int(max_slots)
@@ -364,6 +419,11 @@ class ServingEngine:
         self._top_ps = np.zeros((self.max_slots,), np.float32)
         self._table = np.zeros(
             (self.max_slots, self.runner.table_width), np.int32)
+        # Per-slot draft freshness: False when the draft's pages do not
+        # mirror the target's extent (a fresh join, a resume, or a normal
+        # decode call that advanced the target alone); the next round
+        # rebuilds them by replay before drafting.
+        self._draft_ok = np.zeros((self.max_slots,), bool)
         self._host_rng = np.random.default_rng(int(rng_seed))
         self._thread = None
         self._stop = threading.Event()
@@ -375,6 +435,9 @@ class ServingEngine:
         self.prefix_tokens_shared = 0   # prefill tokens skipped via sharing
         self.preempt_swaps = 0          # victims swapped to host memory
         self.preempt_recomputes = 0     # victims dropped for prefill replay
+        self.spec_rounds = 0            # speculative rounds run
+        self.spec_drafted = 0           # draft tokens proposed
+        self.spec_accepted = 0          # draft tokens the target accepted
         self.requests_finished = 0
         self.requests_cancelled = 0
         self.requests_failed = 0
@@ -1091,6 +1154,15 @@ class ServingEngine:
                    if r is not None and r.state == RUNNING]
         if not running:
             return False
+        if self.speculative_tokens and all(
+                r.temperature <= 0.0 for r in running):
+            return self._speculative_round(running)
+        if self.speculative_tokens:
+            # Mixed batch: normal decode advances the target alone, so
+            # every running row's draft goes stale; replay rebuilds it when
+            # the batch turns all-greedy again.
+            for req in running:
+                self._draft_ok[req.slot] = False
         # Always the full horizon: a row that finishes mid-call decodes
         # junk into its reserved slack instead of throttling every other
         # row to the smallest remaining budget.
@@ -1122,6 +1194,99 @@ class ServingEngine:
                 self._lens[req.slot] = req.cache_len
         return True
 
+    # -- speculative decoding ------------------------------------------------
+
+    def _speculative_round(self, running):
+        """One speculative round over an all-greedy batch: the draft
+        proposes ``k`` tokens a row, the target verifies all of them in one
+        forward, and each row emits its longest matched prefix plus the
+        target's correction token. Every emitted token is the TARGET's
+        greedy argmax, so the stream is solo ``generate()``'s whatever the
+        draft proposed.
+
+        On full acceptance only ``k`` tokens are emitted, not the bonus
+        k+1-th the verify already names: it would advance the target's
+        extent past the draft's (the draft never wrote that token's K/V).
+        Capped at ``k``, both extents stay in lockstep: the k-th proposal
+        becomes the next round's input, its K/V rewritten with the same
+        values."""
+        k = self.speculative_tokens
+        t0 = time.perf_counter()
+        for req in running:
+            if not self._draft_ok[req.slot]:
+                self._draft_prefill(req)
+        t_draft = time.perf_counter()
+        props = self.draft_runner.decode(
+            self._toks, self._draft_table, self._lens, self._temps,
+            self._top_ks, self._top_ps, horizon=k, sampling=False)
+        telemetry.record_span(
+            "serve/draft", time.perf_counter() - t_draft,
+            slots=len(running), tokens=k)
+        # Column 0 is each row's pending input (its newest token, K/V not
+        # yet pooled: a decode step's contract), columns 1..k the
+        # proposals; the verify writes all k+1 positions.
+        verify_toks = np.zeros((self.max_slots, k + 1), np.int32)
+        verify_toks[:, 0] = self._toks
+        verify_toks[:, 1:] = props
+        t_verify = time.perf_counter()
+        greedy = self.runner.verify(verify_toks, self._table, self._lens)
+        telemetry.record_span(
+            "serve/verify", time.perf_counter() - t_verify,
+            slots=len(running), tokens=k + 1)
+        accepted, emitted = decoding.speculative_lengths(props, greedy)
+        self.spec_rounds += 1
+        for req in running:
+            slot = req.slot
+            a, e = int(accepted[slot]), int(emitted[slot])
+            self.spec_drafted += k
+            self.spec_accepted += a
+            telemetry.observe("serve_spec_accepted_tokens", float(a))
+            for j in range(e):
+                self._emit_token(req, int(greedy[slot, j]))
+                if req.state != RUNNING:
+                    break
+            if req.state == RUNNING:
+                # The extent rollback is this bookkeeping alone: the verify
+                # wrote k+1 positions, the length covers the emitted
+                # prefix, and the rejected tail stays in the pages unread.
+                self._toks[slot] = req.generated[-1]
+                self._lens[slot] = req.cache_len
+        step_dur = time.perf_counter() - t0
+        telemetry.observe("serve_step_seconds", step_dur)
+        telemetry.record_span(
+            "serve/decode_batch", step_dur, slots=len(running),
+            horizon=k + 1, mode="speculative")
+        return True
+
+    def _draft_prefill(self, req):
+        """(Re)build one row's draft pages by replaying every token the
+        target's cache holds (``replay_tokens``: prompt + generated minus
+        the pending input) through the draft's chunked prefill, then
+        scattering into the slot's fixed draft pages. Inline: the batch
+        waits for it, once per join or resume and after a mixed-batch
+        fallback, never in the speculative steady state."""
+        runner = self.draft_runner
+        src = np.asarray(req.replay_tokens(), np.int32).reshape(-1)
+        p = int(src.shape[0])
+        t0 = time.perf_counter()
+        alloc = runner.prefill_alloc(p)
+        cache = runner.new_prefill_cache(alloc)
+        start = 0
+        while start < p:
+            chunk_len = min(alloc, runner.prefill_chunk)
+            if start:
+                chunk_len = min(chunk_len, alloc - start)
+            tokens = np.zeros((1, chunk_len), np.int32)
+            real = min(chunk_len, p - start)
+            tokens[0, :real] = src[start:start + real]
+            cache, _ = runner.prefill_step(cache, tokens, 0, alloc)
+            start += chunk_len
+        runner.scatter(cache, self._draft_table[req.slot], p, alloc)
+        self._draft_ok[req.slot] = True
+        telemetry.record_span(
+            "serve/draft_prefill", time.perf_counter() - t0,
+            request=req.id, trace=req.trace, tokens=p, slot=req.slot)
+
     # -- transitions ---------------------------------------------------------
 
     def _emit_token(self, req, token):
@@ -1145,6 +1310,7 @@ class ServingEngine:
                 self._temps[slot] = 0.0
                 self._top_ks[slot] = 0
                 self._top_ps[slot] = 0.0
+                self._draft_ok[slot] = False
 
     def _finish(self, req, state, error=None):
         if not self.scheduler.release(req, state):
@@ -1256,6 +1422,9 @@ class ServingEngine:
                     for req in victims:
                         self._finish(req, FAILED,
                                      error="engine step failed; see logs")
+                    # A failed round may have left a draft row half
+                    # written: every row replays before it drafts again.
+                    self._draft_ok[:] = False
 
     def close(self, timeout=5.0):
         """Stop the loop and cancel anything still in flight."""
@@ -1313,6 +1482,15 @@ class ServingEngine:
             "preempt_mode": self.preempt,
             "preempt_swaps": self.preempt_swaps,
             "preempt_recomputes": self.preempt_recomputes,
+            # Speculation: proposals a round, lifetime rounds, drafted and
+            # accepted tokens, and the acceptance rate. Rounds count in
+            # none of the decode_* keys above (horizon calls only).
+            "speculative_tokens": self.speculative_tokens,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_acceptance_rate": (
+                self.spec_accepted / max(1, self.spec_drafted)),
             "peak_active": self.peak_active,
             "ttft_ms_p50": ttft["p50"],
             "ttft_ms_p95": ttft["p95"],

@@ -30,6 +30,12 @@ Owns the paged device pool and runs the engine's device work:
   filter semantics of ``models.decoding._sample``, vectorized per row),
   drawing from a ``torch.Generator`` on the device. ``horizon`` steps run
   in one call with one host sync at its end.
+* **verify** — the speculative round's single target forward: W = k + 1
+  tokens a row (the pending input and the draft's k proposals) through the
+  paged pool, every token's K/V written at ``lens .. lens + W - 1``, the
+  kernel run once over the ``max_slots x W`` query rows
+  (``ops.paged_attention.paged_attention_window``); the greedy argmax at
+  every position comes back in one host sync.
 
 The pool layout is the JAX package's: per layer ``k_pages``/``v_pages``
 ``(num_pages, page_size, h_kv, d)`` in the model dtype or int8, plus
@@ -330,6 +336,34 @@ class ModelRunner:
             out.append(tok)
             lens = lens + 1
         return torch.stack(out, dim=1).cpu().numpy()
+
+    # -- speculative verify --------------------------------------------------
+
+    @torch.no_grad()
+    def verify(self, toks, table, lens):
+        """Teacher-forced multi-token verify, the speculative round's one
+        batched target forward (the JAX runner's ``verify``).
+
+        ``toks``: (max_slots, W) int, column 0 each row's newest token (at
+        position ``lens[r]``, its K/V not yet pooled, as a decode step's
+        input), columns 1..W-1 the draft's proposals. One forward writes
+        every token's K/V into the row's pages at ``lens[r] .. lens[r] + W
+        - 1`` before the kernel reads them, then attends each position
+        over its causal prefix. Returns (max_slots, W) int32 numpy, the
+        greedy argmax of the f32 logits at every position, after one host
+        sync. The writes are in place, so there is no window to flush;
+        rejected tokens stay in the pages as junk the lengths never expose
+        (the caller's extent rollback), which the next round overwrites.
+        The caller must ensure every active row's reservation covers ``W -
+        1`` tokens past its budget (the engine's speculative slack)."""
+        dev = self.device
+        toks = torch.as_tensor(np.asarray(toks, np.int32), device=dev)
+        table = torch.as_tensor(np.asarray(table, np.int32), device=dev)
+        lens = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+        logits = self.model(toks.long(), decode=True, pages=table,
+                            seq_lens=lens, cache=self.cache, verify=True)
+        greedy = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        return greedy.cpu().numpy()
 
 
 def _filter_rows(scaled, tks, tps):

@@ -2,8 +2,8 @@
 accounting, and SLO burn-rate monitoring (stdlib-only, driver-side; the
 port's copy of the JAX package's ``telemetry_store.py``). Not copied: the
 JAX module's profile digests and ``cluster.run(slos=...)`` wiring (the
-profiler and incident capture: ROADMAP A12) and its HTML dashboard (the
-serving side of the telemetry plane, ROADMAP A7b).
+profiler and incident capture) and its HTML dashboard (ROADMAP A12 for
+both).
 
 Every earlier observability surface was point-in-time: ``cluster_stats()``
 keeps only each node's *last* heartbeat stats, ``/metrics`` is a snapshot,

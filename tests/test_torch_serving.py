@@ -288,15 +288,6 @@ def test_engine_defaults_to_the_card():
         serving.ServingEngine(_models()["tm"], None)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(speculative_tokens=2), dict(draft_model=object()),
-    dict(draft_variables={})],
-    ids=lambda kw: next(iter(kw)))
-def test_arguments_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        _engine(**kw)
-
-
 def test_role_is_validated_like_jax():
     with pytest.raises(ValueError, match="role must be"):
         _engine(role="bogus")

@@ -23,7 +23,8 @@ from tensorflowonspark_tpu_torch import serving
 from tensorflowonspark_tpu_torch.models import decoding
 from tensorflowonspark_tpu_torch.serving import runner as runner_mod
 from torch_serving_common import (
-    assert_drained, engine, jax_engine, models, prompt, solo,
+    INT8_TF_TOL, assert_drained, engine, jax_engine, models, prompt, solo,
+    teacher_forced_int8_logits,
 )
 from torch_serving_common import one_torch_thread  # noqa: F401
 
@@ -175,41 +176,6 @@ def test_decode_call_runs_the_horizon_with_one_draw_a_step():
                        torch.rand(4, generator=r6.rng))
 
 
-# The JAX int8 engine keeps a decode call's own tokens unquantized in its
-# deferred-write window until the call's flush, while the port quantizes
-# each token as it is written (amax/127 per token and KV head); the
-# attention over the window's newest horizon - 1 tokens therefore differs,
-# and so can a near-tied argmax. The JAX streams are held teacher-forced
-# against the port's int8 pool: at every step, the JAX token's port logit
-# within INT8_TF_TOL of the port's largest. The limit lies above the
-# largest difference an unquantized cache makes at all along these streams
-# — a whole fp32 pool against the int8 one moved a logit by at most
-# 6.2e-3 — and the window quantizes fewer tokens than that.
-INT8_TF_TOL = 1e-2
-
-
-def _teacher_forced_int8_logits(p, stream):
-    """Port int8-pool logits along ``stream`` (the prompt's fp prefill,
-    then one paged step per token), as a (len(stream), vocab) array."""
-    tm = models()["tm"]
-    r = runner_mod.ModelRunner(tm, None, max_slots=1, page_size=PAGE,
-                               num_pages=12, kv_quant="int8")
-    alloc = r.prefill_alloc(len(p))
-    pc, last = r.prefill_step(r.new_prefill_cache(alloc), p[None],
-                              len(p) - 1, alloc)
-    pages = list(range(1, 1 + r.table_width))
-    r.scatter(pc, pages, len(p), alloc)
-    table = torch.as_tensor(np.asarray([pages], np.int32))
-    rows = [last.numpy()]
-    with torch.no_grad():
-        for j, tok in enumerate(stream[:-1]):
-            lg = tm(torch.tensor([[tok]]), decode=True, pages=table,
-                    seq_lens=torch.tensor([len(p) + j], dtype=torch.int32),
-                    cache=r.cache)
-            rows.append(lg[0, 0].numpy())
-    return np.stack(rows)
-
-
 @pytest.mark.watchdog_timeout(120)
 def test_int8_horizon_against_jax_int8_engine():
     """Horizon 4, int8 pools: the JAX engine's greedy streams, teacher-
@@ -228,10 +194,10 @@ def test_int8_horizon_against_jax_int8_engine():
         got, jgot = h.result(timeout=5), jh.result(timeout=5)
         assert len(got) == len(jgot) == n
         assert got[0] == jgot[0] == solo(p, 1)[0]
-        logits = _teacher_forced_int8_logits(p, jgot)
+        logits = teacher_forced_int8_logits(p, jgot)
         gap = logits.max(axis=1) - logits[np.arange(n), jgot]
         assert gap.max() <= INT8_TF_TOL, gap
-        port_tf = _teacher_forced_int8_logits(p, got).argmax(axis=1)
+        port_tf = teacher_forced_int8_logits(p, got).argmax(axis=1)
         assert got == port_tf.tolist()
 
 

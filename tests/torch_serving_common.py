@@ -19,6 +19,7 @@ from tensorflowonspark_tpu.models import decoding as jax_decoding
 from tensorflowonspark_tpu.models import factory as jax_factory
 from tensorflowonspark_tpu_torch import convert, serving
 from tensorflowonspark_tpu_torch.models import decoding, factory
+from tensorflowonspark_tpu_torch.serving import runner as runner_mod
 
 LM_KW = dict(vocab_size=64, num_layers=2, num_heads=4, embed_dim=32,
              mlp_dim=64, max_seq_len=128, remat=False)
@@ -110,3 +111,39 @@ def assert_drained(eng):
     assert eng.pool.pages_in_use == 0
     assert eng.scheduler.queued() == 0
     assert all(s is None for s in eng.scheduler.slots)
+
+
+# The JAX int8 engine keeps a multi-token call's own tokens unquantized (a
+# decode horizon's deferred-write window, the speculative verify's causal
+# window) until the call's flush, while the port quantizes each token as it
+# is written (amax/127 per token and KV head); the attention over those
+# tokens therefore differs, and so can a near-tied argmax. The JAX streams
+# are held teacher-forced against the port's int8 pool: at every step, the
+# JAX token's port logit within INT8_TF_TOL of the port's largest. The
+# limit lies above the largest difference an unquantized cache makes at
+# all along the horizon streams — a whole fp32 pool against the int8 one
+# moved a logit by at most 6.2e-3 — and a window quantizes fewer tokens
+# than that.
+INT8_TF_TOL = 1e-2
+
+
+def teacher_forced_int8_logits(p, stream, page_size=16):
+    """Port int8-pool logits along ``stream`` (the prompt's fp prefill,
+    then one paged step per token), as a (len(stream), vocab) array."""
+    tm = models()["tm"]
+    r = runner_mod.ModelRunner(tm, None, max_slots=1, page_size=page_size,
+                               num_pages=12, kv_quant="int8")
+    alloc = r.prefill_alloc(len(p))
+    pc, last = r.prefill_step(r.new_prefill_cache(alloc), p[None],
+                              len(p) - 1, alloc)
+    pages = list(range(1, 1 + r.table_width))
+    r.scatter(pc, pages, len(p), alloc)
+    table = torch.as_tensor(np.asarray([pages], np.int32))
+    rows = [last.numpy()]
+    with torch.no_grad():
+        for j, tok in enumerate(stream[:-1]):
+            lg = tm(torch.tensor([[tok]]), decode=True, pages=table,
+                    seq_lens=torch.tensor([len(p) + j], dtype=torch.int32),
+                    cache=r.cache)
+            rows.append(lg[0, 0].numpy())
+    return np.stack(rows)
