@@ -118,6 +118,31 @@ calls and fails (non-zero exit) if any phase fails:
                batches; (d) the executor's step (CUDA events) against the
                in-process step, the feed wait a step, each rank's peak
                memory, and ``cluster.run`` to the first step;
+   files    — the FILES-mode data tier: (a) GPT-2-small at ``_lm_trainer``'s
+               geometry (12 layers, b8 x s1024 a rank, bf16, AdamW 3e-4,
+               flash route) from 320 seeded token documents (lengths
+               log-uniform over 16-3072) written by
+               ``dfutil.save_as_tfrecords`` into 8 shards, read by two
+               FILES-mode executors on the card (data=2 over gloo), each
+               through ``InputPipeline(shard=(2, i), reader_threads=1)``,
+               a transform that strips each document's padding and
+               ``packing.packed_batches``, into ``Trainer.fit`` for 6
+               steps: each rank's batches bitwise the driver's inline
+               pipeline for its shard, losses finite and falling,
+               replicas bitwise after every step, step 1 against one
+               trainer on the global batch (``TRAIN_LOSS_RTOL``), B1-B3
+               12 launches a step a rank; then a step with a row of
+               padding alone through B1-B3 and their plain versions (and
+               with that row's tokens changed: no gradient moves); (b)
+               ``bench_resnet50_piped``'s feed (1024 uint8 224x224x3
+               records in 8 shards, b256) through a two-worker decode pool
+               (shared memory) with a batch cache into ResNet-50 (SGD
+               0.1/0.9) under ``DevicePrefetch``, normalised on the card by
+               ``input_normalizer``: a worker SIGKILLed in epoch 1, the
+               epoch bitwise an inline run's, epoch 2 replayed from the
+               cache bitwise epoch 1, no shared-memory segment left;
+               feed-only, cache-replay and trained images/s and the data
+               wait; the native codecs must load;
    recover  — supervised relaunch, elastic membership and remote agents:
                (a) ``cluster.run(..., restart_policy=RestartPolicy(
                max_restarts=1), checkpoint_dir=...)`` trains GPT-2-small
@@ -194,7 +219,7 @@ calls and fails (non-zero exit) if any phase fails:
 8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
 The B1-B3 rows' ``launches`` add the executors' launches of the cluster,
-recover, shard, moe and pipe phases (each executor resets its counts
+files, recover, shard, moe and pipe phases (each executor resets its counts
 before its loop and reports them; a recover incarnation appends its
 counts to its audit log at every step, since a crashed one returns
 nothing) to the train phase's; the B4 row adds the spec and moe phases'
@@ -207,6 +232,8 @@ alone, timed with the card held busy until the host has queued the call);
 """
 
 import contextlib
+import glob
+import itertools
 import json
 import os
 import subprocess
@@ -3404,6 +3431,517 @@ def cluster_phase(torch, fa, card):
     return total
 
 
+# -- the FILES-mode data tier: record files into training --------------------
+
+# (a) GPT-2-small at ``_lm_trainer``'s geometry from record files: token
+# documents made from a seed (vocab 50257, lengths log-uniform over
+# 16-3072 tokens) in 8 shards, read by two executors in FILES mode (each
+# its 4 shards), packed into b8 x s1024 rows, 6 steps of ``Trainer.fit``
+# a rank over data=2 on the one card (gloo).
+FILES_DOCS = 320
+FILES_SHARDS = 8
+FILES_DOC_LEN = (16, 3072)
+FILES_STEPS = 6
+FILES_ROWS = 8
+FILES_READ_BATCH = 16
+FILES_COLUMNS = {"tokens": ("int64", FILES_DOC_LEN[1]),
+                 "length": ("int64", 1)}
+# (b) ``bench_resnet50_piped``'s feed: 1024 uint8 images of 224x224x3 in
+# 8 shards, 1000 labels, b256, a two-worker decode pool with the
+# shared-memory transport and a batch cache; two epochs (4 steps each),
+# the second replayed from the cache. kill_decode_worker fires after the
+# consumer's batch 1 of 4. The pool decodes a whole epoch ahead of the
+# steps, so the trained run's pipeline buffers one batch (prefetch=1):
+# its producer then waits for the consumer, and the pool's next sweep,
+# after the kill, sees the death and respawns the worker.
+FILES_IMAGES = 1024
+FILES_IMAGE = (224, 224, 3)
+FILES_KILL_AFTER = 1
+
+
+def strip_padding(batch):
+    """The (a) pipeline's transform: each live record's document without
+    its zero padding (a ragged column, as an object array)."""
+    docs = [np.asarray(t[:n], np.int32) for t, n, m in zip(
+        batch["tokens"], batch["length"], batch["mask"]) if m]
+    out = np.empty(len(docs), object)
+    out[:] = docs
+    return {"docs": out}
+
+
+def files_lm_batches(path, shard):
+    """The (a) stream of one shard: ``InputPipeline`` (one reader thread,
+    inline decode) -> ``strip_padding`` -> ``packed_batches``."""
+    from tensorflowonspark_tpu_torch.data import packing
+    from tensorflowonspark_tpu_torch.data.input_pipeline import (
+        InputPipeline,
+    )
+
+    pipe = InputPipeline(path, FILES_COLUMNS, batch_size=FILES_READ_BATCH,
+                         shard=shard, reader_threads=1,
+                         transform=strip_padding)
+    docs = (d for b in pipe for d in b["docs"])
+    return packing.packed_batches(docs, seq_len=GPT2_SMALL["max_seq_len"],
+                                  batch_rows=FILES_ROWS)
+
+
+class FlipOdd:
+    """The (b) pipeline's transform, numpy only: the uint8 column as
+    (n, 224, 224, 3) images, those of odd record index flipped left to
+    right (the ``_base_index`` hint keeps it the same on any worker)."""
+
+    wants_base_index = True
+
+    def __call__(self, batch):
+        base = batch.pop("_base_index")
+        x = batch["image"].reshape((-1,) + FILES_IMAGE)
+        odd = (base + np.arange(len(x))) % 2 == 1
+        x[odd] = x[odd][:, :, ::-1]
+        return {"x": x, "y": batch["label"].astype(np.int32)}
+
+
+def _wait_sum(telemetry):
+    """Seconds of ``train_data_wait_seconds`` observed so far (``fit`` adds
+    each step's wait for its batch)."""
+    h = telemetry.hist_export(["train_data_wait_seconds"]).get(
+        "train_data_wait_seconds")
+    return h["sum"] if h else 0.0
+
+
+def files_node(args, ctx):
+    """The (a) node program (FILES mode): join data=2, read this executor's
+    shards, train ``args["steps"]`` chunks of one step through
+    ``Trainer.fit``, replicas compared after each."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch import telemetry
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig, multihost
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    ctx.initialize_distributed()
+    rank = multihost.process_index()
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device=ctx.device, seed=0,
+                              **dict(GPT2_SMALL, attention_impl="pallas"))
+    tr = Trainer(model, optimizer=trainer.adamw(CLUSTER_LR),
+                 mesh=MeshConfig(data=-1).build(), device=ctx.device)
+    state = tr.init()
+    seen = []
+
+    def source():
+        for b in files_lm_batches(args["data"], (2, ctx.worker_num)):
+            seen.append(b)
+            yield b
+
+    it = source()
+    doc = {"rank": rank, "worker": ctx.worker_num,
+           "backend": getattr(ctx, "distributed_backend", None),
+           "losses": [], "step_ms": [], "wait_ms": [], "equal": []}
+    fa.reset_launches()
+    for _ in range(args["steps"]):
+        stop = _timer(torch)
+        waited = _wait_sum(telemetry)
+        state, hist = tr.fit(state, it, steps=1, flush_every=1)
+        doc["step_ms"].append(stop())
+        doc["wait_ms"].append(1e3 * (_wait_sum(telemetry) - waited))
+        doc["losses"].append(float(hist[-1]["loss"]))
+        doc["equal"].append(_params_equal_to_rank0(torch, dist, state))
+    it.close()
+    doc["launches"] = dict(fa.launches)
+    doc["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+    np.savez(os.path.join(args["outdir"], "files{}.npz".format(rank)),
+             **{"{}_{}".format(k, i): v for i, b in enumerate(seen)
+                for k, v in b.items()})
+    with open(os.path.join(args["outdir"], "files{}.json".format(rank)),
+              "w") as f:
+        json.dump(doc, f)
+    multihost.shutdown()
+
+
+def _files_corpus(path):
+    """(a)'s documents, written with ``dfutil.save_as_tfrecords``."""
+    from tensorflowonspark_tpu_torch.data import dfutil
+
+    rng = np.random.RandomState(17)
+    lo, hi = FILES_DOC_LEN
+    lens = np.exp(rng.uniform(np.log(lo), np.log(hi),
+                              size=FILES_DOCS)).astype(int)
+    rows = [{"tokens": rng.randint(1, GPT2_SMALL["vocab_size"],
+                                   size=k).tolist(), "length": int(k)}
+            for k in lens]
+    dfutil.save_as_tfrecords(rows, path, num_shards=FILES_SHARDS)
+    return int(lens.sum())
+
+
+def _batches_equal(got, want):
+    return len(got) == len(want) and all(
+        g.keys() == w.keys() and all(np.array_equal(g[k], w[k]) for k in w)
+        for g, w in zip(got, want))
+
+
+def _padding_step(torch, fa, batch):
+    """The extra checked step: ``batch`` with its last row padding alone
+    (segment 0 everywhere), from the initial weights, through B1-B3 and
+    through their plain versions on the card; and once more through
+    B1-B3 with the padding row's tokens changed. Returns the readings."""
+    batch = {k: v.copy() for k, v in batch.items()}
+    for k in ("x", "y", "segment_ids", "positions"):
+        batch[k][-1] = 0
+    other = {k: v.copy() for k, v in batch.items()}
+    other["x"][-1] = np.random.RandomState(3).randint(
+        1, GPT2_SMALL["vocab_size"], size=other["x"].shape[1])
+    other["y"] = other["x"]
+    tr, state, _ = _lm_trainer(torch, GPT2_SMALL)
+    initial = {k: v.detach().clone() for k, v in state.params.items()}
+    out = {}
+    for label, b, plain in (("kernels", batch, False),
+                            ("plain", batch, True),
+                            ("changed", other, False)):
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(initial[k])
+        before = dict(fa.launches)
+        with _plain_flash(fa) if plain else contextlib.nullcontext():
+            state, m = tr.train_step(state, b)
+        out[label] = {
+            "loss": float(m["loss"]),
+            "norms": grad_norms(state),
+            "launches": {n: fa.launches[n] - before[n] for n in fa.launches},
+            "grads": [p.grad.detach().clone()
+                      for p in state.params.values()]}
+    del tr, state, initial
+    torch.cuda.empty_cache()
+    return out
+
+
+def files_lm(torch, fa, root, card):
+    """(a): returns the flash launches of both ranks and the readings."""
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.data import packing
+
+    data = os.path.join(root, "docs")
+    tokens = _files_corpus(data)
+    inline = [list(itertools.islice(files_lm_batches(data, (2, r)),
+                                    FILES_STEPS)) for r in (0, 1)]
+    if any(len(b) < FILES_STEPS for b in inline):
+        raise AssertionError("a shard packs fewer than {} batches".format(
+            FILES_STEPS))
+    out = os.path.join(root, "lm")
+    os.makedirs(out)
+    pool = backend.LocalBackend(2, base_dir=os.path.join(out, "executors"))
+    t_run = time.time()
+    try:
+        c = cluster.run(pool, files_node,
+                        {"data": data, "outdir": out, "steps": FILES_STEPS},
+                        num_executors=2, input_mode=cluster.InputMode.FILES,
+                        reservation_timeout=300)
+        c.shutdown(timeout=600)
+    finally:
+        pool.stop()
+    cluster_s = time.time() - t_run
+    docs = []
+    for r in (0, 1):
+        with open(os.path.join(out, "files{}.json".format(r))) as f:
+            docs.append(json.load(f))
+    seen = []
+    for r in (0, 1):
+        z = np.load(os.path.join(out, "files{}.npz".format(r)))
+        n = len({k.rsplit("_", 1)[1] for k in z.files})
+        seen.append([{k: z["{}_{}".format(k, i)]
+                      for k in ("x", "y", "segment_ids", "positions")}
+                     for i in range(n)])
+    layers = GPT2_SMALL["num_layers"]
+    want = dict.fromkeys(fa.launches, FILES_STEPS * layers)
+    losses = docs[0]["losses"]
+    checks = {
+        "backend gloo": [d["backend"] for d in docs] == ["gloo"] * 2,
+        "each rank's batches bitwise the driver's inline pipeline": all(
+            _batches_equal(seen[d["rank"]][:FILES_STEPS],
+                           inline[d["worker"]]) for d in docs),
+        "losses equal across ranks": docs[1]["losses"] == losses,
+        "losses finite and falling": bool(
+            np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+        "replicas bitwise equal every step": all(
+            d["equal"] == [True] * FILES_STEPS for d in docs),
+        "B1-B3 steps x 12 a rank": all(d["launches"] == want for d in docs),
+    }
+    global_steps = [[inline[0][0], inline[1][0]]]
+    ref_losses, _, _, _, _, _ = _replay(torch, GPT2_SMALL, global_steps,
+                                        grad_accum=2)
+    step1_rel = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    checks["step 1 within {:g} of one trainer on the global batch".format(
+        TRAIN_LOSS_RTOL)] = step1_rel <= TRAIN_LOSS_RTOL
+    torch.cuda.empty_cache()
+    pad = _padding_step(torch, fa, inline[0][0])
+    k, p, ch = pad["kernels"], pad["plain"], pad["changed"]
+    pad_loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    pad_norm_rel = max(abs(k["norms"][n] - p["norms"][n]) / p["norms"][n]
+                       for n in p["norms"])
+    changed_max = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(k["grads"], ch["grads"]))
+    checks["padding row: finite loss"] = bool(np.isfinite(k["loss"]))
+    checks["padding row: B1-B3 against the plain versions"] = (
+        pad_loss_rel <= TRAIN_LOSS_RTOL
+        and pad_norm_rel <= TRAIN_GRAD_NORM_RTOL)
+    checks["padding row: its tokens move no gradient"] = (
+        ch["loss"] == k["loss"] and changed_max == 0.0)
+    checks["padding step: 12 launches of each kernel"] = (
+        k["launches"] == dict.fromkeys(fa.launches, layers))
+    del pad
+    torch.cuda.empty_cache()
+    rows = [b for r in (0, 1) for b in seen[r][:FILES_STEPS]]
+    segs = np.concatenate([b["segment_ids"] for b in rows])
+    eff = packing.packing_efficiency({"segment_ids": segs})
+    docs_a_row = float(np.mean(segs.max(axis=1)))
+    log("files (a) GPT-2-small ({} layers, width {}) from {} documents "
+        "({} tokens, lengths log-uniform {}-{}) in {} record shards, "
+        "FILES mode, 2 executors on one device, data=2 over {}: InputPipeline"
+        "(shard=(2, i), reader_threads=1) -> strip padding -> packed_batches"
+        "(s{}, {} rows) -> Trainer.fit, {} steps; {:.2f} documents a row, "
+        "padding share {:.4f} (packing_efficiency {:.4f}); losses {}; "
+        "in-process trainer (grad_accum=2) step 1 {:.4f} (rel {:.3g}, "
+        "limit {:g}); launches a rank {}; step ms a rank (CUDA events "
+        "around fit) {}; train_data_wait_seconds a step, ms, a rank {}; "
+        "peak memory a rank {} GiB; cluster.run to shutdown "
+        "{:.1f} s".format(
+            layers, GPT2_SMALL["embed_dim"], FILES_DOCS, tokens,
+            FILES_DOC_LEN[0], FILES_DOC_LEN[1], FILES_SHARDS,
+            docs[0]["backend"], GPT2_SMALL["max_seq_len"], FILES_ROWS,
+            FILES_STEPS, docs_a_row, 1 - eff, eff,
+            ["{:.4f}".format(x) for x in losses], ref_losses[0], step1_rel,
+            TRAIN_LOSS_RTOL, [d["launches"] for d in docs],
+            [["{:.2f}".format(x) for x in d["step_ms"]] for d in docs],
+            [["{:.3f}".format(x) for x in d["wait_ms"]] for d in docs],
+            ["{:.2f}".format(d["peak_bytes"] / 2 ** 30) for d in docs],
+            cluster_s))
+    log("files (a) padding row (segment 0 everywhere) in a b{} x s{} "
+        "step: loss {:.6f} through B1-B3, {:.6f} through their plain "
+        "versions (rel {:.3g}; gradient norms rel {:.3g}, limits {:g} and "
+        "{:g}); the padding row's tokens changed: loss {:.6f}, largest "
+        "gradient difference {:.3g}; launches {} on {}".format(
+            FILES_ROWS, GPT2_SMALL["max_seq_len"], k["loss"], p["loss"],
+            pad_loss_rel, pad_norm_rel, TRAIN_LOSS_RTOL,
+            TRAIN_GRAD_NORM_RTOL, ch["loss"], changed_max,
+            k["launches"], card))
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("files (a) failed: {}".format(failed))
+    total = {n: sum(d["launches"][n] for d in docs) + k["launches"][n]
+             + ch["launches"][n] for n in fa.launches}
+    return total
+
+
+def files_images(torch, root, card):
+    """(b): the piped ResNet-50 image feed."""
+    from tensorflowonspark_tpu_torch import telemetry
+    from tensorflowonspark_tpu_torch.data import decode_pool, dfutil
+    from tensorflowonspark_tpu_torch.data import image_preprocessing as ip
+    from tensorflowonspark_tpu_torch.data.input_pipeline import (
+        InputPipeline,
+    )
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.testing import faults
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+    from tensorflowonspark_tpu_torch.train.prefetch import DevicePrefetch
+
+    flat = int(np.prod(FILES_IMAGE))
+    data = os.path.join(root, "images")
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    rows = [{"image": rng.randint(0, 256, size=flat, dtype=np.uint8)
+             .tobytes(), "label": int(rng.randint(1000))}
+            for _ in range(FILES_IMAGES)]
+    dfutil.save_as_tfrecords(rows, data, schema={
+        "image": dfutil.BINARY, "label": dfutil.INT64},
+        num_shards=FILES_SHARDS)
+    del rows
+    write_s = time.perf_counter() - t0
+    try:
+        import PIL  # noqa: F401
+        pil = "PIL present"
+    except ImportError:
+        pil = "no PIL"
+    columns = {"image": ("uint8", flat), "label": ("int64", 1)}
+    kw = dict(batch_size=RESNET_BATCH, shuffle_files=True, seed=0,
+              drop_remainder=True, prefetch=4, transform=FlipOdd())
+    per_epoch = FILES_IMAGES // RESNET_BATCH
+
+    def feed_only(**more):
+        """Three epochs of a pipeline alone: the first epoch's batches, and
+        images/s from the first batch's arrival to the last's (the pool's
+        start left out)."""
+        got, stamps = [], []
+        for b in InputPipeline(data, columns, epochs=3, **dict(kw, **more)):
+            got.append(b)
+            stamps.append(time.perf_counter())
+        return got[:per_epoch], (len(got) - 1) * RESNET_BATCH / (
+            stamps[-1] - stamps[0])
+
+    inline, inline_rate = feed_only()
+    _, pool_rate = feed_only(decode_workers=2)
+    cache = os.path.join(root, "cache")
+    plan = faults.FaultPlan(os.path.join(root, "plan"))
+    plan.kill_decode_worker(after_batches=FILES_KILL_AFTER)
+    pipe = InputPipeline(data, columns, epochs=2, decode_workers=2,
+                         cache_dir=cache, cache_tag="flip-odd",
+                         **dict(kw, prefetch=1))
+    seen, killed, pool_seen = [], [], []
+
+    def source():
+        for i, b in enumerate(pipe):
+            seen.append({k: v.copy() for k, v in b.items()})
+            if pipe._pool is not None:
+                pool_seen.append(i)
+                pid = plan.on_pool_batch(i, pipe._pool)
+                if pid:
+                    killed.append(pid)
+                    # Until the dead worker is reaped, so the pool's next
+                    # sweep (after this batch is taken) sees the death.
+                    deadline = time.monotonic() + 10
+                    while decode_pool._alive(pid) and \
+                            time.monotonic() < deadline:
+                        time.sleep(0.01)
+            yield b
+
+    model = factory.get_model("resnet50", num_classes=1000, device="cuda",
+                              seed=0)
+    tr = Trainer(model, optimizer=trainer.sgd(0.1, momentum=0.9),
+                 input_fn=ip.input_normalizer("inception"), device="cuda")
+    state = tr.init()
+
+    class Recorder:
+        """The trainer's placer, recording what reaches the card."""
+
+        def __init__(self, placer):
+            self.placer, self.device, self.placed = placer, placer.device, []
+
+        def __call__(self, batch):
+            out = self.placer(batch)
+            self.placed.append((out["x"].dtype, out["x"].device.type))
+            return out
+
+    def readings():
+        return (telemetry.get_counter("ingest_worker_deaths_total"),
+                telemetry.get_counter("ingest_cached_batches_total"))
+
+    before = readings()
+    recorder = Recorder(tr.batch_placer)
+    pin_memory = torch.Tensor.pin_memory
+    pins = [0]
+
+    def counted_pin(self, *a, **k):
+        pins[0] += 1
+        return pin_memory(self, *a, **k)
+
+    torch.Tensor.pin_memory = counted_pin
+    losses, step_ms, wait_ms = [], [], []
+    try:
+        pf = DevicePrefetch(source(), depth=2, placer=recorder)
+        for _ in range(2 * per_epoch):
+            stop = _timer(torch)
+            waited = _wait_sum(telemetry)
+            state, hist = tr.fit(state, pf, steps=1, flush_every=1)
+            step_ms.append(stop())
+            wait_ms.append(1e3 * (_wait_sum(telemetry) - waited))
+            losses.append(float(hist[-1]["loss"]))
+        pf.close()
+    finally:
+        torch.Tensor.pin_memory = pin_memory
+    after = readings()
+    deaths, cached_batches = after[0] - before[0], after[1] - before[1]
+    replay_t0 = time.perf_counter()
+    replay = list(InputPipeline(data, columns, epochs=1, cache_dir=cache,
+                                cache_tag="flip-odd", **kw))
+    replay_rate = len(replay) * RESNET_BATCH / (
+        time.perf_counter() - replay_t0)
+    order = np.random.RandomState(kw["seed"] + 7919 * 2).permutation(
+        per_epoch)
+    checks = {
+        "epoch 1 on the pool bitwise the inline run":
+            _batches_equal(seen[:per_epoch], inline),
+        "epoch 2 replayed from the cache, bitwise epoch 1": _batches_equal(
+            seen[per_epoch:], [seen[j] for j in order]),
+        "a rebuilt pipeline replays epoch 1 from the cache":
+            _batches_equal(replay, inline),
+        "one worker killed mid epoch 1": len(killed) == 1
+            and plan.fired(faults.KILL_DECODE_WORKER) == 1
+            and deaths >= 1,
+        "epoch 1 decoded on the pool, epoch 2 cached":
+            pool_seen == list(range(per_epoch))
+            and cached_batches >= per_epoch,
+        "no shared-memory segment left": glob.glob(
+            "/dev/shm/tfos{}p*".format(os.getpid())) == [],
+        "losses finite": bool(np.all(np.isfinite(losses))),
+        "x uint8 on the host": all(b["x"].dtype == np.uint8 for b in seen),
+    }
+    checks["uint8 batches placed on the card by DevicePrefetch, pinned"] = (
+        recorder.placed == [(torch.uint8, "cuda")] * len(seen)
+        and pins[0] >= 2 * len(seen))
+    probe = tr.batch_placer({"x": inline[0]["x"][:2]})["x"]
+    normalized = tr.input_fn(probe)
+    want = probe.float().div(255).to(torch.bfloat16)
+    checks["normalized on the card by input_normalizer"] = (
+        normalized.is_cuda and normalized.dtype == torch.bfloat16
+        and bool(torch.equal(normalized, want)))
+    # Step 1 builds cuDNN's plans and waits for the pool's start.
+    trained = (len(step_ms) - 1) * RESNET_BATCH / sum(step_ms[1:]) * 1e3
+    log("files (b) ResNet-50 b{} {}x{} bf16 sgd(0.1, 0.9) fed from {} "
+        "uint8 records in {} shards ({:.1f} s to write; {}: the records are "
+        "raw uint8, bench_resnet50_piped's format): feed only {:.1f} "
+        "images/s inline, {:.1f} on a 2-worker decode pool (shared memory), "
+        "{:.1f} replaying the cache; trained {:.1f} images/s over steps "
+        "2-{} "
+        "(epoch 1 on the pool, worker pid {} SIGKILLed after batch {}, "
+        "epoch 2 from the cache; {} pinned host copies); step ms {} (CUDA "
+        "events around fit); train_data_wait_seconds a step {} ms; "
+        "losses {} on {}".format(
+            RESNET_BATCH, FILES_IMAGE[0], FILES_IMAGE[1], FILES_IMAGES,
+            FILES_SHARDS, write_s, pil,
+            inline_rate, pool_rate, replay_rate, trained, len(losses),
+            killed, FILES_KILL_AFTER, pins[0],
+            ["{:.1f}".format(x) for x in step_ms],
+            ["{:.3f}".format(x) for x in wait_ms],
+            ["{:.4f}".format(x) for x in losses], card))
+    failed = [name for name, ok in checks.items() if not ok]
+    del model, tr, state, pf, seen, inline, replay
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("files (b) failed: {}".format(failed))
+
+
+def files_phase(torch, fa, card):
+    """The FILES-mode data tier on the card: (a) GPT-2-small packed from
+    record files by two FILES-mode executors; (b) the ResNet-50 image
+    feed through a decode pool, a worker kill and a cached epoch. Returns
+    (a)'s flash launches."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.data import _native
+
+    native = _native.loaded()
+    if not all(native.values()):
+        raise AssertionError("the data tier's native libraries did not "
+                             "load: {}".format(native))
+    log("files: native codecs {} built from tensorflowonspark_tpu_torch/"
+        "csrc/host into {}".format(sorted(native), _native.build_dir()))
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tfos-files-")
+    try:
+        torch.cuda.empty_cache()
+        launches = files_lm(torch, fa, root, card)
+        t_a = time.perf_counter() - t0
+        files_images(torch, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("files phase {:.1f} s ((a) {:.1f} s)".format(
+        time.perf_counter() - t0, t_a))
+    return launches
+
+
 # -- recovery: supervised relaunch, elastic membership, remote agents ---------
 
 # (a): GPT-2-small at full width, the cluster phase's geometry, one executor
@@ -5180,6 +5718,7 @@ def main():
         raise AssertionError("the resnet phase launched flash kernels: "
                              "{}".format(fa.launches))
     cluster_launches = cluster_phase(torch, fa, card)
+    files_launches = files_phase(torch, fa, card)
     recover_launches = recover_phase(torch, fa, card)
     shard_launches = shard_phase(torch, fa, card)
     fa.reset_launches()
@@ -5202,7 +5741,8 @@ def main():
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
             launches=flash_launches[name] + cluster_launches[name]
-            + recover_launches[name] + shard_launches[name]
+            + files_launches[name] + recover_launches[name]
+            + shard_launches[name]
             + moe_launches[name] + pipe_launches[name],
             **flash_times[name]))
     # B5's row: one launch of a stage-1 block, the mean of its two (K1

@@ -2,8 +2,8 @@
 copy of the JAX package's ``feed.py``. The lockstep loop
 (:meth:`DataFeed.sync_batches`) agrees through
 :func:`~tensorflowonspark_tpu_torch.parallel.multihost.agree_sum` on a gloo
-group; :meth:`DataFeed.decoded_batches` needs the decode pool, which is
-ROADMAP A12.
+group; :meth:`DataFeed.decoded_batches` decodes on the data tier's
+:class:`~tensorflowonspark_tpu_torch.data.decode_pool.DecodePool`.
 
 Keeps the reference's user contract exactly
 (``tensorflowonspark/TFNode.py:182-291``):
@@ -264,13 +264,80 @@ class DataFeed:
 
     def decoded_batches(self, batch_size, decode_fn, workers=0,
                         window=None, block=True):
-        """The JAX package's decode-pool face of the feed (decode fanned
-        out to worker processes, results in feed order). Not ported: it
-        raises, naming ROADMAP A12."""
-        raise NotImplementedError(
-            "DataFeed.decoded_batches needs data/decode_pool, which is not "
-            "ported (ROADMAP A12); decode in the node program over "
-            "next_batch or sync_batches instead")
+        """Yield decoded batches, with decode fanned out to a
+        multi-process pool so queue drain and decode overlap.
+
+        The FEED-mode face of the host-ingest plane: the feeder pushes
+        *raw* items (e.g. encoded JPEG rows) through the manager queue
+        exactly as before, and this generator drains them batch-wise,
+        hands each raw batch to ``decode_fn`` on a
+        :class:`~tensorflowonspark_tpu_torch.data.decode_pool.DecodePool`
+        of ``workers`` processes, and yields the decoded results **in feed
+        order** — while worker processes chew on batch N, the consumer
+        thread is already draining batch N+1 off the queue. With
+        ``workers=0`` decode runs inline (no pool, no extra processes).
+
+        ``decode_fn(batch) -> batch`` receives whatever :meth:`next_batch`
+        returns (a list, or a dict of column lists under
+        ``input_mapping``). With ``workers`` it crosses to the pool's
+        workers by pickle, since they start by forkserver and not by fork
+        as the JAX package's do: a module-level function, a
+        ``functools.partial`` or a callable object (a closure raises
+        ``TypeError`` when the pool starts). It must be torch-free and
+        deterministic (a batch lost to a worker death is re-decoded in the
+        parent — same contract as FILES mode). The stream ends when the
+        feed does; short trailing batches are delivered, empty drains are
+        skipped.
+
+        Failure semantics: up to ``window`` raw batches are drained off
+        the manager queue ahead of decode, and a feed stream — unlike
+        FILES-mode records — cannot be re-read. A decode error (or an
+        abandoned generator) therefore surfaces as a *node failure* with
+        those in-flight items consumed: do not catch the ``DecodeError``
+        and re-enter this generator expecting to resume losslessly — let
+        it propagate, like any other compute error, so the supervisor's
+        relaunch path re-feeds the partition from the feeder side.
+        """
+        from tensorflowonspark_tpu_torch.data import decode_pool as dp
+
+        def raw_batches():
+            n = 0
+            while not self.should_stop():
+                batch = self.next_batch(batch_size, block=block)
+                size = (len(next(iter(batch.values())))
+                        if isinstance(batch, dict) else len(batch))
+                if size == 0:
+                    continue
+                yield (n, batch)
+                n += 1
+
+        if workers and int(workers) > 0:
+            def torn_down():
+                # Teardown hook for the pool's blocked waits: a wedged
+                # decode worker must not pin this node through a
+                # supervisor teardown. 'terminating'/'stopped' (or a
+                # dead manager) means abandon in-flight decodes and
+                # unwind — the relaunch re-feeds the partition.
+                try:
+                    return self.mgr.get("state") in (
+                        "terminating", "stopped")
+                except Exception:
+                    return True
+
+            pool = dp.DecodePool(
+                _FeedTask(decode_fn), workers=int(workers),
+                window=window, name="feed-decode")
+            try:
+                for decoded in pool.imap(
+                        raw_batches(),
+                        context_fn=lambda i, t: {"feed_batch": t[0]},
+                        stopped=torn_down):
+                    yield decoded
+            finally:
+                pool.close()
+        else:
+            for _, batch in raw_batches():
+                yield decode_fn(batch)
 
     # -- output side --------------------------------------------------------
 
@@ -301,6 +368,17 @@ class DataFeed:
                     self.done_feeding = True
             except _queue_mod.Empty:
                 done = True
+
+
+class _FeedTask:
+    """``decode_fn`` over the raw batch of a ``(feed index, batch)`` pool
+    task: a picklable object where the JAX package passes a lambda."""
+
+    def __init__(self, decode_fn):
+        self.decode_fn = decode_fn
+
+    def __call__(self, task):
+        return self.decode_fn(task[1])
 
 
 def _concat_peers(arrays, mask, peers):

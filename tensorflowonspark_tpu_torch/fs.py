@@ -1,5 +1,6 @@
-"""Filesystem layer of the port (its copy of ``tensorflowonspark_tpu/fs.py``,
-the part that checkpoints, metrics and tfevents use).
+"""Filesystem layer of the port (its copy of ``tensorflowonspark_tpu/fs.py``):
+the paths of checkpoints, metrics, tfevents and the data tier's record
+files.
 
 Every path is a URI. Local paths (no scheme, or ``file://``) go straight to
 the operating system and need no ``fsspec``; any other scheme (``hdfs://``,
@@ -8,9 +9,11 @@ imported inside :func:`get_fs` when a remote URI first needs it.
 """
 
 import builtins
+import contextlib
 import os
 import posixpath
 import shutil
+import tempfile
 import time
 
 
@@ -35,6 +38,13 @@ def get_fs(uri):
     return fsspec.core.url_to_fs(os.fspath(uri))
 
 
+def _requalify(uri, paths):
+    """Re-attach ``uri``'s scheme to fs-relative result paths (fsspec
+    strips protocols from ``glob``/``ls`` results)."""
+    fs, _ = get_fs(uri)
+    return [fs.unstrip_protocol(p) for p in paths]
+
+
 def open(uri, mode="rb", **kwargs):
     """Open a file on whatever filesystem ``uri`` names.
 
@@ -55,6 +65,20 @@ def exists(uri):
         return os.path.exists(local_path(uri))
     fs, path = get_fs(uri)
     return fs.exists(path)
+
+
+def isfile(uri):
+    if is_local(uri):
+        return os.path.isfile(local_path(uri))
+    fs, path = get_fs(uri)
+    return fs.isfile(path)
+
+
+def isdir(uri):
+    if is_local(uri):
+        return os.path.isdir(local_path(uri))
+    fs, path = get_fs(uri)
+    return fs.isdir(path)
 
 
 def makedirs(uri):
@@ -81,8 +105,7 @@ def glob(pattern):
         prefix = "file://" if os.fspath(pattern).startswith("file://") else ""
         return sorted(prefix + p for p in glob_lib.glob(local_path(pattern)))
     fs, path = get_fs(pattern)
-    # fsspec strips the protocol from glob results; put it back.
-    return sorted(fs.unstrip_protocol(p) for p in fs.glob(path))
+    return sorted(_requalify(pattern, fs.glob(path)))
 
 
 def join(uri, *parts):
@@ -90,6 +113,45 @@ def join(uri, *parts):
     if is_local(uri) and not os.fspath(uri).startswith("file://"):
         return os.path.join(uri, *parts)
     return posixpath.join(uri, *parts)
+
+
+def put_file(local, uri):
+    """Upload one local file to ``uri``."""
+    if is_local(uri):
+        dst = local_path(uri)
+        if os.path.dirname(dst):
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copyfile(local, dst)
+        return
+    fs, path = get_fs(uri)
+    fs.put_file(local, path)
+
+
+def get_file(uri, local):
+    """Download ``uri`` to one local file."""
+    if is_local(uri):
+        shutil.copyfile(local_path(uri), local)
+        return
+    fs, path = get_fs(uri)
+    fs.get_file(path, local)
+
+
+def put_tree(local_dir, uri):
+    """Recursively upload a local directory under ``uri``."""
+    if is_local(uri):
+        dst = local_path(uri)
+        os.makedirs(dst, exist_ok=True)
+        shutil.copytree(local_dir, dst, dirs_exist_ok=True)
+        return
+    fs, path = get_fs(uri)
+    # fs.put(recursive) nests the source dir under the target when the
+    # target exists; file by file keeps the layout exact.
+    for root, _, files in os.walk(local_dir):
+        rel = os.path.relpath(root, local_dir)
+        for name in files:
+            sub = name if rel == "." else posixpath.join(
+                rel.replace(os.sep, "/"), name)
+            fs.put_file(os.path.join(root, name), posixpath.join(path, sub))
 
 
 def get_tree(uri, local_dir):
@@ -104,6 +166,47 @@ def get_tree(uri, local_dir):
         dst = os.path.join(local_dir, *rel.split("/"))
         os.makedirs(os.path.dirname(dst), exist_ok=True)
         fs.get_file(p, dst)
+
+
+def make_staging_file(prefix="tfos-stage-"):
+    """Create (and return the path of) an empty local staging file, for a
+    codec that needs a real file descriptor for a remote URI."""
+    fd, tmp = tempfile.mkstemp(prefix=prefix)
+    os.close(fd)
+    return tmp
+
+
+@contextlib.contextmanager
+def stage_for_read(uri):
+    """Yield a *local* path holding ``uri``'s bytes (for native codecs that
+    need a real file descriptor). Local URIs pass straight through."""
+    if is_local(uri):
+        yield local_path(uri)
+        return
+    tmp = make_staging_file()
+    try:
+        get_file(uri, tmp)
+        yield tmp
+    finally:
+        os.unlink(tmp)
+
+
+@contextlib.contextmanager
+def stage_for_write(uri):
+    """Yield a *local* path; on clean exit its bytes are uploaded to
+    ``uri``. Local URIs pass straight through."""
+    if is_local(uri):
+        path = local_path(uri)
+        if os.path.dirname(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        yield path
+        return
+    tmp = make_staging_file()
+    try:
+        yield tmp
+        put_file(tmp, uri)
+    finally:
+        os.unlink(tmp)
 
 
 class BufferedObjectWriter:

@@ -28,9 +28,7 @@ Faults:
   items, while the feeder is still putting (the
   consumer-died-mid-partition class);
 * ``kill_decode_worker(n)``   — SIGKILL one live decode-pool worker after
-  n decoded batches. The port has no decode pool yet (``data/decode_pool``
-  is ROADMAP A12): the fault arms, and :meth:`FaultPlan.on_pool_batch`
-  raises when it is armed;
+  n decoded batches (the recovery drill of ``data/decode_pool``);
 * ``preempt_node(k, grace=...)`` — spot/preemptible-VM preemption: at
   step >= k the process gets a termination NOTICE (a ``fault/preempt``
   marker + a SIGTERM handler armed to raise :class:`Preempted`), then
@@ -255,15 +253,25 @@ class FaultPlan:
             raise InjectedFault("injected failure at step {}".format(step))
 
     def on_pool_batch(self, count, pool):
-        """The JAX package's decode-pool hook. The port has no decode pool
-        (``data/decode_pool`` is ROADMAP A12): returns None while
-        ``kill_decode_worker`` is not armed, and raises once it is, rather
-        than let a drill pass without killing anything."""
-        if self._read(KILL_DECODE_WORKER) is None:
+        """Call per batch yielded by a :class:`~tensorflowonspark_tpu_torch
+        .data.decode_pool.DecodePool` stream; fires ``kill_decode_worker``
+        by SIGKILLing one live worker of ``pool`` (picked
+        deterministically: the lowest pid, so a repeated drill is
+        reproducible). Returns the killed pid, or None when nothing
+        fired."""
+        spec = self._read(KILL_DECODE_WORKER)
+        if not (spec and int(count) >= spec.get("after_batches", 0)):
             return None
-        raise NotImplementedError(
-            "kill_decode_worker is armed, but the decode pool "
-            "(data/decode_pool) is not ported (ROADMAP A12)")
+        # Liveness BEFORE the claim: an empty pool (workers mid-respawn/
+        # close) must not consume the bounded fire — the drill would
+        # then never kill anything and pass vacuously.
+        pids = sorted(pool.worker_pids())
+        if not pids or not self._claim(KILL_DECODE_WORKER, spec):
+            return None
+        logger.warning("fault injection SIGKILLs decode worker pid=%d "
+                       "after %d batch(es)", pids[0], count)
+        os.kill(pids[0], signal.SIGKILL)
+        return pids[0]
 
     def on_feed_item(self, count):
         """Call per consumed feed item; fires ``kill_feed_queue``."""

@@ -8,9 +8,10 @@ A tfevents file is TFRecord framing (``uint64 len | masked_crc(len) | data
     Summary { repeated Value value = 1; }
     Value   { string tag = 1; float simple_value = 2; }
 
-The bytes equal the JAX package's for the same inputs. The port keeps its
-own copies of the protobuf helpers (``data/example.py``) and of the
-pure-Python CRC-32C (``data/tfrecord.py``). Files are named
+The bytes equal the JAX package's for the same inputs. The framing's CRC
+is :func:`~tensorflowonspark_tpu_torch.data.tfrecord.masked_crc32c` and the
+protobuf helpers are :mod:`~tensorflowonspark_tpu_torch.data.example`'s,
+as in the JAX package. Files are named
 ``events.out.tfevents.<secs>.<host>.<pid>.<uid>``, so TensorBoard's
 ``*tfevents*`` glob finds them and same-second writers do not collide;
 long remote runs roll to ``<name>.partN`` objects, which the readers join.
@@ -24,131 +25,20 @@ import struct
 import time
 
 from tensorflowonspark_tpu_torch import fs as fs_lib
+from tensorflowonspark_tpu_torch.data.example import (  # noqa: F401
+    _fields,
+    _to_signed64,
+    _write_len_delimited,
+    _write_varint,
+    _zigzagless_int64,
+)
+from tensorflowonspark_tpu_torch.data.tfrecord import (  # noqa: F401
+    crc32c,
+    masked_crc32c,
+)
 
 _WRITER_IDS = itertools.count()
 FILE_VERSION = "brain.Event:2"
-
-
-# -- protobuf wire helpers ----------------------------------------------------
-
-def _write_varint(buf, value):
-    while True:
-        b = value & 0x7F
-        value >>= 7
-        if value:
-            buf.append(b | 0x80)
-        else:
-            buf.append(b)
-            return
-
-
-def _read_varint(data, pos):
-    result = shift = 0
-    while True:
-        if pos >= len(data):
-            raise ValueError("truncated protobuf: varint past end of buffer")
-        b = data[pos]
-        pos += 1
-        result |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return result, pos
-        shift += 7
-        if shift > 63:
-            raise ValueError("varint too long")
-
-
-def _zigzagless_int64(value):
-    # int64 fields use two's-complement varints (10 bytes when negative).
-    return value & 0xFFFFFFFFFFFFFFFF
-
-
-def _to_signed64(value):
-    return value - (1 << 64) if value >= (1 << 63) else value
-
-
-def _write_len_delimited(buf, field, payload):
-    _write_varint(buf, (field << 3) | 2)
-    _write_varint(buf, len(payload))
-    buf.extend(payload)
-
-
-def _skip_field(data, pos, wire_type):
-    if wire_type == 0:
-        _, pos = _read_varint(data, pos)
-    elif wire_type == 1:
-        pos += 8
-    elif wire_type == 2:
-        n, pos = _read_varint(data, pos)
-        pos += n
-    elif wire_type == 5:
-        pos += 4
-    else:
-        raise ValueError("unsupported wire type {}".format(wire_type))
-    return pos
-
-
-def _fields(data):
-    """Yield (field_number, wire_type, value_or_span) over a message."""
-    pos = 0
-    end = len(data)
-    while pos < end:
-        key, pos = _read_varint(data, pos)
-        field, wire_type = key >> 3, key & 7
-        if wire_type == 0:
-            value, pos = _read_varint(data, pos)
-            yield field, wire_type, value
-        elif wire_type == 2:
-            n, pos = _read_varint(data, pos)
-            if pos + n > end:
-                raise ValueError(
-                    "truncated protobuf: length-delimited field of {} bytes "
-                    "exceeds buffer".format(n))
-            yield field, wire_type, data[pos:pos + n]
-            pos += n
-        elif wire_type == 5:
-            if pos + 4 > end:
-                raise ValueError("truncated protobuf: fixed32 past end")
-            yield field, wire_type, data[pos:pos + 4]
-            pos += 4
-        elif wire_type == 1:
-            if pos + 8 > end:
-                raise ValueError("truncated protobuf: fixed64 past end")
-            yield field, wire_type, data[pos:pos + 8]
-            pos += 8
-        else:
-            pos = _skip_field(data, pos, wire_type)
-
-
-# -- CRC-32C (Castagnoli), table-driven ---------------------------------------
-
-_CRC_TABLE = None
-
-
-def _crc_table():
-    global _CRC_TABLE
-    if _CRC_TABLE is None:
-        poly = 0x82F63B78
-        table = []
-        for i in range(256):
-            crc = i
-            for _ in range(8):
-                crc = (crc >> 1) ^ (poly if crc & 1 else 0)
-            table.append(crc)
-        _CRC_TABLE = table
-    return _CRC_TABLE
-
-
-def crc32c(data):
-    table = _crc_table()
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = (crc >> 8) ^ table[(crc ^ b) & 0xFF]
-    return crc ^ 0xFFFFFFFF
-
-
-def masked_crc32c(data):
-    crc = crc32c(data)
-    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
 
 
 # -- Event proto codec --------------------------------------------------------

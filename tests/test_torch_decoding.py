@@ -29,7 +29,7 @@ _STATE = {}
 
 
 def _pair():
-    if not _STATE:
+    if "jm" not in _STATE:
         jm = jax_factory.get_model("transformer", dtype=jnp.float32, **LM_KW)
         params = nn.meta.unbox(jax.jit(jm.init)(
             jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])

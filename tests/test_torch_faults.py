@@ -12,8 +12,8 @@ JAX package's.
   ``CheckpointManager.restore`` skips the torn newest step through marker
   validation: commit steps 1-4, damage 4, and the restore lands on 3 with
   step 4's directory discarded.
-* ``kill_decode_worker`` arms, and the port's decode-pool hook raises
-  while it is armed (the decode pool is ROADMAP A12).
+* ``kill_decode_worker`` SIGKILLs the lowest-pid worker of a live decode
+  pool once and returns its pid; the pool's stream finishes bitwise.
 """
 
 import os
@@ -143,11 +143,36 @@ def test_preemption_notice_then_sigterm_raises_preempted(tmp_path):
 
 
 def test_kill_decode_worker_raises_while_armed(tmp_path):
+    """The decode-worker drill (the name is the one it had while the pool
+    was not ported and the armed fault raised): unarmed it is a no-op;
+    armed, it SIGKILLs the pool's lowest-pid live worker once, after
+    ``after_batches``, and returns that pid; the stream finishes bitwise
+    equal and the pool replaces the worker."""
+    import torch_data_programs as progs
+    from tensorflowonspark_tpu_torch.data import decode_pool
+
     plan = faults.FaultPlan(str(tmp_path / "p"))
     assert plan.on_pool_batch(5, pool=None) is None  # not armed
     plan.kill_decode_worker(after_batches=3)
-    with pytest.raises(NotImplementedError, match="A12"):
-        plan.on_pool_batch(5, pool=None)
+    before = progs.live_children()
+    with decode_pool.DecodePool(progs.decode_columnar, workers=2) as pool:
+        got, fired = [], []
+        for i, out in enumerate(pool.imap([[i] for i in range(10)])):
+            got.append(out)
+            pids = sorted(pool.worker_pids())
+            pid = plan.on_pool_batch(i, pool)
+            if pid is not None:
+                fired.append((i, pid, pids[0]))
+        stats = pool.stats()
+    assert [(i, pid) for i, pid, _ in fired] == [(3, fired[0][2])]
+    assert plan.fired(faults.KILL_DECODE_WORKER) == 1
+    assert stats["worker_deaths"] == 1 and stats["workers"] == 2
+    for i, batch in enumerate(got):
+        want = progs.decode_columnar([i])
+        np.testing.assert_array_equal(batch["image"], want["image"])
+        np.testing.assert_array_equal(batch["label"], want["label"])
+        assert batch["names"] == want["names"]
+    assert progs.wait_no_new_children(before) == set()
 
 
 def test_corrupt_step_damages_newest_step(tmp_path):

@@ -7,16 +7,25 @@ every call returns the same arrays, dtypes and masks: ``next_batch``,
 batch included), column mapping, and the single-process ``sync_batches``.
 Queues are in-process for speed, plus one pass through the port's real
 manager process. The paths and sentinel copies are checked beside them.
+``decoded_batches`` yields the JAX feed's decoded batches (the JAX one
+inline: its pool forks), in feed order with the short trailing batch, on
+the port's two-worker pool too; a ``DecodeError`` closes the pool, leaves
+no child behind and fails the node program in a real FEED cluster.
 """
 
+import json
+import os
 import queue
 
 import numpy as np
 import pytest
 
+import torch_cluster_programs as cluster_progs
+import torch_data_programs as progs
 from tensorflowonspark_tpu import feed as jax_feed
 from tensorflowonspark_tpu import marker as jax_marker
 from tensorflowonspark_tpu import paths as jax_paths
+from tensorflowonspark_tpu_torch import backend, cluster
 from tensorflowonspark_tpu_torch import feed as port_feed
 from tensorflowonspark_tpu_torch import manager as port_manager
 from tensorflowonspark_tpu_torch import marker as port_marker
@@ -141,9 +150,24 @@ def test_feed_through_the_port_manager_process():
         mgr.shutdown()
 
 
+def _decoded(feed_mod, marker_mod, kind, batch_size, decode_fn, workers=0,
+             train_mode=True):
+    mgr = _Mgr()
+    q = mgr.get_queue("input")
+    for item in _items(marker_mod, kind):
+        q.put(item)
+    df = feed_mod.DataFeed(mgr, train_mode=train_mode)
+    return [_plain(b) for b in df.decoded_batches(
+        batch_size, decode_fn, workers=workers)]
+
+
 def test_decoded_batches_and_paths():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        next(port_feed.DataFeed(_Mgr()).decoded_batches(2, lambda b: b))
+    for kind, n, mode in (("rows", 3, True), ("rows", 4, False),
+                          ("end_in_partial", 2, True), ("scalars", 4, True)):
+        want = _decoded(jax_feed, jax_marker, kind, n, progs.feed_rows,
+                        train_mode=mode)
+        assert _decoded(port_feed, port_marker, kind, n, progs.feed_rows,
+                        train_mode=mode) == want
     for path, fs in (("hdfs://a/b", "hdfs://nn"), ("/abs", "hdfs://nn:8020"),
                      ("/abs", "file://"), ("rel", "file://"),
                      ("gs://bucket/o", "file://")):
@@ -152,3 +176,75 @@ def test_decoded_batches_and_paths():
     assert port_paths.strip_scheme("file:///a/b") == "/a/b"
     assert repr(port_marker.EndPartition()) == repr(
         jax_marker.EndPartition())
+
+
+@pytest.mark.parametrize("kind,batch_size,train_mode", [
+    ("rows", 3, True), ("rows", 4, False), ("scalars", 4, True)])
+def test_decoded_batches_on_a_pool_keep_feed_order(kind, batch_size,
+                                                   train_mode):
+    before = progs.live_children()
+    want = _decoded(jax_feed, jax_marker, kind, batch_size, progs.feed_rows,
+                    train_mode=train_mode)
+    got = _decoded(port_feed, port_marker, kind, batch_size,
+                   progs.feed_rows, workers=2, train_mode=train_mode)
+    assert got == want
+    assert want[-1][2][0] < batch_size  # the short trailing batch
+    assert progs.wait_no_new_children(before) == set()
+
+
+def test_decoded_batches_decode_error_closes_the_pool():
+    from tensorflowonspark_tpu_torch.data import decode_pool
+
+    before = progs.live_children()
+    mgr = _Mgr()
+    q = mgr.get_queue("input")
+    for i in range(10):
+        q.put([i, i + 1])
+    q.put(None)
+    df = port_feed.DataFeed(mgr)
+    with pytest.raises(decode_pool.DecodeError) as err:
+        list(df.decoded_batches(3, progs.feed_rows_fail_on, workers=2))
+    assert err.value.context == {"feed_batch": 2}
+    assert "row thirteen does not decode" in str(err.value)
+    assert progs.wait_no_new_children(before) == set()
+    assert progs.shm_segments() == []
+    with pytest.raises(TypeError, match="closure or lambda"):
+        next(df.decoded_batches(3, lambda b: b, workers=2))
+
+
+def test_decoded_batches_in_a_feed_cluster(tmp_path):
+    """A FEED node program over ``decoded_batches(workers=2)``: the decoded
+    stream in feed order across partitions, and a decode error that fails
+    the node, its traceback at the driver."""
+    pool = backend.LocalBackend(1, base_dir=str(tmp_path / "exec"))
+    items = [[i, i + 1] for i in range(11)]
+    try:
+        for fail in (False, True):
+            args = {"outdir": str(tmp_path), "fail": fail}
+            c = cluster.run(pool, cluster_progs.decoded_feed, args,
+                            num_executors=1,
+                            input_mode=cluster.InputMode.FEED,
+                            reservation_timeout=60)
+            if not fail:
+                c.train(backend.Partitioned.from_items(items, 3), timeout=60)
+                c.shutdown(timeout=60)
+                continue
+            try:
+                # Enough items that the feed is still running when the
+                # decode of its second batch fails.
+                many = [[i, i + 1] for i in range(120)]
+                with pytest.raises(RuntimeError,
+                                   match="row thirteen does not decode"):
+                    c.train(backend.Partitioned.from_items(many, 3),
+                            timeout=60)
+            finally:
+                c.server.stop()
+    finally:
+        pool.stop()
+    with open(os.path.join(str(tmp_path), "decoded_0.json")) as f:
+        got = json.load(f)
+    fed = [it for part in backend.Partitioned.from_items(items, 3)
+           for it in part]  # feed order: partition after partition
+    want = [(np.asarray(fed[i:i + 4]) ** 2).tolist()
+            for i in range(0, 11, 4)]
+    assert got == {"batches": want, "forbidden": []}

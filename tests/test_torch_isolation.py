@@ -7,8 +7,9 @@ check runs in a fresh interpreter: import every module of
 nor ``tensorflowonspark_tpu`` (the exact name or a dotted child — the
 port's own name shares that prefix) may be loaded. A static scan of the
 sources (the package, ``chip_smoke.py`` and the port's
-``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``, and the
-node programs the cluster tests hand to spawned executors) backs it up for
+``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``, the
+node programs the cluster tests hand to spawned executors, and the decode
+functions the data tests hand to decode workers) backs it up for
 imports a run might not reach. A spawned executor of a port cluster, and
 its node program, load neither either; nor do the processes of the
 recovery paths: a supervised job's relaunched incarnation, an elastic
@@ -77,7 +78,11 @@ def test_importing_every_port_module_loads_no_jax():
                  "parallel.mesh", "parallel.multihost", "supervisor",
                  "elastic", "backend_remote", "tools.agent",
                  "testing.faults", "testing.programs", "models.mlp",
-                 "parallel.pipeline", "models.moe", "models.pipelined"):
+                 "parallel.pipeline", "models.moe", "models.pipelined",
+                 "data", "data._native", "data.tfrecord", "data.example",
+                 "data.batch_decode", "data.dfutil", "data.packing",
+                 "data.input_pipeline", "data.decode_pool",
+                 "data.batch_cache", "data.image_preprocessing"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -92,6 +97,7 @@ def _sources():
              os.path.join(ROOT, "scripts", "torch_paged_ab.py"),
              os.path.join(ROOT, "scripts", "torch_shard_run.py"),
              os.path.join(ROOT, "tests", "torch_cluster_programs.py"),
+             os.path.join(ROOT, "tests", "torch_data_programs.py"),
              os.path.join(ROOT, "tests", "torch_shard_programs.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names

@@ -77,6 +77,20 @@ def fail_feed(args, ctx):
     raise ValueError("boom from node {}".format(ctx.executor_id))
 
 
+def decoded_feed(args, ctx):
+    """Train-mode feed through ``decoded_batches(4, ..., workers=2)``;
+    writes the decoded batches (or raises the decode error)."""
+    import torch_data_programs as data_progs
+
+    df = ctx.get_data_feed(train_mode=True)
+    fn = (data_progs.feed_rows_fail_on if args["fail"]
+          else data_progs.feed_rows)
+    batches = [b.tolist() for b in df.decoded_batches(4, fn, workers=2)]
+    _dump(os.path.join(args["outdir"], "decoded_{}.json".format(
+        ctx.executor_id)), {"batches": batches,
+                            "forbidden": forbidden_modules()})
+
+
 def agree_and_lockstep(args, ctx):
     """Join the gloo group, then record ``agree_sum`` and the batches
     :func:`multihost.lockstep` yields over uneven local streams."""
