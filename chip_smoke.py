@@ -86,6 +86,27 @@ calls and fails (non-zero exit) if any phase fails:
                solo decode (teacher-forced, near ties excepted); an async
                save bitwise equal to its snapshot after two more steps;
                step bytes, save/restore seconds and ``fit``'s step time;
+   export   — the export and Spark-ML inference plane: (a) GPT-2-small
+               (bf16, flash route) trained 2 steps at b8 x s1024, its
+               checkpoint committed, ``export_saved_model`` with the
+               ``torch.export`` serving artifact traced at tokens (2, 128),
+               and again from CPU tensors; ``load_saved_model(prefer_aot=
+               False)`` and ``load_from_checkpoint`` predict b4 x s256
+               bitwise the live forward, B1 12 launches a call; both
+               artifacts served on the card at batches 1 and 4 by a fresh
+               interpreter that loads no ``models`` module, against the
+               live weights' dense route (limit 0.1); ``generate`` greedy
+               bitwise the live model's; ``serving_engine()`` at the JAX
+               defaults on 8 requests of ``serve_default``'s shapes,
+               streams bitwise an engine built on the live model, B4
+               decode calls x 8 x 12, no page left; (b) ``TFEstimator(
+               train_fn, export_fn)`` in FEED mode on two executors sharing
+               the card (2 layers at GPT-2-small width, vocab 512, data=2
+               over gloo; the fit runs beside (a), the serving child beside
+               (a)'s checks), then ``TFModel.transform`` over 64 rows on the
+               same executors with a ``model_registrar``, bitwise the
+               in-process ``predict`` on the same batches; fit, export_fn
+               and transform seconds;
 5. resnet   — the fused ResNet bottleneck: B5 (1x1 conv + statistics, with
                and without the bn+relu prologue) and B6 (3x3 conv +
                statistics) against their plain versions at the JAX test
@@ -146,11 +167,11 @@ calls and fails (non-zero exit) if any phase fails:
    recover  — supervised relaunch, elastic membership and remote agents:
                (a) ``cluster.run(..., restart_policy=RestartPolicy(
                max_restarts=1), checkpoint_dir=...)`` trains GPT-2-small
-               (the cluster phase's geometry) 6 steps with a commit every
-               2 and ``FaultPlan.crash_at_step(4)``: one restart, the
-               relaunch resumes at committed step 4 and discards the fed
-               batches already trained, B1-B3 48 + 24 launches over the
-               two incarnations, the committed step-6 weights bitwise
+               width at 2 layers (the cluster phase's b8 x s1024) 6 steps
+               with a commit every 2 and ``FaultPlan.crash_at_step(4)``:
+               one restart, the relaunch resumes at committed step 4 and
+               discards the fed batches already trained, B1-B3 8 + 4
+               launches over the two incarnations, the committed step-6 weights bitwise
                those of an in-process trainer on the same 6 batches, and
                the card's free memory before the relaunch builds its
                model within 1 GiB of the reading before the first
@@ -218,12 +239,12 @@ calls and fails (non-zero exit) if any phase fails:
                fp32;
 8. http     — ``POST /v1/generate`` from a separate process over TCP.
 
-The B1-B3 rows' ``launches`` add the executors' launches of the cluster,
-files, recover, shard, moe and pipe phases (each executor resets its counts
-before its loop and reports them; a recover incarnation appends its
-counts to its audit log at every step, since a crashed one returns
-nothing) to the train phase's; the B4 row adds the spec and moe phases'
-serving. The last two lines of standard output are the ``kernels`` JSON
+The B1-B3 rows' ``launches`` add the export phase's and the executors'
+launches of the export, cluster, files, recover, shard, moe and pipe
+phases (each executor resets its counts before its loop and reports them;
+a recover incarnation appends its counts to its audit log at every step,
+since a crashed one returns nothing) to the train phase's; the B4 row adds
+the spec, export and moe phases' serving. The last two lines of standard output are the ``kernels`` JSON
 record and ``{"ok": true, "device": {...}}``. In the record, ``ms`` and
 ``library_ms`` are device times (:func:`device_ms`: the call's kernels
 alone, timed with the card held busy until the host has queued the call);
@@ -2638,6 +2659,522 @@ def whole_path_phase(torch, fa, pa, card, plain_step_ms):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- export and Spark-ML inference: export.py, pipeline.py ---------------------
+
+# (a): GPT-2-small, bf16 compute, flash route, trained two steps at
+# ``_lm_trainer``'s b8 x s1024, then exported with the serving artifact
+# traced at tokens (2, 128). The registry rebuild predicts b4 x s256; the
+# artifact serves (1, 128) and (4, 128). Its dense attention is held
+# against the live model's dense route to EXPORT_AOT_TOL, the bf16 limit of
+# ``tests/test_torch_model.py::test_bf16_forward_close_to_jax`` (logits of
+# O(1) a few bf16 ulps apart).
+EXPORT_KW = dict(GPT2_SMALL, attention_impl="pallas")
+EXPORT_EXAMPLE = (2, 128)
+EXPORT_PREDICT = (4, 256)
+EXPORT_SERVE_BATCHES = (1, 4)
+EXPORT_AOT_TOL = 0.1
+EXPORT_REQUESTS = 8
+EXPORT_GENERATE = (32, 32)  # prompt tokens, new tokens
+# (b): the estimator's LM: GPT-2-small's width (768, 12 heads, MLP 3072) at
+# 2 layers, a vocabulary of 512 and a context of 128; two executors share
+# the card (data=2 over gloo), batch 8 a rank. The export names
+# EST_MODEL, which ``register_last_position`` adds to the registry on each
+# executor (``TFModel``'s ``model_registrar``) and in the driver: the same
+# LM and weights, its output the last position's logits, so that an
+# output row is one vector (a table holds scalars and 1-D arrays).
+EST_LM = dict(GPT2_SMALL, num_layers=2, vocab_size=512, max_seq_len=128,
+              attention_impl="pallas")
+EST_MODEL = "transformer-last-position"
+EST_TRAIN_ROWS = 48
+EST_ROWS = 64
+EST_BATCH = 8
+
+_SERVE_CHILD = r"""
+import json, sys, time
+import numpy as np
+from tensorflowonspark_tpu_torch import export
+z = np.load(sys.argv[1])
+doc = {"load_s": {}, "max_abs_err": {}, "bitwise": {}}
+outs = {}
+for name, path in (("card", sys.argv[2]), ("cpu", sys.argv[3])):
+    t0 = time.perf_counter()
+    loaded = export.load_serving_model(path)
+    doc["load_s"][name] = time.perf_counter() - t0
+    for b in BATCHES:
+        got = loaded.predict(z["x{}".format(b)])["out"]
+        want = z["ref{}".format(b)]
+        assert got.shape == want.shape, (got.shape, want.shape)
+        key = "{}_b{}".format(name, b)
+        doc["max_abs_err"][key] = float(np.abs(got - want).max())
+        doc["bitwise"][key] = bool(np.array_equal(got, want))
+        outs[key] = got
+doc["artifacts_equal"] = all(np.array_equal(outs["card_b%d" % b],
+                                            outs["cpu_b%d" % b])
+                             for b in BATCHES)
+doc["device"] = str(loaded.device)
+doc["models_loaded"] = sorted(
+    m for m in sys.modules if m.startswith("tensorflowonspark_tpu_torch.models"))
+print(json.dumps(doc))
+"""
+
+
+def _start_serving(torch, root, card_dir, cpu_dir, dense_model):
+    """Start a fresh interpreter that serves both artifacts on the card at
+    EXPORT_SERVE_BATCHES (loading no ``models`` module) against the live
+    weights' dense route; it runs while the driver goes on. Returns
+    ``(process, start time)`` for :func:`_finish_serving`."""
+    arrays = {}
+    for b in EXPORT_SERVE_BATCHES:
+        x = np.random.RandomState(40 + b).randint(
+            1, GPT2_SMALL["vocab_size"], size=(b, EXPORT_EXAMPLE[1])).astype(
+                np.int32)
+        with torch.no_grad():
+            ref = dense_model(torch.as_tensor(x, device=dense_model.device))
+        arrays["x{}".format(b)] = x
+        arrays["ref{}".format(b)] = ref.float().cpu().numpy()
+    path = os.path.join(root, "serve_inputs.npz")
+    np.savez(path, **arrays)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVE_CHILD.replace(
+            "BATCHES", repr(EXPORT_SERVE_BATCHES)), path, card_dir, cpu_dir],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _finish_serving(proc, t0):
+    """The serving child's report, checked."""
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError("serving child failed:\n" + err[-4000:])
+    doc = json.loads(out.strip().splitlines()[-1])
+    doc["seconds"] = time.perf_counter() - t0
+    if doc["models_loaded"] or not doc["device"].startswith("cuda"):
+        raise AssertionError("the artifact's child loaded {} on {}".format(
+            doc["models_loaded"], doc["device"]))
+    worst = max(doc["max_abs_err"].values())
+    if not worst <= EXPORT_AOT_TOL:
+        raise AssertionError("serving artifact vs the live dense route: {} "
+                             "(limit {})".format(doc["max_abs_err"],
+                                                 EXPORT_AOT_TOL))
+    return doc
+
+
+def export_lm(torch, fa, pa, root, card):
+    """(a): train, checkpoint, export; the registry rebuild, the checkpoint
+    load and the artifact against the live model; ``serving_engine()`` and
+    ``generate`` against the live model's. Returns the flash kernels'
+    launches and B4's."""
+    from tensorflowonspark_tpu_torch import export
+    from tensorflowonspark_tpu_torch.models import decoding, factory
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+    from tensorflowonspark_tpu_torch.train import checkpoint as ckpt_lib
+
+    vocab, layers = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"]
+    model_kwargs = dict(EXPORT_KW, dtype=torch.bfloat16)
+    model = factory.get_model("transformer", device="cuda", seed=0,
+                              **model_kwargs)
+    tr = Trainer(model, optimizer=trainer.adamw(3e-4), device="cuda")
+    state = tr.init()
+    batch = lm_batch(8, 1024, vocab)
+    fa.reset_launches()
+    losses = []
+    for _ in range(2):
+        state, m = tr.train_step(state, batch)
+        losses.append(float(m["loss"]))
+    launches = dict(fa.launches)
+    if launches != dict.fromkeys(fa.launches, 2 * layers) or not all(
+            np.isfinite(losses)):
+        raise AssertionError("export training: losses {} launches {}".format(
+            losses, launches))
+    ckpt = os.path.join(root, "ckpt")
+    mgr = ckpt_lib.CheckpointManager(ckpt)
+    mgr.save(state, force=True)
+    mgr.close()
+    if ckpt_lib.latest_committed_step(ckpt) != 2:
+        raise AssertionError("export: step 2 is not committed")
+
+    card_dir, cpu_dir = (os.path.join(root, n) for n in ("card", "cpu"))
+    example = np.zeros(EXPORT_EXAMPLE, np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export.export_saved_model(card_dir, "transformer", state=state,
+                              model_kwargs=model_kwargs,
+                              example_inputs=example)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export.export_saved_model(
+        cpu_dir, "transformer",
+        params={k: v.detach().cpu() for k, v in state.params.items()},
+        model_kwargs=model_kwargs, example_inputs=example)
+    cpu_export_s = time.perf_counter() - t0
+    sizes = {n: {f: os.path.getsize(os.path.join(d, f)) for f in (
+        export.VARIABLES, "torch_export/serving_default.pt2")}
+        for n, d in (("card", card_dir), ("cpu", cpu_dir))}
+    log("export (a) GPT-2-small bf16 flash: 2 steps (losses {}), step 2 "
+        "committed; export {:.1f} s on the card, {:.1f} s from CPU tensors "
+        "(bytes {})".format(["{:.4f}".format(v) for v in losses], export_s,
+                            cpu_export_s, sizes))
+
+    # The artifacts, served code-free on the card by a child process that
+    # runs beside the checks below.
+    params = {k: v.detach() for k, v in state.params.items()}
+    dense = factory.get_model("transformer", device="cuda", **dict(
+        model_kwargs, attention_impl="dense"))
+    decoding.load_variables(dense, params)
+    child, t_child = _start_serving(torch, root, card_dir, cpu_dir, dense)
+    del dense
+    try:
+        b4 = _export_checks(torch, fa, pa, model, params, card_dir, ckpt,
+                            model_kwargs, launches)
+        doc = _finish_serving(child, t_child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    log("export (a) torch.export artifact in a fresh process (no models "
+        "module loaded) on {}: written on the card and on the CPU, served "
+        "at batches {} x {} tokens; max |artifact - live dense route| {} "
+        "(limit {}), bitwise {}, the two artifacts equal {}; load s {}, "
+        "child {:.1f} s".format(
+            doc["device"], EXPORT_SERVE_BATCHES, EXPORT_EXAMPLE[1],
+            doc["max_abs_err"], EXPORT_AOT_TOL, doc["bitwise"],
+            doc["artifacts_equal"],
+            {k: round(v, 2) for k, v in doc["load_s"].items()},
+            doc["seconds"]))
+    del model, tr, state, params
+    torch.cuda.empty_cache()
+    return launches, b4
+
+
+def _export_checks(torch, fa, pa, model, params, card_dir, ckpt,
+                   model_kwargs, launches):
+    """(a)'s checks beside the serving child: the registry rebuild and the
+    checkpoint load against the live forward (B1 counted into
+    ``launches``), then ``generate`` and the engines. Returns B4's
+    launches."""
+    from tensorflowonspark_tpu_torch import export
+
+    vocab, layers = GPT2_SMALL["vocab_size"], GPT2_SMALL["num_layers"]
+    # The live model's forward, and the registry rebuild's: bitwise, with
+    # B1 once a layer a call.
+    x = np.random.RandomState(31).randint(1, vocab, size=EXPORT_PREDICT)\
+        .astype(np.int32)
+    model.eval()
+    with torch.no_grad():
+        live = model(torch.as_tensor(x, device=model.device)).float().cpu()\
+            .numpy()
+    t0 = time.perf_counter()
+    loaded = export.load_saved_model(card_dir, prefer_aot=False)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_ckpt = export.load_from_checkpoint(ckpt, "transformer",
+                                            model_kwargs=model_kwargs)
+    ckpt_load_s = time.perf_counter() - t0
+    predict_ms = {}
+    for name, lm in (("export", loaded), ("checkpoint", from_ckpt)):
+        fa.reset_launches()
+        stop = _timer(torch)
+        got = lm.predict({"x": x})["out"]
+        predict_ms[name] = stop()
+        counts = dict(fa.launches)
+        if counts != dict(flash_fwd=layers, flash_bwd_dq=0, flash_bwd_dkv=0):
+            raise AssertionError("{} predict launched {}".format(name,
+                                                                 counts))
+        if not np.array_equal(got, live):
+            raise AssertionError("{} predict differs from the live model: "
+                                 "{}".format(name, np.abs(got - live).max()))
+        launches["flash_fwd"] += counts["flash_fwd"]
+    del live, from_ckpt
+    log("export (a) load_saved_model(prefer_aot=False) {:.1f} s, "
+        "load_from_checkpoint {:.1f} s; predict b4 x s256 bitwise the live "
+        "forward, B1 {} a call, {} ms by events".format(
+            load_s, ckpt_load_s, layers,
+            {k: round(v, 3) for k, v in predict_ms.items()}))
+    b4 = _export_serving(torch, pa, model, params, loaded)
+    del loaded
+    return b4
+
+
+def _export_serving(torch, pa, model, params, loaded):
+    """``generate`` and ``serving_engine()`` of the export against the live
+    model's; returns B4's launches."""
+    from tensorflowonspark_tpu_torch.models import decoding
+    from tensorflowonspark_tpu_torch.serving import ServingEngine
+
+    vocab = GPT2_SMALL["vocab_size"]
+    # generate: greedy, bitwise the live model's.
+    p_len, n_new = EXPORT_GENERATE
+    prompt = np.random.RandomState(32).randint(1, vocab, size=(1, p_len))
+    got = loaded.generate(prompt, n_new)
+    want = decoding.generate(model, None, prompt, n_new)
+    if not torch.equal(got, want):
+        raise AssertionError("LoadedModel.generate differs from the live "
+                             "model's")
+
+    # serving_engine() at the JAX defaults against an engine built on the
+    # live model (last: that engine adopts bf16 weights into it).
+    rs = np.random.RandomState(33)
+    shapes = [SERVE_DEFAULT_SHAPES[i % len(SERVE_DEFAULT_SHAPES)]
+              for i in range(EXPORT_REQUESTS)]
+    prompts = [rs.randint(1, vocab, size=p) for p, _ in shapes]
+
+    def run(engine):
+        handles = [(engine.submit(p, n), n)
+                   for p, (_, n) in zip(prompts, shapes)]
+        engine.run_until_idle()
+        return handles
+
+    b4 = 0
+    streams = {}
+    engines = (("serving_engine()", lambda: loaded.serving_engine()),
+               ("direct", lambda: ServingEngine(
+                   model, decoding.serving_variables(params))))
+    for name, build in engines:
+        engine = build()
+        t0 = time.perf_counter()
+        streams[name], _, delta = serve_counted(torch, engine, pa, run)
+        sec = time.perf_counter() - t0
+        b4 += delta["launches"]
+        log("export (a) {} at the JAX defaults (horizon {}, {} slots): {} "
+            "requests, {} decode calls, B4 {} launches, {} tokens in "
+            "{:.2f} s".format(
+                name, engine.decode_horizon, engine.max_slots,
+                EXPORT_REQUESTS, delta["decode_steps"], delta["launches"],
+                delta["decode_tokens"], sec))
+        del engine
+    if streams["serving_engine()"] != streams["direct"]:
+        raise AssertionError("serving_engine() streams differ from the "
+                             "engine on the live model")
+    return b4
+
+
+def estimator_node(args, ctx):
+    """The estimator's ``train_fn``: join the group (two ranks on the card,
+    gloo), train ``args.lm`` on the feed's lockstep batches, save the
+    collective checkpoint. Records losses and launches under
+    ``args.outdir``."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig, multihost
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+    from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
+
+    ctx.initialize_distributed(device=args.device)
+    rank = multihost.process_index()
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device=ctx.device, seed=0, **args.lm)
+    tr = Trainer(model, optimizer=trainer.adamw(CLUSTER_LR),
+                 mesh=MeshConfig(data=-1).build(), device=ctx.device)
+    state = tr.init()
+    feed = ctx.get_data_feed(train_mode=True,
+                             input_mapping={"tokens": "tokens"})
+    example = {"tokens": np.zeros((1, args.lm["max_seq_len"] + 1), np.int64)}
+    fa.reset_launches()
+    losses = []
+    for arrays, mask in feed.sync_batches(args.batch_size, example=example):
+        state, m = tr.train_step(state, _cluster_batch(arrays["tokens"],
+                                                       mask))
+        losses.append(float(m["loss"]))
+    launches = dict(fa.launches)
+    ckpt = CheckpointManager(ctx.absolute_path(args.model_dir))
+    ckpt.save(state, force=True)
+    ckpt.close()
+    with open(os.path.join(args.outdir, "node{}.json".format(rank)),
+              "w") as f:
+        json.dump({"losses": losses, "launches": launches,
+                   "backend": ctx.distributed_backend}, f)
+    multihost.shutdown()
+
+
+def register_last_position():
+    """``model_registrar``: register EST_MODEL, the transformer LM whose
+    forward returns the last position's logits (the full forward runs, B1
+    once a layer)."""
+    from tensorflowonspark_tpu_torch.models import factory, transformer
+
+    class LastPositionLM(transformer.TransformerLM):
+        def forward(self, tokens, **kwargs):
+            return super().forward(tokens, **kwargs)[:, -1]
+
+    factory.register(EST_MODEL, lambda device="cuda", seed=0, **kw:
+                     LastPositionLM(transformer.TransformerConfig(**kw),
+                                    device=device, seed=seed))
+
+
+def estimator_export(args):
+    """The estimator's ``export_fn``, on one executor: the committed
+    checkpoint to an export directory."""
+    from tensorflowonspark_tpu_torch import export
+    from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(args.model_dir)
+    try:
+        params, model_state = mgr.restore_variables(split=True)
+    finally:
+        mgr.close()
+    export.export_saved_model(args.export_dir, EST_MODEL, params=params,
+                              model_state=model_state,
+                              model_kwargs=dict(args.lm, dtype="bfloat16"))
+    with open(os.path.join(args.outdir, "export.json"), "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0,
+                   "pid": os.getpid()}, f)
+
+
+def executor_launches(iterator):
+    """A task: this executor's flash launch counts, then zeroed."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    list(iterator)
+    counts = dict(fa.launches)
+    fa.reset_launches()
+    return [counts]
+
+
+def start_estimator(pool, root):
+    """(b), first half: ``TFEstimator(train_fn, export_fn).fit`` in FEED
+    mode on the two executors of ``pool``, on a thread of its own, so that
+    it runs beside (a). Returns the thread and the dict it fills (``model``
+    and ``fit_s``, or ``error``)."""
+    import threading
+
+    from tensorflowonspark_tpu_torch import pipeline
+
+    seq = EST_LM["max_seq_len"]
+    rng = np.random.RandomState(34)
+    train = [{"tokens": r.tolist()} for r in rng.randint(
+        1, EST_LM["vocab_size"], size=(EST_TRAIN_ROWS, seq + 1))]
+    outdir = os.path.join(root, "estimator")
+    os.makedirs(outdir)
+    est = (pipeline.TFEstimator(estimator_node,
+                                {"lm": EST_LM, "outdir": outdir},
+                                export_fn=estimator_export)
+           .setInputMapping({"tokens": "tokens"}).setClusterSize(2)
+           .setBatchSize(EST_BATCH).setEpochs(1)
+           .setModelDir(os.path.join(root, "est_model"))
+           .setExportDir(os.path.join(root, "est_export")).setTimeout(600))
+    result = {"outdir": outdir}
+
+    def fit():
+        t0 = time.perf_counter()
+        try:
+            result["model"] = est.fit(train, backend=pool)
+        except Exception as e:  # raised again by finish_estimator
+            result["error"] = e
+        result["fit_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=fit, name="estimator-fit", daemon=True)
+    thread.start()
+    return thread, result
+
+
+def finish_estimator(torch, fa, pool, started, card):
+    """(b), second half: wait for the fit, then ``TFModel.transform`` over
+    EST_ROWS rows on the same two executors, against in-process
+    ``predict`` on the same batches. Returns the flash kernels' launches
+    (training and transform)."""
+    from tensorflowonspark_tpu_torch import export
+
+    thread, result = started
+    thread.join(timeout=900)
+    if thread.is_alive():
+        raise AssertionError("the estimator's fit did not end in 900 s")
+    if "error" in result:
+        raise AssertionError("the estimator's fit failed") from \
+            result["error"]
+    model, fit_s, outdir = result["model"], result["fit_s"], result["outdir"]
+    rows = [{"tokens": r.tolist()} for r in np.random.RandomState(35).randint(
+        1, EST_LM["vocab_size"], size=(EST_ROWS, EST_LM["max_seq_len"]))]
+    pool.map_partitions([[0], [1]], executor_launches)  # zeroed
+    model.setInputMapping({"tokens": "x"}).setBatchSize(EST_BATCH)
+    model.setModelRegistrar(register_last_position)
+    t0 = time.perf_counter()
+    out = model.transform(rows, backend=pool)
+    transform_s = time.perf_counter() - t0
+    infer = pool.map_partitions([[0], [1]], executor_launches)
+    with open(os.path.join(outdir, "export.json")) as f:
+        exp = json.load(f)
+    nodes = []
+    for r in range(2):
+        with open(os.path.join(outdir, "node{}.json".format(r))) as f:
+            nodes.append(json.load(f))
+    steps = len(nodes[0]["losses"])
+    per_rank = dict.fromkeys(fa.launches, steps * EST_LM["num_layers"])
+    if any(n["launches"] != per_rank for n in nodes) or steps < 2:
+        raise AssertionError("estimator ranks launched {}; want {} each"
+                             .format([n["launches"] for n in nodes],
+                                     per_rank))
+    if not all(np.isfinite(n["losses"]).all() for n in nodes):
+        raise AssertionError("estimator losses: {}".format(
+            [n["losses"] for n in nodes]))
+    # Output rows align 1:1 with the input and equal the in-process
+    # predict on the transform's own batches (round-robin partitions).
+    if len(out) != EST_ROWS or out.schema != {"output": "array<float>"}:
+        raise AssertionError("transform returned {} rows, schema {}".format(
+            len(out), out.schema))
+    got = np.asarray([r["output"] for r in out], np.float32)
+    x = np.asarray([r["tokens"] for r in rows], np.int64)
+    register_last_position()
+    loaded = export.load_saved_model(model.getExportDir())
+    want = np.zeros_like(got)
+    for p in range(2):
+        idx = np.arange(p, EST_ROWS, 2)
+        for s in range(0, len(idx), EST_BATCH):
+            chunk = idx[s:s + EST_BATCH]
+            want[chunk] = loaded.predict(x[chunk])["out"]
+    err = float(np.abs(got - want).max())
+    if err != 0.0:
+        raise AssertionError("transform vs in-process predict: max abs "
+                             "{}".format(err))
+    infer_fwd = [c[0]["flash_fwd"] for c in infer]
+    want_fwd = EST_ROWS // 2 // EST_BATCH * EST_LM["num_layers"]
+    if infer_fwd != [want_fwd, want_fwd] or any(
+            c[0]["flash_bwd_dq"] or c[0]["flash_bwd_dkv"] for c in infer):
+        raise AssertionError("transform executors launched {}".format(infer))
+    launches = {k: sum(n["launches"][k] for n in nodes) for k in per_rank}
+    launches["flash_fwd"] += sum(infer_fwd)
+    log("export (b) TFEstimator FEED, 2 executors on the card ({}), {} "
+        "rows b{} a rank, {} layers at GPT-2-small width, vocab {}: losses "
+        "{}; fit {:.1f} s (export_fn {:.2f} s on executor pid {}); "
+        "TFModel.transform {} rows on 2 executors {:.1f} s = {:.1f} rows/s; "
+        "bitwise the in-process predict; B1 {} a rank in training, {} an "
+        "executor in transform on {}".format(
+            nodes[0]["backend"], EST_TRAIN_ROWS, EST_BATCH,
+            EST_LM["num_layers"], EST_LM["vocab_size"],
+            [["{:.4f}".format(v) for v in n["losses"]] for n in nodes],
+            fit_s, exp["seconds"], exp["pid"], EST_ROWS, transform_s,
+            EST_ROWS / transform_s, per_rank["flash_fwd"], want_fwd, card))
+    return launches
+
+
+def export_phase(torch, fa, pa, card):
+    """The export and Spark-ML inference plane: (a), with (b)'s fit
+    running beside it on its own executors, then (b)'s transform. Returns
+    the flash kernels' launches and B4's."""
+    import shutil
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import backend
+
+    root = tempfile.mkdtemp(prefix="tfos-export-")
+    # (b)'s estimator fits on two executors beside (a).
+    pool = backend.LocalBackend(2, base_dir=os.path.join(root, "exec"))
+    try:
+        started = start_estimator(pool, root)
+        launches, b4 = export_lm(torch, fa, pa, root, card)
+        est = finish_estimator(torch, fa, pool, started, card)
+    finally:
+        pool.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: launches[k] + est[k] for k in launches}, b4
+
+
 # -- fused ResNet bottleneck (B5, B6) and ResNet-50 training -------------------
 
 # ``scripts/block_bench.py``'s two full-width blocks (name, spatial, C, F),
@@ -3951,7 +4488,9 @@ def files_phase(torch, fa, card):
 RECOVER_STEPS = 6
 RECOVER_INTERVAL = 2
 RECOVER_CRASH_AT = 4
-# (b)-(d): GPT-2-small width at a reduced depth of 2 layers.
+# (a)-(d): GPT-2-small width at a reduced depth of 2 layers ((a) ran 12
+# until the export phase joined the script, which had to stay within its
+# time: the relaunch's mechanics do not depend on the depth).
 RECOVER_LAYERS = 2
 # (b): the hang fires after step 2 commits; beats every 0.5 s and 8 missed
 # beats make a hang dead within 4 s of its last beat, 4.25 s with the
@@ -4226,10 +4765,10 @@ def recover_phase(torch, fa, card):
     lm_small = dict(GPT2_SMALL, num_layers=RECOVER_LAYERS)
     root = tempfile.mkdtemp(prefix="tfos-recover-")
     try:
-        # (a) crash at full width.
-        layers = GPT2_SMALL["num_layers"]
+        # (a) crash at GPT-2-small width.
+        layers = RECOVER_LAYERS
         report, lines, mem, teardown, ckpt_dir, rows = _supervised(
-            torch, telemetry, root, "crash", GPT2_SMALL, RECOVER_STEPS,
+            torch, telemetry, root, "crash", lm_small, RECOVER_STEPS,
             RECOVER_INTERVAL,
             lambda plan: plan.crash_at_step(RECOVER_CRASH_AT), {})
         incs = _incarnations(lines)
@@ -4237,7 +4776,7 @@ def recover_phase(torch, fa, card):
         batches = [_cluster_batch(rows[i:i + CLUSTER_BATCH],
                                   np.ones(CLUSTER_BATCH, bool))
                    for i in range(0, len(rows), CLUSTER_BATCH)]
-        tr = _recover_lm(torch, {"lm": GPT2_SMALL}, "cuda")
+        tr = _recover_lm(torch, {"lm": lm_small}, "cuda")
         state = tr.init()
         ref_losses = []
         for b in batches:
@@ -5693,46 +6232,59 @@ def main():
     log("build: {} kernel librar{} in {:.1f} s".format(
         len(libs), "y" if len(libs) == 1 else "ies",
         time.perf_counter() - t0))
-    max_err, timings = kernel_phase(torch, pa, device_info)
-    flash_errs, flash_timed = flash_phase(torch, fa)
-    flash_times = flash_timings(torch, fa, device_info, flash_errs,
-                                flash_timed)
+    phases = []
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases.append((name, time.perf_counter() - t0))
+        log("phase {} {:.1f} s".format(name, phases[-1][1]))
+        return out
+
+    max_err, timings = timed("kernels", kernel_phase, torch, pa, device_info)
+    flash_errs, flash_timed = timed("flash", flash_phase, torch, fa)
+    flash_times = timed("flash timings", flash_timings, torch, fa,
+                        device_info, flash_errs, flash_timed)
     del flash_timed
     fa.reset_launches()
-    launches = main_phase(torch, pa)
-    launches += serve_default_phase(torch, pa, card)
-    launches += spec_phase(torch, pa, card)
-    t0 = time.perf_counter()
-    launches += fleet_phase(torch, pa, card)
-    log("fleet phase {:.1f} s".format(time.perf_counter() - t0))
+    launches = timed("serve", main_phase, torch, pa)
+    launches += timed("serve_default", serve_default_phase, torch, pa, card)
+    launches += timed("spec", spec_phase, torch, pa, card)
+    launches += timed("fleet", fleet_phase, torch, pa, card)
     if any(fa.launches.values()):
         raise AssertionError("serving launched flash kernels: {}".format(
             fa.launches))
-    flash_launches, plain_step_ms = training_phase(torch, fa, pa, card)
-    whole_path_phase(torch, fa, pa, card, plain_step_ms)
+    flash_launches, plain_step_ms = timed("train", training_phase, torch, fa,
+                                          pa, card)
+    timed("whole", whole_path_phase, torch, fa, pa, card, plain_step_ms)
+    export_launches, export_b4 = timed("export", export_phase, torch, fa, pa,
+                                       card)
     fa.reset_launches()
     frb.reset_launches()
-    fused_errs, fused_timings, fused_launches = resnet_phase(
-        torch, frb, device_info, card)
+    fused_errs, fused_timings, fused_launches = timed(
+        "resnet", resnet_phase, torch, frb, device_info, card)
     if any(fa.launches.values()):
         raise AssertionError("the resnet phase launched flash kernels: "
                              "{}".format(fa.launches))
-    cluster_launches = cluster_phase(torch, fa, card)
-    files_launches = files_phase(torch, fa, card)
-    recover_launches = recover_phase(torch, fa, card)
-    shard_launches = shard_phase(torch, fa, card)
+    cluster_launches = timed("cluster", cluster_phase, torch, fa, card)
+    files_launches = timed("files", files_phase, torch, fa, card)
+    recover_launches = timed("recover", recover_phase, torch, fa, card)
+    shard_launches = timed("shard", shard_phase, torch, fa, card)
     fa.reset_launches()
-    moe_launches, moe_b4 = moe_phase(torch, fa, pa, card)
-    pipe_launches = pipe_phase(torch, fa, card)
-    toy_model = toy_greedy_phase(torch)
-    full_width_teacher_forced(torch)
-    http_phase(torch, toy_model)
+    moe_launches, moe_b4 = timed("moe", moe_phase, torch, fa, pa, card)
+    pipe_launches = timed("pipe", pipe_phase, torch, fa, card)
+    toy_model = timed("greedy", toy_greedy_phase, torch)
+    timed("teacher-forced", full_width_teacher_forced, torch)
+    timed("http", http_phase, torch, toy_model)
+    log("phases (s): " + ", ".join("{} {:.1f}".format(n, t)
+                                   for n, t in phases))
 
     t = timings[("main", "bf16")]
     rows = [dict(name="paged_decode",
                  source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
                  replaces="tensorflowonspark_tpu/ops/paged_attention.py:65",
-                 launches=launches + moe_b4, max_abs_err=max_err, **t)]
+                 launches=launches + moe_b4 + export_b4, max_abs_err=max_err,
+                 **t)]
     replaces = {"flash_fwd": 127, "flash_bwd_dq": 195, "flash_bwd_dkv": 256}
     for name, line in replaces.items():
         rows.append(dict(
@@ -5740,7 +6292,8 @@ def main():
             source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
             replaces="tensorflowonspark_tpu/ops/flash_attention.py:{}".format(
                 line),
-            launches=flash_launches[name] + cluster_launches[name]
+            launches=flash_launches[name] + export_launches[name]
+            + cluster_launches[name]
             + files_launches[name] + recover_launches[name]
             + shard_launches[name]
             + moe_launches[name] + pipe_launches[name],

@@ -1,7 +1,8 @@
 """Model registry (port of ``models/factory.py``): the transformer LM, its
 MoE and pipelined variants, the speculative-decoding draft ``gpt2-draft``,
 the ResNet family, the MLP and linear regression; the rest of the zoo
-follows in later slices (ROADMAP A11)."""
+follows in later slices (ROADMAP A11). ``register`` adds a user model, as
+in the JAX package."""
 
 from tensorflowonspark_tpu_torch.models import (
     mlp, moe, pipelined, resnet, transformer,
@@ -49,3 +50,14 @@ def get_model(name, **kwargs):
         raise ValueError(
             "unknown model {!r}; known: {}".format(name, sorted(_REGISTRY)))
     return _REGISTRY[name](**kwargs)
+
+
+def register(name, constructor):
+    """Add a user model to the registry (``constructor(**kwargs)``; it
+    receives ``device`` and ``seed`` as the zoo's do). ``pipeline.TFModel``'s
+    ``model_registrar`` calls this on each executor."""
+    _REGISTRY[name] = constructor
+
+
+def available():
+    return sorted(_REGISTRY)

@@ -16,9 +16,8 @@ only (remote manager + driver-driven control-queue shutdown, the
 reference's ``TFCluster.py:163-172`` trick); gradients are all-reduced
 over ``torch.distributed`` (:meth:`NodeContext.initialize_distributed`).
 
-What the port leaves out, each raising ``NotImplementedError`` naming
-ROADMAP A12: ``NodeContext.export_saved_model`` and the incident
-snapshots a capture request asks for.
+What the port leaves out, raising ``NotImplementedError`` naming ROADMAP
+A12: the incident snapshots a capture request asks for.
 
 A spot preemption (``testing.faults.preempt_node``) reaches the node
 program as :class:`~tensorflowonspark_tpu_torch.testing.faults.Preempted`,
@@ -439,11 +438,17 @@ class NodeContext:
         return feed.DataFeed(self.mgr, train_mode, qname_in, qname_out, input_mapping)
 
     def export_saved_model(self, export_dir, model_name, **kwargs):
-        """The JAX package's export hook. Not ported: ``export.py`` is
-        ROADMAP A12."""
-        raise NotImplementedError(
-            "export_saved_model: export.py is not ported (ROADMAP A12); save "
-            "the weights with train.checkpoint.CheckpointManager")
+        """Write an export directory (reference ``ctx.export_saved_model``,
+        ``TFSparkNode.py:60-66`` delegating to ``TFNode.py:126-169``):
+        :func:`~tensorflowonspark_tpu_torch.export.export_saved_model` at
+        this cluster's absolute path. Every rank of a process group calls
+        it (a state sharded over a mesh is gathered); rank 0 writes."""
+        from tensorflowonspark_tpu_torch import export as export_lib
+
+        return export_lib.export_saved_model(
+            paths.strip_scheme(self.absolute_path(export_dir)),
+            model_name, **kwargs,
+        )
 
     def initialize_distributed(self, device="cuda"):
         """Join the ``torch.distributed`` process group of this cluster's

@@ -18,8 +18,7 @@ import logging
 import os
 
 from tensorflowonspark_tpu_torch import backend_remote
-
-LOG_FORMAT = "%(asctime)s %(levelname)s (%(threadName)s-%(process)d) %(message)s"
+from tensorflowonspark_tpu_torch.tools import setup_logging
 
 
 def build_parser():
@@ -60,7 +59,7 @@ def main(argv=None):
     import multiprocessing
     import time
 
-    logging.basicConfig(level=logging.INFO, format=LOG_FORMAT)
+    setup_logging(logging.INFO)
     args = build_parser().parse_args(argv)
     key_hex = args.authkey or os.environ.get("TPU_FRAMEWORK_AGENT_KEY")
     if not key_hex:

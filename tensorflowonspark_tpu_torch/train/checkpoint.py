@@ -684,19 +684,22 @@ class CheckpointManager:
         logger.info("restored checkpoint step %d from %s", step, self._dir)
         return dataclasses.replace(state, step=step)
 
-    def restore_variables(self):
+    def restore_variables(self, split=False):
         """The latest committed step's parameters and buffers as one flat
         CPU ``state_dict``, without a training state: the serving-side
         restore (``models.decoding.serving_variables`` and
-        ``load_variables`` take it as it is). The optimizer file is never
-        read."""
+        ``load_variables`` take it as it is). With ``split`` the two come
+        apart, as ``(params, model_state)`` (what an export writes). The
+        optimizer file is never read."""
         step = self._restore_step()
         if step is None:
             raise FileNotFoundError("no checkpoint under {}".format(self._dir))
-        variables = self._load(step, PARAMS, "cpu")
-        variables.update(self._load(step, MODEL_STATE, "cpu"))
+        params = self._load(step, PARAMS, "cpu")
+        model_state = self._load(step, MODEL_STATE, "cpu")
         logger.info("restored variables at step %d from %s", step, self._dir)
-        return variables
+        if split:
+            return params, model_state
+        return {**params, **model_state}
 
     def close(self):
         """Finish in-flight saves and commit them."""
@@ -709,13 +712,22 @@ def _snapshot(state, clone):
     on the host. ``clone``: copy even CPU tensors (an async save must not
     see the live tensors' later updates). A sharded state's parameters and
     moments are gathered to full tensors first (collective)."""
-    params, opt_state = dict(state.params), state.optimizer.state_dict()
+    params, opt_state = full_params(state), state.optimizer.state_dict()
     if state.sharding is not None:
-        params = state.sharding.full_state_dict(params)
         opt_state = _optimizer_tree(state, opt_state, state.sharding.full)
     return (_host(params, clone),
             _host(dict(state.model_state), clone),
             _host(opt_state, clone))
+
+
+def full_params(state):
+    """``{name: full tensor}`` of the state's parameters, on their device:
+    under a mesh that shards them each is gathered (collective: every rank
+    calls it)."""
+    params = dict(state.params)
+    if state.sharding is not None:
+        params = state.sharding.full_state_dict(params)
+    return params
 
 
 def _optimizer_tree(state, opt_state, fn):

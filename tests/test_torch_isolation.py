@@ -9,7 +9,8 @@ port's own name shares that prefix) may be loaded. A static scan of the
 sources (the package, ``chip_smoke.py`` and the port's
 ``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``, the
 node programs the cluster tests hand to spawned executors, and the decode
-functions the data tests hand to decode workers) backs it up for
+functions the data tests hand to decode workers, and the estimator
+programs the pipeline tests hand to executors) backs it up for
 imports a run might not reach. A spawned executor of a port cluster, and
 its node program, load neither either; nor do the processes of the
 recovery paths: a supervised job's relaunched incarnation, an elastic
@@ -82,7 +83,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "data", "data._native", "data.tfrecord", "data.example",
                  "data.batch_decode", "data.dfutil", "data.packing",
                  "data.input_pipeline", "data.decode_pool",
-                 "data.batch_cache", "data.image_preprocessing"):
+                 "data.batch_cache", "data.image_preprocessing",
+                 "export", "pipeline", "tools.model_export",
+                 "tools.inference", "tools.generate",
+                 "tools.reservation_client"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -98,6 +102,7 @@ def _sources():
              os.path.join(ROOT, "scripts", "torch_shard_run.py"),
              os.path.join(ROOT, "tests", "torch_cluster_programs.py"),
              os.path.join(ROOT, "tests", "torch_data_programs.py"),
+             os.path.join(ROOT, "tests", "torch_ml_programs.py"),
              os.path.join(ROOT, "tests", "torch_shard_programs.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names

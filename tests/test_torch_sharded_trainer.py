@@ -196,6 +196,22 @@ def test_three_adamw_steps_match_jax_trainer_on_the_mesh(group, jax_run):
                                    atol=TOL)
 
 
+def test_export_under_fsdp_and_tensor_writes_the_full_tree(group):
+    """``export_saved_model`` called by every rank of the fsdp=2 x tensor=2
+    group: the shards are gathered, rank 0 writes the full tree, which
+    loads and serves in one process."""
+    from tensorflowonspark_tpu_torch import export
+
+    got = progs.case_result(group["ranks"], "fsdp2_tensor2")
+    d = os.path.join(group["args"]["outdir"], "export_sharded")
+    loaded = export.load_saved_model(d, device="cpu")
+    assert set(loaded.variables) == set(got[0]["params"])
+    for name, t in got[0]["params"].items():
+        np.testing.assert_array_equal(loaded.variables[name].numpy(), t)
+    tokens = progs.lm_batches("fsdp2_tensor2", steps=1)[0]["x"]
+    assert np.isfinite(loaded.predict(tokens)["out"]).all()
+
+
 def test_fsdp_and_tensor_hold_a_share_of_the_parameters(group):
     """Bytes of parameters a rank holds: (fsdp 2, tensor 2) keeps about a
     quarter of the replicated model, (data 2, fsdp 2) and (data 2,

@@ -366,6 +366,13 @@ def trainer_cases(rank, world, args):
                 os.path.join(args["outdir"], "ckpt_sharded"))
             mgr.save(state, force=True)
             mgr.close()
+            # Every rank exports (the shards are gathered); rank 0 writes.
+            from tensorflowonspark_tpu_torch import export
+
+            export.export_saved_model(
+                os.path.join(args["outdir"], "export_sharded"),
+                "transformer", state=state,
+                model_kwargs=dict(LM_KW, dtype="float32", **impl_kw))
             # A step saved by one process under data=1, restored here.
             fresh = tr.init()
             mgr = checkpoint.CheckpointManager(args["ckpt_data1"])
