@@ -1089,6 +1089,97 @@ def submit_all(reqs, priority=0):
     return run
 
 
+# serve_default's SLO drill: an objective on the TTFT p95 that the bf16
+# load at horizon 8 breaches (its TTFT p95 is tens to hundreds of ms), its
+# burn windows short enough for one run, node_stats() ingested every
+# SLO_PUMP_S seconds meanwhile.
+SLO_TTFT_MS = 5.0
+SLO_PUMP_S = 0.1
+
+
+class _SloWatch:
+    """``serve_ttft_ms_p95 < SLO_TTFT_MS`` over a history store fed from
+    this process's ``node_stats()`` while a load runs, with an incident
+    recorder on the driver's span export: the breach must write exactly
+    one ``slo_breach`` bundle carrying the ``cluster/slo_breach``
+    marker."""
+
+    def __init__(self, torch):
+        import tempfile
+        import threading
+
+        from tensorflowonspark_tpu_torch import (incident, telemetry,
+                                                 telemetry_store)
+
+        self.root = tempfile.mkdtemp(prefix="tfos-slo-")
+        self.tdir = os.path.join(self.root, "telemetry")
+        telemetry.configure(node_id="driver", export_dir=self.tdir)
+        self.store = telemetry_store.TelemetryStore()
+        self.recorder = incident.IncidentRecorder(
+            os.path.join(self.root, "incidents"), telemetry_dir=self.tdir)
+        self.monitor = self.store.set_slos(
+            [{"metric": "serve_ttft_ms_p95", "op": "<",
+              "threshold": SLO_TTFT_MS, "windows": [[5.0, 0.5]],
+              "min_points": 3}], recorder=self.recorder, interval=0.2)
+        self._stop = threading.Event()
+        self.beats = 0
+
+        def pump():
+            while not self._stop.wait(SLO_PUMP_S):
+                self.store.ingest("serve", telemetry.node_stats())
+                self.beats += 1
+
+        self._thread = threading.Thread(target=pump, name="slo-pump",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        from tensorflowonspark_tpu_torch import telemetry
+
+        self._stop.set()
+        self._thread.join()
+        # The last beat after the load, then one evaluation.
+        self.store.ingest("serve", telemetry.node_stats())
+        self.monitor.evaluate()
+        self.bundles = self.recorder.join(timeout=120.0)
+        telemetry.disable()
+
+    def check(self, engine, d, st, card):
+        import shutil
+
+        names = []
+        man = {}
+        if self.bundles:
+            man, _, _, events = _read_bundle(self.bundles[0])
+            names = [e["name"] for e in events or ()]
+        status = self.monitor.status()[0]
+        p95 = st["ttft_ms_p95"]
+        log("serve_default SLO serve_ttft_ms_p95 < {:g} ms (window 5 s, "
+            "burn 0.5) on the bf16 load at horizon 8: measured TTFT p95 "
+            "{:.2f} ms; {} beats ingested every {:g} s; firing {}; "
+            "incident bundles {} (reason {}), cluster/slo_breach markers on "
+            "the bundle's timeline {}; B4 launches {} = {} decode calls x 8 "
+            "x {}; on {}".format(
+                SLO_TTFT_MS, p95, self.beats, SLO_PUMP_S, status["firing"],
+                [os.path.basename(b) for b in self.bundles],
+                man.get("reason"), names.count("cluster/slo_breach"),
+                d["launches"], d["decode_steps"], engine.num_layers, card))
+        shutil.rmtree(self.root, ignore_errors=True)
+        checks = {
+            "TTFT p95 above the objective": p95 > SLO_TTFT_MS,
+            "exactly one slo_breach bundle": len(self.bundles) == 1
+            and man.get("reason") == "slo_breach",
+            "its timeline carries cluster/slo_breach":
+                "cluster/slo_breach" in names,
+            "B4 launched decode calls x 8 x 12": d["launches"]
+            == d["decode_steps"] * 8 * engine.num_layers,
+        }
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError("serve_default SLO drill failed: {}".format(
+                failed))
+
+
 def serve_default_phase(torch, pa, card):
     """The engine at its defaults on ``bench_serving_continuous``'s load,
     bf16 and int8 pools, each against the same load at horizon 1 (streams
@@ -1112,9 +1203,18 @@ def serve_default_phase(torch, pa, card):
         for horizon in (8, 1):
             engine = default_engine(model, variables, kv_cache_dtype=kv,
                                     decode_horizon=horizon)
-            streams[horizon], _, d = serve_counted(torch, engine, pa,
-                                                   submit_all(reqs))
+            slo = None
+            if not kv and horizon == 8:
+                slo = _SloWatch(torch)
+            try:
+                streams[horizon], _, d = serve_counted(torch, engine, pa,
+                                                       submit_all(reqs))
+            finally:
+                if slo is not None:
+                    slo.stop()
             st = engine.stats()
+            if slo is not None:
+                slo.check(engine, d, st, card)
             if not kv and horizon == 8:
                 decode_profile(torch, engine.runner, card)
             engine.close()
@@ -1729,15 +1829,85 @@ def _serve_threaded(torch, pa, submit, reqs, engines):
     return streams, handles, launches, deltas
 
 
+# The JAX attribution module's accounting check: a request's segments sum
+# to its e2e within this share.
+ATTRIBUTION_TOL = 0.1
+
+
+def _attribution_check(telemetry, span_dir, handles, card):
+    """(e): ``request_profile`` of every request of fleet (a)'s bf16
+    disaggregated run over its span export, and ``window_attribution``'s
+    tail."""
+    import shutil
+
+    from tensorflowonspark_tpu_torch.telemetry import attribution
+
+    spans = telemetry.load_spans(span_dir)
+    shutil.rmtree(span_dir, ignore_errors=True)
+    traces = {h.trace for h in handles}
+    mine = [s for s in spans if (s.get("attrs") or {}).get("trace")
+            in traces]
+    profiles = [attribution.request_profile(mine, h.trace)
+                for h in handles]
+    fracs = [p["accounted_frac"] if p else None for p in profiles]
+    table = attribution.window_attribution(mine)
+    seg = table.get("segments", {})
+    log("fleet (e) attribution of (a)'s bf16 disaggregated run over its "
+        "span export ({} spans): accounted share of e2e min {} max {} "
+        "(limit 1 +/- {:g}); tail (e2e >= p95 cut {} ms, {} requests) "
+        "dominant segment {}; tail means ms {}; on {}".format(
+            len(mine), min(f for f in fracs if f is not None)
+            if any(f is not None for f in fracs) else None,
+            max(f for f in fracs if f is not None)
+            if any(f is not None for f in fracs) else None,
+            ATTRIBUTION_TOL, table.get("e2e_cut_ms"),
+            table.get("tail_requests"), table.get("dominant"),
+            {k: v["tail_mean_ms"] for k, v in seg.items()}, card))
+    bad = [f for f in fracs if f is None or abs(f - 1.0) > ATTRIBUTION_TOL]
+    if bad or table.get("requests") != len(handles):
+        raise AssertionError("fleet (e): {} of {} requests outside the "
+                             "accounting tolerance: {}".format(
+                                 len(bad), len(handles), fracs))
+
+
+def _dashboard_check(telemetry, store, port, card):
+    """(e): ``/dashboard``, ``/timeseries`` and ``/traces`` of fleet (b)'s
+    server answer 200 over its store, fed three beats of this process's
+    ``node_stats()``."""
+    import urllib.request
+
+    for _ in range(3):
+        store.ingest("driver", telemetry.node_stats())
+    answers = {}
+    for path in ("/dashboard", "/timeseries",
+                 "/timeseries?metric=serve_ttft_ms_p95", "/traces"):
+        with urllib.request.urlopen("http://127.0.0.1:{}{}".format(
+                port, path), timeout=60) as resp:
+            answers[path] = (resp.status, resp.read())
+    slowest = json.loads(answers["/traces"][1])["slowest"]
+    log("fleet (e) MetricsServer over a history store: {}; /traces lists "
+        "{} requests; on {}".format(
+            ", ".join("GET {} {} ({} bytes)".format(p, a[0], len(a[1]))
+                      for p, a in answers.items()), len(slowest), card))
+    if any(a[0] != 200 for a in answers.values()) or not slowest:
+        raise AssertionError("fleet (e): {}".format(
+            {p: a[0] for p, a in answers.items()}))
+
+
 def fleet_phase(torch, pa, card):
     """The serving fleet plane at ``serve_default``'s geometry: (a) a
     prefill-role and a decode-role engine behind ``ServingFleet`` against
     one colocated engine, bf16 and int8 pools; (b) the decode engine
     behind a ``MetricsServer``, the pages crossing ``POST /v1/migrate``;
     (c) a drain with ``migrate_requests`` between two stepped engines;
-    (d) the ``Autoscaler`` from 1 replica to 2 and back through a drain.
-    Returns B4's launches over the phase."""
-    from tensorflowonspark_tpu_torch import serving
+    (d) the ``Autoscaler`` from 1 replica to 2 and back through a drain;
+    (e) (a)'s bf16 run's latency attribution over its span export, and
+    (b)'s server's dashboard routes over a history store. Returns B4's
+    launches over the phase."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import (serving, telemetry,
+                                             telemetry_store)
     from tensorflowonspark_tpu_torch.models import decoding, factory
     from tensorflowonspark_tpu_torch.train.metrics import MetricsServer
 
@@ -1770,8 +1940,19 @@ def fleet_phase(torch, pa, card):
         _timed_handoffs(pre, hops)
         fleet.start()
         out0, bytes0 = pre.handoffs_out, pre.handoff_bytes
-        got, handles, n, deltas = _serve_threaded(
-            torch, pa, fleet.submit, reqs, [pre, dec])
+        span_dir = None
+        if not kv:  # the bf16 run's spans, exported for (e)
+            span_dir = tempfile.mkdtemp(prefix="tfos-fleet-spans-")
+            telemetry.configure(node_id="driver", export_dir=span_dir,
+                                capacity=16384)
+        try:
+            got, handles, n, deltas = _serve_threaded(
+                torch, pa, fleet.submit, reqs, [pre, dec])
+        finally:
+            if span_dir is not None:
+                telemetry.disable()
+        if span_dir is not None:
+            _attribution_check(telemetry, span_dir, handles, card)
         launches += n
         out = pre.handoffs_out - out0
         if deltas[0] or out != len(reqs) or pre.handoff_fallbacks:
@@ -1807,7 +1988,10 @@ def fleet_phase(torch, pa, card):
             keep = dict(pre=pre, dec=dec, fleet=fleet)
     # -- (b) the HTTP hop ------------------------------------------------------
     pre, dec = keep["pre"], keep["dec"]
-    server = MetricsServer(engine=dec)
+    # (e): the server also holds a history store fed from this process's
+    # node_stats(), for the dashboard routes.
+    store = telemetry_store.TelemetryStore()
+    server = MetricsServer(engine=dec, store=store)
     server.start()
     try:
         pre.handoff_fn = None                # the new fleet wires its own
@@ -1844,6 +2028,7 @@ def fleet_phase(torch, pa, card):
             "(handoff_fn: POST, restore queued, ack) median {:.3f} ms ({})"
             .format(len(sub), n, deltas[1], dec.num_layers,
                     float(np.median(hops)) * 1e3, card))
+        _dashboard_check(telemetry, store, server.port, card)
     finally:
         server.stop()
         keep["fleet"].close()
@@ -3534,6 +3719,16 @@ CLUSTER_ADAM_NEAR_EPS = 1e-7
 CLUSTER_LR = 3e-4
 # The inference batches of (c): two partitions of one batch each.
 CLUSTER_INFER_PARTS = 2
+# (a)'s live incident capture: steps timed with the continuous sampler off
+# and on (twice each, in turns), the profile window a capture request asks
+# for, and the recorder's snapshot budget (a window's trace export of a
+# GPT-2-small step loop takes seconds).
+CAPTURE_TIMED_STEPS = 8
+CAPTURE_PROFILE_SECS = 2.0
+CAPTURE_NODE_TIMEOUT = 30.0
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_bf16_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel"}
 
 
 def _cluster_rows(lm, n, seed):
@@ -3634,6 +3829,8 @@ def cluster_node(args, ctx):
     it.close()
     doc["train_launches"] = dict(fa.launches)
     doc["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
+    if args.get("capture_dir"):
+        doc["capture"] = _capture_steps(torch, fa, args, ctx, batches[-1])
     np.savez(os.path.join(args["outdir"], "batches{}.npz".format(rank)),
              **{"{}_{}".format(k, i): v for i, b in enumerate(batches)
                 for k, v in b.items()})
@@ -3659,6 +3856,56 @@ def cluster_node(args, ctx):
         json.dump(doc, f)
     if multihost.is_multiprocess():
         multihost.shutdown()
+
+
+def _capture_steps(torch, fa, args, ctx, batch):
+    """The live-capture part of cluster (a), in the executor: a second
+    trainer (its own model, so the checked trainer's state stays as the
+    driver replays it) steps on the last batch: ``CAPTURE_TIMED_STEPS``
+    steps with the continuous sampler stopped and as many with it running,
+    twice in turns; then it keeps stepping, the sampler on, until the
+    driver's capture is done (``done`` under ``capture_dir``), having
+    written ``ready`` there. Returns the step ms (CUDA events) off and
+    on, the sampler's duty cycle (``profiling_overhead_frac``) and the
+    B1-B3 launches of these steps."""
+    from tensorflowonspark_tpu_torch.models import factory
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig
+    from tensorflowonspark_tpu_torch.telemetry import profiling
+    from tensorflowonspark_tpu_torch.train import Trainer, trainer
+
+    model = factory.get_model("transformer", dtype=torch.bfloat16,
+                              device=ctx.device, seed=1,
+                              **dict(args["lm"], attention_impl="pallas"))
+    tr = Trainer(model, optimizer=trainer.adamw(CLUSTER_LR),
+                 mesh=MeshConfig(data=-1).build(), device=ctx.device)
+    box = [tr.init()]
+    before = dict(fa.launches)
+
+    def steps(n):
+        out = []
+        for _ in range(n):
+            stop = _timer(torch)
+            box[0], _ = tr.train_step(box[0], batch)
+            out.append(stop())
+        return out
+
+    steps(1)
+    off, on = [], []
+    for _ in range(2):
+        profiling.stop()
+        off += steps(CAPTURE_TIMED_STEPS)
+        sampler = profiling.start()
+        on += steps(CAPTURE_TIMED_STEPS)
+    open(os.path.join(args["capture_dir"], "ready"), "w").close()
+    during = []
+    t0 = time.monotonic()
+    while not os.path.exists(os.path.join(args["capture_dir"], "done")) \
+            and time.monotonic() - t0 < 300.0:
+        during += steps(1)
+    return {"off_ms": off, "on_ms": on, "during_ms": during,
+            "duty": sampler.duty_cycle(), "hz": sampler.hz,
+            "samples": sampler.samples,
+            "launches": {k: fa.launches[k] - before[k] for k in before}}
 
 
 def _lm_trainer(torch, lm, grad_accum=1):
@@ -3735,14 +3982,16 @@ def _load_batches(path, steps):
             for i in range(steps)]
 
 
-def _run_cluster(torch, n, args, parts, infer_parts=None):
-    """``cluster.run`` -> ``train`` (-> ``inference``) -> ``shutdown`` on
-    a ``LocalBackend(n)``; returns the nodes' documents, the inference
-    results, and the bring-up: seconds from ``cluster.run`` to its return
-    (``ready``) and to each node's marks, the earliest node's (``enter``:
-    the node program starts in its compute child; ``joined``: the process
-    group; ``built``: model and trainer; ``first_step``: the first batch
-    in hand)."""
+def _run_cluster(torch, n, args, parts, infer_parts=None, between=None,
+                 **run_kw):
+    """``cluster.run`` -> ``train`` (-> ``between(cluster)``) (->
+    ``inference``) -> ``shutdown`` on a ``LocalBackend(n)``; returns the
+    nodes' documents, the inference results, and the bring-up: seconds
+    from ``cluster.run`` to its return (``ready``) and to each node's
+    marks, the earliest node's (``enter``: the node program starts in its
+    compute child; ``joined``: the process group; ``built``: model and
+    trainer; ``first_step``: the first batch in hand). ``run_kw`` go to
+    ``cluster.run``."""
     from tensorflowonspark_tpu_torch import backend, cluster
 
     pool = backend.LocalBackend(n, base_dir=os.path.join(args["outdir"],
@@ -3752,10 +4001,12 @@ def _run_cluster(torch, n, args, parts, infer_parts=None):
         t_run = time.time()
         c = cluster.run(pool, cluster_node, args, num_executors=n,
                         input_mode=cluster.InputMode.FEED,
-                        reservation_timeout=300)
+                        reservation_timeout=300, **run_kw)
         ready = time.time() - t_run
         try:
             c.train(backend.Partitioned(parts), timeout=600)
+            if between is not None:
+                between(c)
             if infer_parts is not None:
                 results = c.inference(backend.Partitioned(infer_parts),
                                       timeout=600)
@@ -3773,6 +4024,83 @@ def _run_cluster(torch, n, args, parts, infer_parts=None):
     return docs, results, bring_up
 
 
+def _check_live_capture(torch, fa, lm, doc, cap, card):
+    """Cluster (a)'s live capture: the bundle, the profile window's
+    kernels, the sampler's cost and the merged timeline's bring-up."""
+    from tensorflowonspark_tpu_torch.train import profiler
+
+    bundle = cap.get("bundle")
+    if bundle is None:
+        raise AssertionError("live capture wrote no bundle ({:.2f} s)"
+                             .format(cap.get("s", 0.0)))
+    man, nodes, rings, events = _read_bundle(bundle)
+    snap = nodes.get("node0", {})
+    run_dir = snap.get("profile_dir")
+    kernels = profiler.kernel_names(run_dir)
+    found = {k: sum(n for name, n in kernels.items() if v in name)
+             for k, v in FLASH_KERNELS.items()}
+    trace_bytes = sum(os.path.getsize(p)
+                      for p in profiler.trace_files(run_dir))
+    cp = doc["capture"]
+    n_steps = 1 + 4 * CAPTURE_TIMED_STEPS + len(cp["during_ms"])
+    prof = snap.get("profile") or {}
+    checks = {
+        "captured live, executor 0": man["nodes_captured"] == ["0"]
+        and man["nodes_missing"] == [] and "via" not in snap,
+        "a folded-stack window": os.path.isfile(os.path.join(
+            bundle, "profiles", "node0.folded")) and bool(prof.get("digest")),
+        "a torch.profiler trace": bool(profiler.trace_files(run_dir)),
+        "B1, B2 and B3 in the trace": all(found.values()),
+        "capture steps launched {} a kernel".format(n_steps * lm[
+            "num_layers"]): cp["launches"] == dict.fromkeys(
+                fa.launches, n_steps * lm["num_layers"]),
+        "ring holds train steps' spans": bool(rings.get("node0")),
+    }
+    # The merged timeline's bring-up: each process's first event of a
+    # name, on the driver's clock (from the rendezvous exchange).
+    pids = {e["pid"]: e["args"]["name"] for e in events or ()
+            if e["ph"] == "M"}
+    firsts = {}
+    for e in events or ():
+        if e["ph"] != "M":
+            key = "{} {}".format(pids[e["pid"]][5:], e["name"])
+            firsts[key] = min(firsts.get(key, e["ts"]), e["ts"])
+    t0 = min(firsts.values()) if firsts else 0.0
+    order = sorted(firsts, key=firsts.get)[:12]
+    log("cluster (a) live capture: {:.2f} s (profile window {:g} s, "
+        "snapshot budget {:g} s); bundle {} captured {} missing {}; folded "
+        "window {} samples, sampler duty {}; torch.profiler trace {} bytes, "
+        "device kernels {} kinds, B1/B2/B3 kernels in the window {}; the "
+        "executor's steps while sampled {:.2f} ms (median of {}); on "
+        "{}".format(
+            cap["s"], CAPTURE_PROFILE_SECS, CAPTURE_NODE_TIMEOUT,
+            os.path.basename(bundle), man["nodes_captured"],
+            man["nodes_missing"], (prof.get("digest") or {}).get("samples"),
+            prof.get("duty"), trace_bytes, len(kernels), found,
+            float(np.median(cp["during_ms"])) if cp["during_ms"] else -1.0,
+            len(cp["during_ms"]), card))
+    log("cluster (a) continuous sampler at {:g} Hz in the executor: "
+        "profiling_overhead_frac {:.5f} ({} samples); step {:.2f} ms "
+        "sampler off, {:.2f} ms on (CUDA events, medians of {} steps each, "
+        "in turns), steps off {} on {}; on {}".format(
+            cp["hz"], cp["duty"], cp["samples"],
+            float(np.median(cp["off_ms"])), float(np.median(cp["on_ms"])),
+            len(cp["off_ms"]), ["{:.2f}".format(x) for x in cp["off_ms"]],
+            ["{:.2f}".format(x) for x in cp["on_ms"]], card))
+    log("cluster (a) merged bundle timeline, each process's first event "
+        "(s after the first): {}".format(", ".join(
+            "{} +{:.3f}".format(k, (firsts[k] - t0) / 1e6) for k in order)))
+    if run_dir:  # the window's temporary root, on this host
+        import shutil
+
+        shutil.rmtree(os.path.dirname(os.path.dirname(os.path.dirname(
+            run_dir))), ignore_errors=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError("cluster (a) live capture failed: {} (kernels "
+                             "{})".format(failed, sorted(kernels)[:20]))
+
+
 def _bring_up_text(bring_up):
     return ", ".join("{} {:.1f} s".format(k, v) for k, v in bring_up.items())
 
@@ -3781,7 +4109,9 @@ def cluster_phase(torch, fa, card):
     """``cluster.run`` -> ``train`` -> ``inference`` -> ``shutdown`` over
     spawned executors: (a) one executor at GPT-2-small width, B1-B3 from
     the executor, step 1 (and every step) against the driver's in-process
-    trainer on the same batch; (b) two executors on the one card, data=2,
+    trainer on the same batch, and a live incident capture with a profile
+    window while the executor steps, the sampler timed off and on; (b)
+    two executors on the one card, data=2,
     replicas bitwise equal after every step, against one in-process
     trainer on the concatenated global batches, one rank on a zero batch;
     (c) ``c.inference`` against in-process ``predict``; (d) the report.
@@ -3807,10 +4137,47 @@ def cluster_phase(torch, fa, card):
                  for i in range(0, len(rows), 2 * CLUSTER_BATCH)]
         infer_parts = [infer_rows[i:i + CLUSTER_BATCH]
                        for i in range(0, len(infer_rows), CLUSTER_BATCH)]
+        cap_dir = os.path.join(out, "capture")
+        os.makedirs(cap_dir)
         args = {"outdir": out, "steps": CLUSTER_STEPS, "lm": lm,
-                "infer": True}
-        (doc,), results, bring_up = _run_cluster(torch, 1, args, parts,
-                                                 infer_parts)
+                "infer": True, "capture_dir": cap_dir}
+        tdir = os.path.join(out, "telemetry")
+        cap = {}
+
+        def capture(c):
+            """A live capture while the executor steps (see
+            :func:`_capture_steps`), with a profile window."""
+            deadline = time.monotonic() + 600.0
+            while not os.path.exists(os.path.join(cap_dir, "ready")):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the executor never got ready")
+                time.sleep(0.05)
+            c.incidents.profile_secs = CAPTURE_PROFILE_SECS
+            c.incidents.node_timeout = CAPTURE_NODE_TIMEOUT
+            t0 = time.perf_counter()
+            try:
+                cap["bundle"] = c.capture_incident("manual")
+            finally:
+                cap["s"] = time.perf_counter() - t0
+                open(os.path.join(cap_dir, "done"), "w").close()
+
+        # The executor runs the continuous sampler (the telemetry plane's
+        # default; the rest of the script runs without it); the driver
+        # exports its spans beside the executor's, for the merged
+        # timeline.
+        from tensorflowonspark_tpu_torch import telemetry
+
+        os.environ["TFOS_PROFILING"] = "1"
+        telemetry.configure(node_id="driver", export_dir=tdir)
+        try:
+            (doc,), results, bring_up = _run_cluster(
+                torch, 1, args, parts, infer_parts, between=capture,
+                telemetry_dir=tdir, incident_dir=os.path.join(out,
+                                                               "incidents"))
+        finally:
+            telemetry.disable()
+            os.environ["TFOS_PROFILING"] = "0"
+        _check_live_capture(torch, fa, lm, doc, cap, card)
         want = dict.fromkeys(fa.launches, CLUSTER_STEPS * layers)
         if len(doc["losses"]) != CLUSTER_STEPS or \
                 doc["train_launches"] != want:
@@ -3862,7 +4229,8 @@ def cluster_phase(torch, fa, card):
                                  doc["infer_launches"]["flash_fwd"]))
         for name in total:
             total[name] += doc["train_launches"][name] + \
-                doc["infer_launches"][name]
+                doc["infer_launches"][name] + \
+                doc["capture"]["launches"][name]
         del tr, state
         torch.cuda.empty_cache()
         log("cluster (d) executor step {:.2f} ms (CUDA events, median of "
@@ -4551,9 +4919,13 @@ def recover_node(args, ctx):
     is fed the whole dataset again), train, save at the interval, and poll
     the fault plan after each step. Every step appends its loss, its time,
     its commit time and this incarnation's B1-B3 launches so far to the
-    audit log: a crashed incarnation returns nothing to the driver."""
+    audit log: a crashed incarnation returns nothing to the driver. Each
+    step is also a ``train/step`` span, and the restore a ``train/resume``
+    event, in the node's flight recorder (what an incident bundle
+    carries)."""
     import torch
 
+    from tensorflowonspark_tpu_torch import telemetry
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.testing.faults import FaultPlan
     from tensorflowonspark_tpu_torch.train.checkpoint import CheckpointManager
@@ -4568,6 +4940,7 @@ def recover_node(args, ctx):
     torch.cuda.synchronize()
     _audit(args["log"], kind="resume", step=state.step,
            restore_s=time.perf_counter() - t0)
+    telemetry.event("train/resume", step=state.step)
     plan = FaultPlan(args["plan_dir"])
     fa.reset_launches()
     feed = ctx.get_data_feed(train_mode=True)
@@ -4581,6 +4954,7 @@ def recover_node(args, ctx):
         state, m = tr.train_step(state, _cluster_batch(arrays, mask))
         step_ms = stop()
         loss = float(m["loss"])
+        telemetry.record_span("train/step", step_ms / 1e3, step=state.step)
         t1 = time.perf_counter()
         saved = ckpt.save(state)
         _audit(args["log"], kind="step", step=state.step, loss=loss,
@@ -4672,17 +5046,19 @@ class _MemoryReadingBackend:
         self.pool.stop()
 
 
-def _teardowns(telemetry):
-    """The driver's ``supervise/teardown`` spans, oldest first: ``(wall
-    start, wall end)``."""
+def _teardowns(telemetry, name="supervise/teardown"):
+    """The driver's ``supervise/teardown`` (or ``name``) spans, oldest
+    first: ``(wall start, wall end)``."""
     return [(s["ts"], s["ts"] + s["dur"]) for s in telemetry.recent_spans(500)
-            if s["name"] == "supervise/teardown"]
+            if s["name"] == name]
 
 
 def _supervised(torch, telemetry, root, name, lm, steps, interval, arm, hb):
-    """One supervised job of :func:`recover_node` on one executor: returns
-    the report, the audit lines, the memory readings, the first teardown
-    span, the checkpoint directory and the rows fed."""
+    """One supervised job of :func:`recover_node` on one executor, with
+    span export under ``<job>/telemetry`` and the black box armed
+    (``incident_dir=<job>/incidents``): returns the report, the audit
+    lines, the memory readings, the first teardown span, the checkpoint
+    directory, the rows fed and the incident bundles written."""
     from tensorflowonspark_tpu_torch import backend, cluster
     from tensorflowonspark_tpu_torch.supervisor import RestartPolicy
     from tensorflowonspark_tpu_torch.testing import faults
@@ -4699,6 +5075,7 @@ def _supervised(torch, telemetry, root, name, lm, steps, interval, arm, hb):
              for i in range(0, len(rows), 2 * CLUSTER_BATCH)]
     torch.cuda.empty_cache()
     spans_before = len(_teardowns(telemetry))
+    captures_before = len(_teardowns(telemetry, "capture/incident"))
     pool = _MemoryReadingBackend(torch, backend.LocalBackend(
         1, base_dir=os.path.join(out, "executors")))
     try:
@@ -4707,19 +5084,66 @@ def _supervised(torch, telemetry, root, name, lm, steps, interval, arm, hb):
                           reservation_timeout=300,
                           restart_policy=RestartPolicy(max_restarts=1,
                                                        backoff=0.5),
-                          checkpoint_dir=args["ckpt_dir"], **hb)
+                          checkpoint_dir=args["ckpt_dir"],
+                          telemetry_dir=os.path.join(out, "telemetry"),
+                          incident_dir=os.path.join(out, "incidents"), **hb)
         report = sup.train(backend.Partitioned(parts), timeout=600)
     finally:
         pool.stop()
     teardown = _teardowns(telemetry)[spans_before:][:1]
+    capture = _teardowns(telemetry, "capture/incident")[captures_before:][:1]
+    if teardown and capture and capture[0][0] < teardown[0][0]:
+        # The watcher detected the failure where it began the capture
+        # that precedes the teardown.
+        teardown = [(capture[0][0], teardown[0][1])]
+    idir = os.path.join(out, "incidents")
+    bundles = sorted(os.path.join(idir, b) for b in os.listdir(idir)) \
+        if os.path.isdir(idir) else []
     return (report, _read_audit(args["log"]), pool.readings,
-            teardown[0] if teardown else None, args["ckpt_dir"], rows)
+            teardown[0] if teardown else None, args["ckpt_dir"], rows,
+            bundles)
+
+
+def _read_bundle(bundle):
+    """An incident bundle's manifest, node documents, ring spans and
+    ``trace.json`` events (None when it has none)."""
+    def load(*parts):
+        with open(os.path.join(bundle, *parts)) as f:
+            return json.load(f)
+
+    nodes = {n[:-5]: load("nodes", n)
+             for n in os.listdir(os.path.join(bundle, "nodes"))}
+    rings = {}
+    rings_dir = os.path.join(bundle, "rings")
+    for n in os.listdir(rings_dir) if os.path.isdir(rings_dir) else ():
+        with open(os.path.join(rings_dir, n)) as f:
+            rings[n[:-6]] = [json.loads(line) for line in f]
+    events = load("trace.json")["traceEvents"] if os.path.isfile(
+        os.path.join(bundle, "trace.json")) else None
+    return load("manifest.json"), nodes, rings, events
+
+
+def _render_report(bundle):
+    """``scripts/torch_incident_report.render`` on ``bundle``: its text."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_incident_report
+
+    return torch_incident_report.render(bundle)
+
+
+def _capture_seconds(telemetry, reason):
+    """Seconds of the driver's ``capture/incident`` spans for ``reason``."""
+    return [round(s["dur"], 3) for s in telemetry.recent_spans(500)
+            if s["name"] == "capture/incident"
+            and s["attrs"].get("reason") == reason]
 
 
 def _fault_times(incs, teardown):
     """Seconds from the fault (the faulting step's audit line, written just
-    before the plan fired) to its detection (the teardown's start), to the
-    end of the teardown and to the relaunch's first step."""
+    before the plan fired) to its detection (the start of the incident
+    capture, else of the teardown), to the end of the teardown and to the
+    relaunch's first step."""
     fault = incs[0][-1]["t"]
     return {"detect": teardown[0] - fault, "teardown": teardown[1] - fault,
             "first_step": incs[1][1]["t"] - fault}
@@ -4767,7 +5191,7 @@ def recover_phase(torch, fa, card):
     try:
         # (a) crash at GPT-2-small width.
         layers = RECOVER_LAYERS
-        report, lines, mem, teardown, ckpt_dir, rows = _supervised(
+        report, lines, mem, teardown, ckpt_dir, rows, bundles = _supervised(
             torch, telemetry, root, "crash", lm_small, RECOVER_STEPS,
             RECOVER_INTERVAL,
             lambda plan: plan.crash_at_step(RECOVER_CRASH_AT), {})
@@ -4810,6 +5234,42 @@ def recover_phase(torch, fa, card):
                                                 - RECOVER_CRASH_AT) * layers)],
             "card memory back before the relaunch": _mem_ok(mem),
         }
+        # The black box written before the teardown: one bundle (the rate
+        # limit suppresses the second trigger of the same failure).
+        man, nodes, rings, events = _read_bundle(bundles[0]) if bundles \
+            else ({}, {}, {}, None)
+        snap = nodes.get("node0", {})
+        ring_steps = [sp["attrs"]["step"] for sp in rings.get("node0", ())
+                      if sp["name"] == "train/step"]
+        markers = [e["name"] for e in events or ()
+                   if e["name"] in ("node/error", "train/resume")]
+        report_text = _render_report(bundles[0]) if bundles else ""
+        checks.update({
+            "one incident bundle before the teardown": len(bundles) == 1,
+            "bundle reason node_death or attempt_failure": man.get(
+                "reason") in ("node_death", "attempt_failure"),
+            "manifest names executor 0": "0" in man.get(
+                "nodes_captured", ()),
+            "executor 0's crash snapshot from the manager KV":
+                snap.get("via") == "manager_kv" and "injected failure at "
+                "step {}".format(RECOVER_CRASH_AT) in snap.get("error", ""),
+            "ring train/step spans 1-{}".format(RECOVER_CRASH_AT):
+                ring_steps == list(range(1, RECOVER_CRASH_AT + 1)),
+            "trace.json with the node/error marker":
+                events is not None and "node/error" in markers,
+            "torch_incident_report renders it": "reason:   {}".format(
+                man.get("reason")) in report_text,
+        })
+        log("recover (a) incident bundle {} before the teardown: reason {}, "
+            "captured {} missing {}, executor 0's snapshot via {} ({}); ring "
+            "train/step spans at steps {}; trace.json {} events, markers {}; "
+            "report {} lines; capture {} s; on {}".format(
+                os.path.basename(bundles[0]) if bundles else None,
+                man.get("reason"), man.get("nodes_captured"),
+                man.get("nodes_missing"), snap.get("via"), snap.get("error"),
+                ring_steps, len(events or ()), markers,
+                len(report_text.splitlines()),
+                _capture_seconds(telemetry, man.get("reason")), card))
         launches_a = _launch_sum(fa, [inc[-1] for inc in incs])
         log("recover (a) crash at step {} of {}, {} layers, width {}, b{} "
             "s{} bf16 pallas adamw({:g}), commit every {} steps: restarts "
@@ -4841,7 +5301,7 @@ def recover_phase(torch, fa, card):
             plan.hang_at_step(RECOVER_HANG_AT)
             plan.drop_heartbeats_after(RECOVER_HANG_AT)
 
-        report, lines, mem, teardown, _, _ = _supervised(
+        report, lines, mem, teardown, _, _, bundles = _supervised(
             torch, telemetry, root, "hang", lm_small, RECOVER_HANG_STEPS,
             RECOVER_INTERVAL, arm_hang, RECOVER_HANG_HB)
         incs = _incarnations(lines)
@@ -4862,6 +5322,22 @@ def recover_phase(torch, fa, card):
                 and report["committed_step"] == RECOVER_HANG_STEPS,
             "card memory back before the relaunch": _mem_ok(mem),
         }
+        # A hung node's beats stopped: it cannot answer SNAP (the request
+        # rides the HB reply), so the manifest names it missing, unless a
+        # snapshot it published earlier is in its manager KV.
+        man = _read_bundle(bundles[0])[0] if bundles else {}
+        named = man.get("nodes_captured", []) + man.get("nodes_missing", [])
+        checks.update({
+            "one node_hung bundle before the teardown":
+                len(bundles) == 1 and man.get("reason") == "node_hung",
+            "manifest names executor 0": "0" in named,
+        })
+        log("recover (b) incident bundle {} before the teardown: reason {}, "
+            "captured {} missing {}; capture {} s; on {}".format(
+                os.path.basename(bundles[0]) if bundles else None,
+                man.get("reason"), man.get("nodes_captured"),
+                man.get("nodes_missing"),
+                _capture_seconds(telemetry, "node_hung"), card))
         launches_b = _launch_sum(fa, [inc[-1] for inc in incs])
         log("recover (b) hang at step {} of {}, {} layers, heartbeats every "
             "{} s, {} missed: failure {}, restarts {}; incarnations resumed "
@@ -6214,6 +6690,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     # One host: every cluster of the run advertises loopback.
     os.environ.setdefault("TPU_FRAMEWORK_HOST", "127.0.0.1")
+    # The continuous sampler stays off in the processes whose steps the
+    # script times; cluster (a) runs its executor with it, timed off and
+    # on.
+    os.environ["TFOS_PROFILING"] = "0"
     from tensorflowonspark_tpu_torch import device_info
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa

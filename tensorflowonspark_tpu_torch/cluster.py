@@ -17,9 +17,9 @@ control-channel trick the reference used for parameter servers.
 departs and is replaced in place). Any backend with the
 ``foreach_partition`` surface serves: ``LocalBackend`` or
 :class:`~tensorflowonspark_tpu_torch.backend_remote.RemoteBackend`.
-
-Not ported, each raising ``NotImplementedError``: incident capture
-(``incident_dir``) and SLO monitoring (``slos``), ROADMAP A12.
+``incident_dir`` arms the cluster black box (:mod:`.incident`), ``slos``
+the burn-rate SLO monitor over the heartbeat history store, and
+:meth:`Cluster.start_dashboard` the driver's observability HTTP service.
 """
 
 import logging
@@ -65,6 +65,10 @@ class Cluster:
         # executor id -> backend executor index (differs when service nodes
         # run on the driver and don't occupy backend slots).
         self._executor_map = executor_map or {}
+        # Incident-capture recorder (set by run(incident_dir=...)).
+        self.incidents = None
+        # Driver-side dashboard server (started on demand).
+        self._dashboard = None
 
     def _backend_slot(self, executor_id):
         """The backend executor index that hosts node ``executor_id``
@@ -72,11 +76,15 @@ class Cluster:
         return self._executor_map.get(executor_id, executor_id)
 
     def capture_incident(self, reason="manual", **attrs):
-        """The JAX cluster's black-box capture, which the elastic controller
-        calls before it retires a node: a no-op returning None, as the JAX
-        one is without ``incident_dir`` (incident capture is ROADMAP
-        A12)."""
-        return None
+        """Write a cluster black-box bundle now (requires
+        ``run(incident_dir=...)``): every node's flight-recorder ring,
+        stack dump, stats and profile window, the driver's liveness and
+        restart evidence, and the merged timeline. Returns the bundle
+        directory (None when rate-limited or capture is not configured).
+        The elastic controller calls it before it retires a node."""
+        if self.incidents is None:
+            return None
+        return self.incidents.capture(reason, **attrs)
 
     # -- data movement ------------------------------------------------------
 
@@ -168,8 +176,9 @@ class Cluster:
     def history(self):
         """The driver's heartbeat history store
         (:class:`~tensorflowonspark_tpu_torch.telemetry_store.TelemetryStore`):
-        retained per-node series and goodput accounting. One store per
-        driver process."""
+        retained per-node series, goodput accounting, and the SLO
+        monitor. One store per driver process; supervised relaunches keep
+        feeding it."""
         return telemetry_store.get_store()
 
     def goodput(self):
@@ -178,6 +187,27 @@ class Cluster:
         store; None before any accounted heartbeat interval."""
         store = telemetry_store.get_store()
         return None if store is None else store.goodput.summary()
+
+    def start_dashboard(self, host=None, port=0):
+        """Start the driver-side observability HTTP service
+        (:class:`~tensorflowonspark_tpu_torch.train.metrics.MetricsServer`
+        over the history store): cluster-aggregated ``/metrics``, the
+        ``/timeseries`` query API, ``/dashboard``, ``/traces``,
+        ``/profilez`` and ``/incidents``. Returns the bound port.
+        Loopback-only unless ``host`` says otherwise."""
+        if self._dashboard is not None:
+            return self._dashboard.port
+        from tensorflowonspark_tpu_torch.train import metrics as metrics_mod
+
+        self._dashboard = metrics_mod.MetricsServer(
+            host=host, port=port, store=telemetry_store.get_store(),
+            cluster_fn=self.cluster_stats)
+        return self._dashboard.start()
+
+    def stop_dashboard(self):
+        if self._dashboard is not None:
+            self._dashboard.stop()
+            self._dashboard = None
 
     def stragglers(self):
         """Currently-flagged stragglers with evidence
@@ -313,14 +343,15 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
     membership. Composes with ``restart_policy``: the supervisor only
     tears down when membership falls below ``min_nodes``.
 
-    Not ported: ``incident_dir`` and ``slos`` raise naming ROADMAP A12.
+    ``incident_dir`` binds an :class:`~tensorflowonspark_tpu_torch
+    .incident.IncidentRecorder` to the rendezvous server
+    (``cluster.incidents``): straggler flags trigger it, the supervisor
+    captures before each teardown, and ``capture_incident`` on demand.
+    ``slos`` (specs for :class:`~tensorflowonspark_tpu_torch
+    .telemetry_store.SLO`, e.g. ``"serve_ttft_ms_p95 < 250"``) arm the
+    burn-rate monitor over the history store; a breach fires the recorder
+    when one is armed.
     """
-    if incident_dir is not None:
-        raise NotImplementedError(
-            "incident_dir: incident capture (incident.py) is ROADMAP A12")
-    if slos:
-        raise NotImplementedError(
-            "slos: SLO monitoring over the history store is ROADMAP A12")
     if restart_policy is None and checkpoint_dir is not None:
         raise ValueError(
             "checkpoint_dir is only consumed by the supervision layer; "
@@ -342,7 +373,8 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
                 driver_ps_nodes=driver_ps_nodes,
                 heartbeat_interval=heartbeat_interval,
                 heartbeat_miss_budget=heartbeat_miss_budget,
-                telemetry_dir=telemetry_dir, elastic=elastic,
+                telemetry_dir=telemetry_dir,
+                incident_dir=incident_dir, slos=slos, elastic=elastic,
             ),
         )
 
@@ -390,7 +422,7 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
     # History plane: heartbeat stats are retained in the process-wide
     # store (ensure, not configure: a supervised relaunch must keep ONE
     # store so the goodput curve spans the restart).
-    telemetry_store.ensure()
+    history = telemetry_store.ensure()
 
     server = reservation.Server(
         num_executors, heartbeat_interval=heartbeat_interval,
@@ -496,21 +528,40 @@ def run(backend, map_fun, tf_args=None, num_executors=None, num_ps=0,
         eid: k % backend.num_executors for k, eid in enumerate(backend_ids)
     }
     if elastic_cfg is None:
-        return Cluster(
+        cluster_obj = Cluster(
             backend, cluster_info, cluster_meta, server, input_mode,
             node_job=None if input_mode == InputMode.FEED
             else _JobProxy(launch_thread),
             status=status, queues=queues, executor_map=executor_map,
         )
-    cluster_obj = elastic_mod.ElasticCluster(
-        backend, cluster_info, cluster_meta, server, input_mode,
-        node_job=None, status=status, queues=queues,
-        executor_map=executor_map, runner=runner, node_jobs=node_jobs,
-        elastic_config=elastic_cfg,
-    )
-    cluster_obj.controller = elastic_mod.ElasticController(
-        cluster_obj, elastic_cfg)
-    cluster_obj.controller.start()
+    else:
+        cluster_obj = elastic_mod.ElasticCluster(
+            backend, cluster_info, cluster_meta, server, input_mode,
+            node_job=None, status=status, queues=queues,
+            executor_map=executor_map, runner=runner, node_jobs=node_jobs,
+            elastic_config=elastic_cfg,
+        )
+    if incident_dir:
+        from tensorflowonspark_tpu_torch import incident as incident_mod
+
+        cluster_obj.incidents = incident_mod.IncidentRecorder(
+            incident_dir, server=server, cluster_info=cluster_info,
+            telemetry_dir=telemetry_dir,
+        )
+        # Straggler flags auto-capture (async: trigger() spawns its own
+        # thread — the flag fires under the liveness lock).
+        server.liveness.incident_cb = cluster_obj.incidents.trigger
+    if slos:
+        # Burn-rate SLO monitoring over the history store; breaches
+        # trigger the incident recorder when one is armed, so every SLO
+        # breach gets a black-box bundle.
+        history.set_slos(slos, recorder=cluster_obj.incidents)
+    if elastic_cfg is not None:
+        # Controller starts LAST: a death during the wiring above must
+        # not race the incident recorder it is supposed to trigger.
+        cluster_obj.controller = elastic_mod.ElasticController(
+            cluster_obj, elastic_cfg)
+        cluster_obj.controller.start()
     return cluster_obj
 
 

@@ -16,8 +16,10 @@ only (remote manager + driver-driven control-queue shutdown, the
 reference's ``TFCluster.py:163-172`` trick); gradients are all-reduced
 over ``torch.distributed`` (:meth:`NodeContext.initialize_distributed`).
 
-What the port leaves out, raising ``NotImplementedError`` naming ROADMAP
-A12: the incident snapshots a capture request asks for.
+An incident-capture request riding a heartbeat reply is answered with
+``incident.node_snapshot`` on a thread of its own, published to the
+manager KV and sent back as a ``SNAP`` message; a crashing node program
+publishes its crash snapshot to the manager KV before it raises.
 
 A spot preemption (``testing.faults.preempt_node``) reaches the node
 program as :class:`~tensorflowonspark_tpu_torch.testing.faults.Preempted`,
@@ -42,7 +44,8 @@ import uuid
 
 from tensorflowonspark_tpu_torch import backend as backend_mod
 from tensorflowonspark_tpu_torch import (
-    device_info, feed, manager, marker, paths, reservation, telemetry, util,
+    device_info, feed, incident, manager, marker, paths, reservation,
+    telemetry, util,
 )
 from tensorflowonspark_tpu_torch.testing import faults
 
@@ -299,10 +302,29 @@ class HeartbeatSender:
         ).start()
 
     def _snapshot_and_send(self, cap, cid):
-        # On its own thread: the error ends that thread, never the beacon.
-        raise NotImplementedError(
-            "incident snapshots (incident.py) are not ported (ROADMAP A12); "
-            "capture request {} is not answered".format(cid))
+        try:
+            with telemetry.span("capture/snapshot", capture=cid):
+                snap = incident.node_snapshot(
+                    profile_secs=float(cap.get("profile_secs") or 0.0))
+        except Exception:  # capture must never kill the liveness beacon
+            logger.warning("node snapshot failed", exc_info=True)
+            return
+        try:
+            # KV bridge: the driver's manager fallback can read the latest
+            # snapshot even if the SNAP reply below is lost.
+            self.mgr.set("node_snapshot", dict(snap, capture=cid))
+        except Exception:
+            pass
+        # The lock serializes the shared control socket against the beat
+        # loop (and makes a long profile capture's send wait its turn).
+        with self._lock:
+            client = self._client
+            if client is None:
+                return
+            try:
+                client.send_snapshot(self.executor_id, cid, snap)
+            except Exception:
+                logger.warning("snapshot send failed", exc_info=True)
 
     def stop(self):
         # No lock: closing the socket from here unblocks a beat in flight
@@ -541,7 +563,7 @@ class NodeRunner:
             util.write_executor_id(executor_id)
             # Wedge diagnosis: SIGUSR2 dumps every thread's stack to
             # stderr (kill -USR2 <executor pid>).
-            _register_sigusr2()
+            incident.register_sigusr2()
 
         job_name, task_index = _assign_role(meta["cluster_template"], executor_id)
         logger.info("node %d assigned role %s:%d", executor_id, job_name, task_index)
@@ -753,19 +775,6 @@ class NodeRunner:
             sender.stop()
 
 
-def _register_sigusr2():
-    """``faulthandler`` all-thread stack dump on SIGUSR2, chained to any
-    existing handler (never raises)."""
-    import faulthandler
-
-    if hasattr(signal, "SIGUSR2"):
-        try:
-            faulthandler.register(signal.SIGUSR2, all_threads=True,
-                                  chain=True)
-        except (RuntimeError, ValueError):  # pragma: no cover
-            pass
-
-
 def _compute_child_entry(payload):
     # daemon=True handles a cleanly-exiting executor; PDEATHSIG handles a
     # SIGKILLed one (the pool's own straggler remedy), which runs no
@@ -773,7 +782,7 @@ def _compute_child_entry(payload):
     util.set_pdeathsig()
     # A wedged compute child (native collective that never returns) can
     # always be diagnosed externally: kill -USR2 <pid> dumps all stacks.
-    _register_sigusr2()
+    incident.register_sigusr2()
     fn, tf_args, ctx, mgr = backend_mod.loads(payload)
     _compute_child(fn, tf_args, ctx, mgr)
 
@@ -823,6 +832,18 @@ def _run_user_fn(fn, tf_args, ctx, mgr):
         # at the moment it happened, not when the driver noticed.
         telemetry.event("node/error", executor_id=ctx.executor_id,
                         error="{}: {}".format(type(e).__name__, e))
+        # Black-box preservation: the flight-recorder ring and stacks of
+        # a crashing process die with it, but the per-executor manager
+        # process survives — publish the crash snapshot there so the
+        # driver's incident capture can pull it after this process is
+        # gone (incident.IncidentRecorder._fallback_from_managers).
+        try:
+            mgr.set("crash_snapshot",
+                    dict(incident.node_snapshot(),
+                         executor_id=ctx.executor_id,
+                         error="{}: {}".format(type(e).__name__, e)))
+        except Exception:  # evidence is best-effort; the raise is not
+            logger.debug("crash snapshot publish failed", exc_info=True)
         mgr.get_queue("error").put(traceback.format_exc())
         mgr.set("state", "error")
         raise

@@ -33,7 +33,11 @@ match) and skips their prefill.
 Tokens stream to per-request handles as they exist; TTFT and end-to-end
 latency stay on the handles, in :meth:`ServingEngine.stats` and in the
 ``serve_ttft_seconds``/``serve_request_seconds`` histograms, whose
-percentiles ride ``node_stats()`` heartbeats.
+percentiles ride ``node_stats()`` heartbeats and whose buckets keep the
+request's trace id as their exemplar. Each request's spans (``serve/
+queue_wait``, ``serve/prefill``, ``serve/decode``, ``serve/preempt_wait``,
+the ``serve/request`` envelope) carry its trace, so
+``telemetry.attribution.request_profile`` splits its latency.
 
 **Drain and migration**: :meth:`ServingEngine.begin_drain` closes
 admission (``submit`` raises :class:`QueueFull`, failover material for a
@@ -662,6 +666,7 @@ class ServingEngine:
         p = int(src.shape[0])
         if req.prefill_cache is None:
             req.prefill_alloc = runner.prefill_alloc(p)
+            req.prefill_started = time.perf_counter()
             if req.cow_src is not None:
                 # Copy-on-write, device half: the reservation's page
                 # ``shared_pages`` is a fresh private page standing in for
@@ -704,8 +709,13 @@ class ServingEngine:
         tokens[0, :real] = src[start:start + real]
         is_last = start + chunk_len >= p
         last_idx = (p - 1 - start) if is_last else 0
+        t_chunk = time.perf_counter()
         req.prefill_cache, last_logits = runner.prefill_step(
             req.prefill_cache, tokens, last_idx, alloc)
+        telemetry.record_span(
+            "serve/prefill_chunk", time.perf_counter() - t_chunk,
+            request=req.id, trace=req.trace,
+            chunk=start // chunk_len, tokens=real)
         req.prefill_pos = start + chunk_len
         if not is_last:
             return True
@@ -717,6 +727,11 @@ class ServingEngine:
         if not resuming:
             first = self._sample_host(last_logits.cpu().numpy(),
                                       req.temperature, req.top_k, req.top_p)
+        telemetry.record_span(
+            "serve/prefill", time.perf_counter() - req.prefill_started,
+            request=req.id, trace=req.trace, prompt=p, alloc=alloc,
+            shared=req.prefill_start,
+            chunks=-(-(p - req.prefill_start) // chunk_len))
         runner.scatter(req.prefill_cache, req.pages, p, alloc,
                        start=req.prefill_start)
         # Publish this prompt's own full pages in the prefix index so
@@ -735,7 +750,8 @@ class ServingEngine:
         req.state = RUNNING
         req.t_first = time.perf_counter()
         self._ttft.append(req.t_first - req.t_submit)
-        telemetry.observe("serve_ttft_seconds", req.t_first - req.t_submit)
+        telemetry.observe("serve_ttft_seconds", req.t_first - req.t_submit,
+                          exemplar={"trace": req.trace, "request": req.id})
         self._emit_token(req, first)
         if req.state == RUNNING:  # not finished by eos/budget already
             self._toks[req.slot] = req.generated[-1]
@@ -836,7 +852,9 @@ class ServingEngine:
         self._lens[req.slot] = req.cache_len
         if req.t_preempt is not None:
             telemetry.observe("serve_preempt_resume_seconds",
-                              time.perf_counter() - req.t_preempt)
+                              time.perf_counter() - req.t_preempt,
+                              exemplar={"trace": req.trace,
+                                        "request": req.id})
         self._publish()
 
     # -- graceful drain ------------------------------------------------------
@@ -1030,7 +1048,8 @@ class ServingEngine:
                            "locally", req.id, exc_info=True)
             ok = False
         telemetry.observe("serve_kv_transfer_seconds",
-                          time.perf_counter() - t0)
+                          time.perf_counter() - t0,
+                          exemplar={"trace": req.trace, "request": req.id})
         with self._work:
             self._handoffs_inflight -= 1
             self._work.notify_all()
@@ -1321,7 +1340,9 @@ class ServingEngine:
         if state == FINISHED:
             self.requests_finished += 1
             self._e2e.append(total)
-            telemetry.observe("serve_request_seconds", total)
+            telemetry.observe("serve_request_seconds", total,
+                              exemplar={"trace": req.trace,
+                                        "request": req.id})
         elif state == CANCELLED:
             self.requests_cancelled += 1
             telemetry.inc("serve_cancelled_total")

@@ -69,7 +69,7 @@ class Request:
         "id", "trace", "prompt", "max_new_tokens", "temperature",
         "top_k", "top_p", "eos_token", "priority", "state", "pages",
         "slot", "generated", "error",
-        "prefill_pos", "prefill_cache", "prefill_alloc",
+        "prefill_pos", "prefill_cache", "prefill_alloc", "prefill_started",
         "prefill_start", "prefix_keys", "shared_pages", "prefix_len",
         "cow_src",
         "preempt_count", "t_preempt", "swap_pages", "swap_count",
@@ -104,6 +104,7 @@ class Request:
         self.prefill_pos = 0       # prompt tokens already prefilled
         self.prefill_cache = None  # private contiguous cache during PREFILL
         self.prefill_alloc = 0
+        self.prefill_started = None  # perf_counter stamp of the prefill
         self.prefill_start = 0     # first position the scatter writes
         self.prefix_keys = []      # chain keys of the prompt's full pages
         self.shared_pages = 0      # leading pages RETAINED, not allocated
@@ -339,6 +340,7 @@ class Scheduler:
             req.prefill_pos = 0
             req.prefill_start = 0
             req.prefill_alloc = 0
+            req.prefill_started = None
             req.shared_pages = 0
             req.prefix_len = 0
             req.replay = None

@@ -33,8 +33,9 @@ injection for all of it lives in :mod:`tensorflowonspark_tpu_torch
 A relaunch is a new cluster: every node reserves a fresh port at
 bring-up and registers it with the new rendezvous server, so the
 ``torch.distributed`` store never rebinds the dead attempt's port (which
-may sit in TIME_WAIT). Incident capture (``incident_dir``) is ROADMAP A12:
-:func:`_capture_incident` is a no-op.
+may sit in TIME_WAIT). With ``incident_dir`` each attempt's cluster
+writes an incident bundle before its teardown (``node_hung``,
+``node_death`` or ``attempt_failure``).
 """
 
 import logging
@@ -155,9 +156,14 @@ class RestartPolicy:
 
 def _capture_incident(cluster, reason, **attrs):
     """Evidence before a teardown destroys it: the cluster's incident
-    capture, a no-op (``Cluster.capture_incident``; ``incident_dir`` is
-    ROADMAP A12). The call sites stay where the JAX supervisor captures."""
-    return cluster.capture_incident(reason, **attrs)
+    capture (``Cluster.capture_incident``, a no-op without
+    ``incident_dir``); never raises — the supervisor's failure handling
+    must not depend on evidence collection."""
+    try:
+        return cluster.capture_incident(reason, **attrs)
+    except Exception:  # a full disk, say
+        logger.warning("incident capture (%s) failed", reason, exc_info=True)
+        return None
 
 
 def _teardown(cluster, grace=5.0):

@@ -1,10 +1,6 @@
 """Cluster-wide telemetry plane: spans, counters/gauges, node stats (the
 port's copy of the JAX package's ``telemetry/__init__.py``).
 
-The continuous sampling profiler (``telemetry/profiling.py``) is not
-ported (ROADMAP A12): :func:`configure` raises when ``TFOS_PROFILING``
-asks for it explicitly, and heartbeats carry no profile digest.
-
 The reference's observability was TensorBoard spawned on the chief plus
 stdout (SURVEY.md §5.1/§5.5) — nothing correlated driver-side events
 (rendezvous, restarts, checkpoint commits) with per-node step timing, and
@@ -43,7 +39,15 @@ substrate every layer records into:
   process RSS into one compact dict. ``node.HeartbeatSender`` attaches it
   to every ``HB`` message, so the driver's ``LivenessMonitor
   .cluster_stats()`` shows "stuck at step N with an empty prefetch queue"
-  without SSH-ing into an executor.
+  without SSH-ing into an executor. With the continuous sampling profiler
+  running (``telemetry/profiling.py``, started by :func:`configure`
+  unless ``TFOS_PROFILING=0``) every beat also carries its top-frame
+  digest under ``profile``.
+
+* **Merged timeline** — :func:`load_spans` / :func:`trace_events` /
+  :func:`summarize` turn a directory of per-node span JSONL files into one
+  Chrome/Perfetto ``trace_event`` JSON and a text breakdown (incident
+  bundles and ``scripts/torch_chaos_run.py`` embed them).
 
 Everything here is stdlib-only and import-cheap on purpose: reservation,
 node, feed, trainer, prefetch, checkpoint, and supervisor all import it at
@@ -223,27 +227,38 @@ def configure(node_id=None, export_dir=None, capacity=DEFAULT_CAPACITY,
     (``/statusz`` still works; nothing lands on disk).
     """
     global _recorder
-    if os.environ.get("TFOS_PROFILING", "").lower() in (
-            "1", "on", "true", "yes"):
-        raise NotImplementedError(
-            "continuous profiling (telemetry/profiling.py) is not ported "
-            "(ROADMAP A12); unset TFOS_PROFILING")
     rec = Recorder(node_id=node_id, capacity=capacity, export_dir=export_dir,
                    rotate_bytes=rotate_bytes, max_segments=max_segments)
     with _recorder_lock:
         old, _recorder = _recorder, rec
     if old is not None:
         old.close()
+    # The continuous sampling profiler rides the telemetry plane's
+    # lifecycle: every node that records spans also profiles itself
+    # (TFOS_PROFILING=0 opts out; see telemetry/profiling.py).
+    try:
+        from tensorflowonspark_tpu_torch.telemetry import profiling
+
+        profiling.maybe_start_from_env()
+    except Exception:  # profiling must never block telemetry bring-up
+        logger.debug("continuous profiler start failed", exc_info=True)
     return rec
 
 
 def disable():
-    """Stop span recording (metrics/gauges stay live)."""
+    """Stop span recording (metrics/gauges stay live). Also stops the
+    continuous sampling profiler started by :func:`configure`."""
     global _recorder
     with _recorder_lock:
         old, _recorder = _recorder, None
     if old is not None:
         old.close()
+    try:
+        from tensorflowonspark_tpu_torch.telemetry import profiling
+
+        profiling.stop()
+    except Exception:  # teardown must not raise
+        pass
 
 
 def enabled():
@@ -453,6 +468,7 @@ _counters = {}   # name -> {labels_tuple: float}
 _gauges = {}
 _histograms = {}  # name -> {labels_tuple: [counts, sum, count]}
 _hist_bounds = {}  # name -> tuple of finite upper bounds (le values)
+_hist_exemplars = {}  # name -> {labels_tuple: {bucket_idx: exemplar dict}}
 _status = {}     # free-form /statusz payload (restart history, ...)
 _step_meter = {"last": None, "rate": None, "wait_frac": None}
 
@@ -521,7 +537,7 @@ def set_node_extra(key, value):
             _node_extra[key] = value
 
 
-def observe(name, value, buckets=None, **labels):
+def observe(name, value, buckets=None, exemplar=None, **labels):
     """Record one observation into a histogram (seconds-valued latencies:
     step time, data wait, checkpoint save, decode token).
 
@@ -534,6 +550,12 @@ def observe(name, value, buckets=None, **labels):
     ``_sum`` / ``_count`` series; :func:`hist_quantiles` estimates
     percentiles for ``node_stats()``.
 
+    ``exemplar`` (a small dict — e.g. ``{"trace": <request trace id>}``)
+    tags the observation's bucket with a concrete instance: the last
+    exemplar per bucket is kept (:func:`hist_exemplars`), which is how a
+    dashboard links "the p95 bucket got slow" to one real request whose
+    spans can be pulled up (:func:`~tensorflowonspark_tpu_torch.telemetry
+    .attribution.request_profile`).
     """
     value = float(value)
     key = _labels_key(labels)
@@ -551,6 +573,28 @@ def observe(name, value, buckets=None, **labels):
         h[0][idx] += 1
         h[1] += value
         h[2] += 1
+        if exemplar is not None:
+            ex = dict(exemplar)
+            ex["value"] = value
+            _hist_exemplars.setdefault(name, {}).setdefault(key, {})[idx] = ex
+
+
+def hist_exemplars(name, **labels):
+    """The last exemplar recorded per bucket of a histogram family:
+    ``{le_string: {"value": ..., **exemplar attrs}}`` (``le`` is the
+    bucket's upper bound, ``"+Inf"`` for the overflow bucket). Empty dict
+    when the family carries no exemplars."""
+    with _metrics_lock:
+        bounds = _hist_bounds.get(name)
+        series = _hist_exemplars.get(name)
+        per_bucket = series.get(_labels_key(labels)) if series else None
+        if bounds is None or not per_bucket:
+            return {}
+        out = {}
+        for idx, ex in per_bucket.items():
+            le = _fmt_value(bounds[idx]) if idx < len(bounds) else "+Inf"
+            out[le] = dict(ex)
+        return out
 
 
 def hist_export(names=None):
@@ -562,7 +606,9 @@ def hist_export(names=None):
     summed before interpolating (:func:`merged_quantiles`) — averaging
     per-node p95s cannot produce a fleet p95 — so ``node_stats()`` ships
     a few key families on every heartbeat and the driver's history store
-    answers "fleet-wide p95 TTFT" exactly."""
+    answers "fleet-wide p95 TTFT" exactly. Bucket exemplars ride along
+    (``"exemplars"``: le → exemplar dict) so the driver's dashboard can
+    link a bad bucket to a request trace recorded on another host."""
     out = {}
     with _metrics_lock:
         for name, series in _histograms.items():
@@ -571,12 +617,21 @@ def hist_export(names=None):
             h = series.get(())
             if h is None or not h[2]:
                 continue
-            out[name] = {
-                "bounds": list(_hist_bounds[name]),
+            bounds = _hist_bounds[name]
+            doc = {
+                "bounds": list(bounds),
                 "counts": list(h[0]),
                 "sum": round(h[1], 6),
                 "count": h[2],
             }
+            # Inline (the lock is held; hist_exemplars would re-take it).
+            per_bucket = _hist_exemplars.get(name, {}).get(())
+            if per_bucket:
+                doc["exemplars"] = {
+                    (_fmt_value(bounds[i]) if i < len(bounds) else "+Inf"):
+                        dict(ex)
+                    for i, ex in per_bucket.items()}
+            out[name] = doc
     return out
 
 
@@ -718,7 +773,7 @@ METRIC_HELP = {
     "feed_wait_seconds": "Seconds spent waiting in DataFeed.next_batch.",
     "feed_items_total": "Items consumed through DataFeed.",
     "checkpoint_last_step": "Last durably committed checkpoint step.",
-    "profiler_port": "Port of the on-demand jax profiler server.",
+    "profiler_port": "Port registered for on-demand torch.profiler capture.",
     "xla_compiles_total": "XLA compiles observed by the introspect layer.",
     "xla_recompiles_total":
         "Retraces: the same function compiled again under a new "
@@ -1037,6 +1092,18 @@ def node_stats():
     traces = take_trace_summaries()
     if traces:
         out["traces"] = traces
+    # Continuous-profiling digest: the sampler's freshest top-N frame
+    # summary (~1 KB) rides every beat, so the driver can diff a
+    # straggler's profile against a healthy peer's without an extra round
+    # trip (/profilez, the dashboard).
+    try:
+        from tensorflowonspark_tpu_torch.telemetry import profiling
+
+        prof = profiling.heartbeat_digest()
+        if prof:
+            out["profile"] = prof
+    except Exception:  # stats must never fail on the profiling plane
+        logger.debug("profile digest failed", exc_info=True)
     # Structured per-node extras (set_node_extra), e.g. the prefix-index
     # digest remote affinity routing matches prompts against.
     with _metrics_lock:
@@ -1056,7 +1123,234 @@ def _reset_for_tests():
         _gauges.clear()
         _histograms.clear()
         _hist_bounds.clear()
+        _hist_exemplars.clear()
         _status.clear()
         _node_extra.clear()
         _step_meter.update(last=None, rate=None, wait_frac=None)
     _trace_summaries.clear()
+    try:
+        from tensorflowonspark_tpu_torch.telemetry import profiling
+
+        profiling._reset_for_tests()
+    except Exception:  # isolation must not raise
+        pass
+
+
+# ---------------------------------------------------------------------------
+# Merged cluster timeline (incident bundles, scripts/torch_chaos_run.py)
+# ---------------------------------------------------------------------------
+
+
+def load_spans(telemetry_dir):
+    """Read every ``*.jsonl`` under ``telemetry_dir`` — including
+    size-rotated segments (``<node>.jsonl.1`` …, read oldest first) —
+    into one span list sorted by wall-clock start. Torn trailing lines
+    (a crashed writer) are skipped, not fatal — that is the normal state
+    after a drill."""
+    spans = []
+    telemetry_dir = os.fspath(telemetry_dir)
+    entries = sorted(os.listdir(telemetry_dir))
+    live = set()
+    rotated = {}  # base name -> [segment number, ...]
+    for name in entries:
+        if name.endswith(".jsonl"):
+            live.add(name)
+            continue
+        base, _, suffix = name.rpartition(".")
+        if base.endswith(".jsonl") and suffix.isdigit():
+            rotated.setdefault(base, []).append(int(suffix))
+    # Nodes are discovered from live files AND bare rotated segments: a
+    # node whose live file vanished (crash between the rotation rename
+    # and the reopen) must not take its on-disk segments with it.
+    for name in sorted(live | set(rotated)):
+        paths = ["{}.{}".format(name, i)
+                 for i in sorted(rotated.get(name, ()), reverse=True)]
+        if name in live:
+            paths.append(name)  # oldest segment first, live file last
+        for part in paths:
+            with open(os.path.join(telemetry_dir, part)) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        doc = json.loads(line)
+                    except ValueError:
+                        continue  # torn final line from a crashed process
+                    if isinstance(doc, dict) and "name" in doc \
+                            and "ts" in doc:
+                        spans.append(doc)
+    spans.sort(key=lambda d: d.get("ts", 0.0))
+    return spans
+
+
+def estimate_clock_offsets(spans):
+    """Per-node wall-clock offset (seconds to ADD to a node's timestamps
+    to land on the driver's clock), from the rendezvous-register
+    exchange both sides record.
+
+    The node's ``rendezvous/register`` span covers one request/reply
+    round trip; the driver's ``rendezvous/register_rx`` event for the
+    same ``executor_id`` happened inside that window, so (NTP-style) the
+    driver's stamp minus the span's midpoint estimates the skew. Pairs
+    are matched k-th-to-k-th per executor (a relaunched node registers
+    again) and the median across pairs is kept. Nodes hosting the rx
+    events (the driver) anchor at 0.0; nodes with no register span are
+    left out (callers treat missing as 0).
+    """
+    rx = {}       # executor_id -> [(ts, driver_node)]
+    reg = {}      # node -> {executor_id: [(ts, dur)]}
+    for doc in spans:
+        attrs = doc.get("attrs") or {}
+        eid = attrs.get("executor_id")
+        if eid is None:
+            continue
+        eid = str(eid)
+        node = str(doc.get("node", "?"))
+        if doc["name"] == "rendezvous/register_rx":
+            rx.setdefault(eid, []).append((float(doc["ts"]), node))
+        elif doc["name"] == "rendezvous/register":
+            reg.setdefault(node, {}).setdefault(eid, []).append(
+                (float(doc["ts"]), float(doc.get("dur", 0.0))))
+    offsets = {}
+    for _, pairs in rx.items():
+        for _, driver_node in pairs:
+            offsets[driver_node] = 0.0
+    for node, by_eid in reg.items():
+        if node in offsets:  # the driver also registering service nodes
+            continue
+        deltas = []
+        for eid, regs in by_eid.items():
+            rxs = sorted(rx.get(eid, ()))
+            for (reg_ts, dur), (rx_ts, _) in zip(sorted(regs), rxs):
+                deltas.append(rx_ts - (reg_ts + dur / 2.0))
+        if deltas:
+            deltas.sort()
+            offsets[node] = deltas[len(deltas) // 2]
+    return offsets
+
+
+def trace_events(spans, offsets=None):
+    """Chrome/Perfetto ``trace_event`` list from merged spans.
+
+    Each node becomes one "process" row (named via ``process_name``
+    metadata); durations are complete (``ph=X``) events, zero-duration
+    markers become instants (``ph=i``). Wall-clock start times align the
+    rows; pass ``offsets`` (:func:`estimate_clock_offsets`) to shift
+    each node onto the driver's clock — without it, skewed host clocks
+    interleave rows that were actually causally ordered.
+    """
+    pids = {}
+    events = []
+    offsets = offsets or {}
+    for doc in spans:
+        node = str(doc.get("node", "?"))
+        if node not in pids:
+            pids[node] = len(pids) + 1
+            events.append({
+                "name": "process_name", "ph": "M", "pid": pids[node],
+                "args": {"name": "node {}".format(node)},
+            })
+        base = {
+            "name": doc["name"],
+            "cat": doc["name"].split("/", 1)[0],
+            "pid": pids[node],
+            "tid": str(doc.get("tid", "main")),
+            "ts": round(
+                (float(doc["ts"]) + offsets.get(node, 0.0)) * 1e6, 1),
+            "args": dict(doc.get("attrs") or {},
+                         trace=doc.get("trace"), span=doc.get("span")),
+        }
+        dur = float(doc.get("dur", 0.0))
+        if dur > 0:
+            base.update(ph="X", dur=round(dur * 1e6, 1))
+        else:
+            base.update(ph="i", s="p")
+        events.append(base)
+    return events
+
+
+def write_trace(spans, out_path, offsets=None):
+    """Write a Perfetto-loadable ``{"traceEvents": [...]}`` JSON file."""
+    with open(out_path, "w") as f:
+        json.dump({"traceEvents": trace_events(spans, offsets=offsets),
+                   "displayTimeUnit": "ms"}, f)
+    return out_path
+
+
+def phase_breakdown(spans):
+    """``{span name: {"count", "total_s"}}`` across all nodes."""
+    phases = {}
+    for doc in spans:
+        entry = phases.setdefault(doc["name"], {"count": 0, "total_s": 0.0})
+        entry["count"] += 1
+        entry["total_s"] = round(
+            entry["total_s"] + float(doc.get("dur", 0.0)), 6)
+    return phases
+
+
+def restart_markers(spans, offsets=None):
+    """The supervision/fault markers, in time order — the restart
+    timeline a chaos report embeds. Pass ``offsets`` to put the marker
+    clocks (and their order) on the driver's clock: a skewed node's
+    crash marker must sort before the teardown it caused, not after."""
+    offsets = offsets or {}
+    markers = [
+        {"t": doc["ts"] + offsets.get(str(doc.get("node", "?")), 0.0),
+         "node": doc.get("node"), "name": doc["name"],
+         **{k: v for k, v in (doc.get("attrs") or {}).items()}}
+        for doc in spans
+        if any(doc["name"].startswith(n)
+               for n in ("supervise/", "node/error", "train/resume",
+                         # Elastic membership: departures/rejoins reshape
+                         # the cluster in place — they ARE the restart
+                         # story when no teardown happened.
+                         "cluster/resize", "cluster/rejoin",
+                         "cluster/reshape", "cluster/retire",
+                         "cluster/respawn", "cluster/escalate",
+                         # Autoscaler plane: policy decisions and
+                         # graceful drains are capacity "restarts".
+                         "cluster/scale", "cluster/drain",
+                         "cluster/slo_",
+                         "fault/preempt"))
+    ]
+    markers.sort(key=lambda m: m["t"])
+    return markers
+
+
+def summarize(spans, offsets=None):
+    """Human-readable merged-timeline summary: per-phase totals plus the
+    restart/fault marker sequence. Pass ``offsets``
+    (:func:`estimate_clock_offsets`) to order/stamp the markers on the
+    driver's clock and append the estimated per-node skew."""
+    if not spans:
+        return "no spans recorded"
+    off = offsets or {}
+    t0 = min(d["ts"] + off.get(str(d.get("node", "?")), 0.0)
+             for d in spans)
+    nodes = sorted({str(d.get("node", "?")) for d in spans})
+    lines = ["{} span(s) from {} node(s): {}".format(
+        len(spans), len(nodes), ", ".join(nodes)), "", "per-phase totals:"]
+    phases = phase_breakdown(spans)
+    width = max(len(n) for n in phases)
+    for name in sorted(phases, key=lambda n: -phases[n]["total_s"]):
+        p = phases[name]
+        lines.append("  {:<{w}}  {:>4}x  {:>9.3f}s".format(
+            name, p["count"], p["total_s"], w=width))
+    markers = restart_markers(spans, offsets=offsets)
+    if markers:
+        lines += ["", "restart timeline:"]
+        for m in markers:
+            attrs = {k: v for k, v in m.items()
+                     if k not in ("t", "node", "name")}
+            lines.append("  +{:8.3f}s  node {:<8} {}{}".format(
+                m["t"] - t0, m["node"], m["name"],
+                "  " + json.dumps(attrs) if attrs else ""))
+    if offsets:
+        lines += ["", "estimated clock skew vs driver "
+                      "(rendezvous exchange):"]
+        for node in sorted(offsets):
+            lines.append("  node {:<8} {:+9.3f}s{}".format(
+                node, -offsets[node],
+                "  (reference)" if offsets[node] == 0.0 else ""))
+    return "\n".join(lines)

@@ -1,9 +1,6 @@
-"""Cluster history plane: heartbeat time-series store and goodput
+"""Cluster history plane: heartbeat time-series store, goodput
 accounting, and SLO burn-rate monitoring (stdlib-only, driver-side; the
-port's copy of the JAX package's ``telemetry_store.py``). Not copied: the
-JAX module's profile digests and ``cluster.run(slos=...)`` wiring (the
-profiler and incident capture) and its HTML dashboard (ROADMAP A12 for
-both).
+port's copy of the JAX package's ``telemetry_store.py``).
 
 Every earlier observability surface was point-in-time: ``cluster_stats()``
 keeps only each node's *last* heartbeat stats, ``/metrics`` is a snapshot,
@@ -35,7 +32,11 @@ minutes". This module retains the stream:
 * :class:`SLO` / :class:`SLOMonitor` — declarative objectives
   (``"serve_ttft_ms_p95 < 250"``) evaluated over multiple windows: an SLO
   fires only when every window's breach fraction clears its burn
-  threshold. Every evaluation pass hands the multi-window state to the
+  threshold. A firing emits ``cluster/slo_breach``, bumps
+  ``slo_breaches_total``, and triggers the attached
+  :class:`~tensorflowonspark_tpu_torch.incident.IncidentRecorder` — every
+  SLO breach gets a black-box bundle with the breach marker on its merged
+  timeline. Every evaluation pass hands the multi-window state to the
   policy callbacks (``add_policy_callback``) — the serving
   ``Autoscaler``'s burn signal.
 
@@ -43,6 +44,9 @@ The driver enables the plane with :func:`configure` (idempotent —
 ``cluster.run`` calls :func:`ensure` so supervised relaunches keep ONE
 store across attempts); ``LivenessMonitor.beat`` feeds
 :func:`get_store` when configured and stays free otherwise.
+``render_dashboard`` turns the store into a self-contained HTML page
+(inline-SVG sparklines, zero dependencies) served by the driver's
+``MetricsServer`` at ``/dashboard``.
 """
 
 import collections
@@ -392,10 +396,9 @@ class SLOMonitor:
     so the heartbeat handler never pays more than one evaluation per
     window. A firing emits ``cluster/slo_breach`` (with the per-window
     breach fractions as evidence), appends a ``slo_firing`` step series
-    under node ``"cluster"``, and triggers the attached incident
-    ``recorder`` (duck-typed: ``recorder.trigger(kind, **attrs)``; the port
-    ships none yet, ROADMAP A12); recovery emits
-    ``cluster/slo_recovered``.
+    under node ``"cluster"``, and triggers the attached
+    :class:`~tensorflowonspark_tpu_torch.incident.IncidentRecorder`
+    asynchronously; recovery emits ``cluster/slo_recovered``.
     """
 
     def __init__(self, store, slos, recorder=None, interval=1.0):
@@ -547,6 +550,12 @@ class TelemetryStore:
         # order doubles as recency for the bounded eviction.
         self._traces = collections.OrderedDict()
         self._traces_kept = 512
+        # Continuous-profiling digests: node -> {"latest": digest,
+        # "baseline": first-seen digest, "ts": ingest time}. The baseline
+        # is the diff target for "what grew on this node since it was
+        # healthy"; bounded by node count (LRU-evicted).
+        self._profiles = collections.OrderedDict()
+        self._profiles_kept = 64
         # Whitelisted non-numeric heartbeat extras: the
         # series store is floats-only, but the disaggregated router
         # needs the remote prefix-index digest verbatim. node -> {key:
@@ -592,7 +601,8 @@ class TelemetryStore:
         """One heartbeat's stats dict into the store: every numeric key
         becomes a point on that node's series, the histogram exports
         feed the fleet-quantile merge, the goodput accountant closes
-        the node's interval. This is the call ``LivenessMonitor.beat``
+        the node's interval, and the SLO monitor gets a (rate-limited)
+        evaluation pass. This is the call ``LivenessMonitor.beat``
         makes on every stats-carrying heartbeat."""
         if not isinstance(stats, dict):
             return
@@ -609,6 +619,9 @@ class TelemetryStore:
             if isinstance(traces, list):
                 for summary in traces:
                     self._ingest_trace_locked(node, summary, ts)
+            prof = stats.get("profile")
+            if isinstance(prof, dict):
+                self._ingest_profile_locked(node, prof, ts)
             for key, value in stats.items():
                 if isinstance(value, (int, float)) \
                         and not isinstance(value, bool):
@@ -678,6 +691,44 @@ class TelemetryStore:
 
     # -- queries -------------------------------------------------------------
 
+
+    def _ingest_profile_locked(self, node, digest, ts):
+        """Retain one heartbeat-delivered profile digest: the latest
+        per node plus the FIRST ever seen (the node's baseline window —
+        ``/profilez?node=`` answers diffs against it)."""
+        if not isinstance(digest.get("top"), list):
+            return
+        entry = self._profiles.get(node)
+        if entry is None:
+            entry = self._profiles[node] = {"baseline": digest}
+        else:
+            self._profiles.move_to_end(node)
+        entry["latest"] = digest
+        entry["ts"] = ts
+        while len(self._profiles) > self._profiles_kept:
+            self._profiles.popitem(last=False)
+
+    # -- queries -------------------------------------------------------------
+
+    def profile(self, node, which="latest"):
+        """One node's retained profile digest (``latest`` or
+        ``baseline``); None when the node never shipped one."""
+        with self._lock:
+            entry = self._profiles.get(str(node))
+            if entry is None:
+                return None
+            doc = entry.get(which)
+            return dict(doc) if isinstance(doc, dict) else None
+
+    def profiles(self):
+        """Every node's latest digest + ingest stamp, newest-ingest
+        last — the ``/profilez`` fleet view and the dashboard panel."""
+        with self._lock:
+            return {node: {"latest": dict(e["latest"]),
+                           "baseline": dict(e["baseline"]),
+                           "ts": e.get("ts")}
+                    for node, e in self._profiles.items()
+                    if e.get("latest")}
 
     def trace(self, trace_id):
         """The merged summary for one trace id (None when unknown or
@@ -1005,5 +1056,223 @@ polyline.good{stroke:#6c6}
 """
 
 _SPARK_W, _SPARK_H = 240, 48
+_DASH_MAX_CHARTS = 48
+
+
+def _sparkline(points, css="live", lo=None, hi=None, t0=None, t1=None):
+    """Inline-SVG polyline for one series (empty string with <2 pts)."""
+    if len(points) < 2:
+        return ""
+    ts = [p[0] for p in points]
+    vs = [p[1] for p in points]
+    t0 = min(ts) if t0 is None else t0
+    t1 = max(ts) if t1 is None else t1
+    lo = min(vs) if lo is None else lo
+    hi = max(vs) if hi is None else hi
+    tspan = (t1 - t0) or 1.0
+    vspan = (hi - lo) or 1.0
+    coords = " ".join(
+        "{:.1f},{:.1f}".format(
+            (t - t0) / tspan * (_SPARK_W - 4) + 2,
+            (_SPARK_H - 4) - (v - lo) / vspan * (_SPARK_H - 8) + 2)
+        for t, v in points)
+    return ('<svg width="{w}" height="{h}"><polyline class="{c}" '
+            'points="{p}"/></svg>').format(
+                w=_SPARK_W, h=_SPARK_H, c=css, p=coords)
+
+
+def _esc(text):
+    return (str(text).replace("&", "&amp;").replace("<", "&lt;")
+            .replace(">", "&gt;").replace('"', "&quot;"))
+
+
+def render_dashboard(store, cluster_stats=None, window=600.0,
+                     stale_after=15.0, title="tfos cluster dashboard"):
+    """The ``/dashboard`` page: goodput curve, SLO table, fleet
+    percentiles, and one sparkline chart per (metric, node) with stale
+    nodes greyed out (dashed) instead of plotting a frozen flat line.
+    Self-contained HTML — inline CSS + SVG, no scripts, no external
+    fetches — so it renders from an air-gapped ops box."""
+    now = store.now()
+    stale = set(store.stale_nodes(threshold=stale_after, now=now))
+    cluster_stats = cluster_stats or {}
+    for eid, entry in cluster_stats.items():
+        if isinstance(entry, dict) and entry.get("status") not in (
+                "alive", "slow", None):
+            stale.add(str(eid))
+    parts = ["<!doctype html><html><head><meta charset='utf-8'>",
+             "<meta http-equiv='refresh' content='5'>",
+             "<title>{}</title><style>{}</style></head><body>".format(
+                 _esc(title), _DASH_CSS),
+             "<h1>{}</h1>".format(_esc(title)),
+             "<p class='t'>window {:.0f}s &middot; {} node(s)"
+             "{}</p>".format(
+                 window, len(store.nodes()),
+                 " &middot; stale: {}".format(
+                     _esc(", ".join(sorted(stale)))) if stale else "")]
+
+    # Goodput.
+    gsum = store.goodput.summary()
+    if gsum.get("goodput") is not None:
+        parts.append("<h2>goodput</h2>")
+        gpts = store.points("goodput", node="cluster", window=window,
+                            now=now)
+        parts.append("<div class='chart'>{}<div class='t'>goodput "
+                     "(now {:.2f})</div></div>".format(
+                         _sparkline(gpts, css="good", lo=0.0, hi=1.0,
+                                    t0=now - window, t1=now),
+                         gsum["goodput"]))
+        fr = gsum.get("fractions") or {}
+        parts.append("<table><tr>{}</tr><tr>{}</tr></table>".format(
+            "".join("<th>{}</th>".format(_esc(c))
+                    for c in GOODPUT_CATEGORIES),
+            "".join("<td>{:.1%}</td>".format(fr.get(c, 0.0))
+                    for c in GOODPUT_CATEGORIES)))
+
+    # SLOs.
+    monitor = store.slo_monitor
+    if monitor is not None and monitor.slos:
+        parts.append("<h2>SLOs</h2><table><tr><th>slo</th><th>state</th>"
+                     "<th>windows (breach frac / burn)</th></tr>")
+        for st in monitor.status():
+            wins = " &middot; ".join(
+                "{:.0f}s: {:.0%}/{:.0%}".format(
+                    w["window_s"], w["breach_frac"], w["burn"])
+                for w in st["windows"])
+            parts.append(
+                "<tr><td>{}</td><td class='{}'>{}</td><td>{}</td>"
+                "</tr>".format(
+                    _esc(st["name"]),
+                    "firing" if st["firing"] else "ok",
+                    "FIRING" if st["firing"] else "ok", wins))
+        parts.append("</table>")
+
+    # Fleet-wide percentiles (merged bucket counts).
+    fams = store.hist_families()
+    if fams:
+        parts.append("<h2>fleet percentiles (merged buckets)</h2>"
+                     "<table><tr><th>family</th><th>p50</th><th>p95</th>"
+                     "<th>p99</th></tr>")
+        for fam in fams:
+            qs = store.fleet_quantiles(fam)
+            if qs:
+                parts.append(
+                    "<tr><td>{}</td>{}</tr>".format(
+                        _esc(fam), "".join(
+                            "<td>{:.1f} ms</td>".format(v * 1e3)
+                            for v in qs)))
+        parts.append("</table>")
+
+    # Tail attribution: the slowest requests the heartbeat
+    # plane delivered, with their segment sums — "what dominates the
+    # tail" without leaving the dashboard.
+    slow = store.slowest_traces(8, window=window)
+    if slow:
+        parts.append("<h2>slowest requests (tail attribution)</h2>"
+                     "<table><tr><th>trace</th><th>engine</th>"
+                     "<th>state</th><th>total</th><th>queue</th>"
+                     "<th>ttft</th><th>preempts</th><th>path</th>"
+                     "</tr>")
+        for doc in slow:
+            def _cell(key, fmt="{:.0f} ms"):
+                v = doc.get(key)
+                return fmt.format(v) if isinstance(
+                    v, (int, float)) else "&mdash;"
+            path = []
+            if doc.get("failover"):
+                path.append("failover")
+            if doc.get("affinity"):
+                path.append("affinity")
+            parts.append(
+                "<tr><td>{}</td><td>{}</td><td>{}</td><td>{}</td>"
+                "<td>{}</td><td>{}</td><td>{}</td><td>{}</td>"
+                "</tr>".format(
+                    _esc(str(doc.get("trace"))),
+                    _esc(str(doc.get("engine", "—"))),
+                    _esc(str(doc.get("state", "?"))),
+                    _cell("total_ms"), _cell("queue_ms"),
+                    _cell("ttft_ms"),
+                    int(doc.get("preempts", 0)),
+                    _esc(", ".join(path) or "direct")))
+        parts.append("</table>")
+
+    # Continuous profiling: the driver's own live flame
+    # panel (inline SVG, still script-free) plus every node's
+    # heartbeat-delivered top-frame digest — "which code is hot, per
+    # node" without leaving the dashboard. Full folded stacks are one
+    # hop away on each node's /profilez.
+    try:
+        from tensorflowonspark_tpu_torch.telemetry import profiling
+
+        prof_nodes = store.profiles()
+        sampler = profiling.get_sampler()
+        if prof_nodes or (sampler is not None and sampler.running()):
+            parts.append("<h2>continuous profile</h2>")
+        if sampler is not None and sampler.running():
+            win = sampler.best_window()
+            svg = profiling.flame_svg(win) if win else ""
+            if svg:
+                parts.append(
+                    "<div class='chart'>{}<div class='t'>this process "
+                    "&middot; window {} &middot; {} samples &middot; "
+                    "duty {:.2%}</div></div>".format(
+                        svg, win["id"], win["samples"],
+                        sampler.duty_cycle()))
+        if prof_nodes:
+            parts.append(
+                "<table><tr><th>node</th><th>top frames (self% / "
+                "total%)</th><th>samples</th></tr>")
+            for node in sorted(prof_nodes):
+                entry = prof_nodes[node]
+                digest = entry["latest"]
+                samples = max(1, int(digest.get("samples") or 1))
+                frames = " &middot; ".join(
+                    "{} {:.0%}/{:.0%}".format(
+                        _esc(row[0]), row[1] / samples,
+                        row[2] / samples)
+                    for row in digest.get("top", ())[:5]
+                    if not str(row[0]).startswith("thread:"))
+                parts.append(
+                    "<tr><td>{}{}</td><td>{}</td><td>{}</td>"
+                    "</tr>".format(
+                        _esc(node),
+                        " <span class='stale'>(stale)</span>"
+                        if node in stale else "",
+                        frames or "&mdash;", samples))
+            parts.append("</table>")
+    except Exception:
+        logger.debug("dashboard profile panel failed", exc_info=True)
+
+    # Per-metric charts, one polyline chart per (metric, node).
+    parts.append("<h2>series</h2>")
+    charts = 0
+    for metric in store.metrics():
+        if charts >= _DASH_MAX_CHARTS:
+            parts.append("<p class='t'>({} more metric(s) not shown; "
+                         "query /timeseries)</p>".format(
+                             len(store.metrics()) - charts))
+            break
+        by_node = store.node_points(metric, window=window, now=now)
+        drawn = False
+        for node in sorted(by_node):
+            pts = by_node[node]
+            if len(pts) < 2:
+                continue
+            is_stale = node in stale
+            spark = _sparkline(pts, css="stale" if is_stale else "live",
+                               t0=now - window, t1=now)
+            if not spark:
+                continue
+            drawn = True
+            parts.append(
+                "<div class='chart'>{}<div class='t{}'>{} &middot; "
+                "node {}{} &middot; last {:.4g}</div></div>".format(
+                    spark, " stale" if is_stale else "", _esc(metric),
+                    _esc(node), " (stale)" if is_stale else "",
+                    pts[-1][1]))
+        if drawn:
+            charts += 1
+    parts.append("</body></html>")
+    return "\n".join(parts)
 
 

@@ -28,11 +28,27 @@ its fleet-aware payload; 503 when every peer is unreachable).
 body is ``serving.encode_handoff`` bytes, the engine restores the pages
 byte for byte, and the answer is an ``{"accepted": true, ...}`` ack line
 (the sender's commit point) followed by the ``/v1/generate`` stream.
+
+With a history store attached (``store=``, the driver's
+:class:`~tensorflowonspark_tpu_torch.telemetry_store.TelemetryStore`;
+``Cluster.start_dashboard`` builds one such server) it also answers the
+JAX server's observability routes, with its bodies and content types:
+``/metrics`` (alias ``/metricz``) gains ``tfos_cluster_*`` lines,
+``/statusz`` a ``cluster`` section; ``/timeseries`` (JSON window queries,
+``?metric=&node=&window=``, with histogram exemplars on latency
+percentiles), ``/dashboard`` (one self-contained HTML page),
+``/traces`` (heartbeat-delivered request summaries: ``?trace=`` or the
+slowest ``?n=`` in ``?window=``) and ``/profilez?node=``/``?fleet=1``
+(heartbeat-delivered profile digests). Without a store those answer 503.
+``/profilez`` alone serves this process's continuous sampler (collapsed
+stacks; ``?json=1`` for the digest) and ``/incidents`` the bundles this
+process's incident recorder wrote.
 """
 
 import http.server
 import json
 import logging
+import os
 import math
 import threading
 import time
@@ -219,8 +235,23 @@ def _handle_summary(handle):
     }
 
 
-# Recent spans a /statusz answer carries.
+# /statusz payload caps: recent spans served, and the tail kept of any
+# list-valued status entry (a long supervised soak accumulates an
+# unbounded restart history; the scrape must stay O(1), not O(uptime)).
 STATUSZ_SPANS = 50
+STATUSZ_LIST_TAIL = 50
+INCIDENTS_LISTED = 100
+
+
+def _bound_status(status, tail=STATUSZ_LIST_TAIL):
+    """Trim list-valued status entries to their newest ``tail`` items."""
+    out = {}
+    for key, value in status.items():
+        if isinstance(value, list) and len(value) > tail:
+            out[key] = value[-tail:]
+        else:
+            out[key] = value
+    return out
 
 
 class _ServingHandler(http.server.BaseHTTPRequestHandler):
@@ -235,11 +266,20 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
         pass
 
     def do_GET(self):
-        path = urllib.parse.urlparse(self.path).path
-        if path in ("/metrics", "/statusz"):
-            body, ctype = (self._metrics() if path == "/metrics"
-                           else self._statusz())
+        parsed = urllib.parse.urlparse(self.path)
+        path = parsed.path
+        if path in ("/metrics", "/metricz", "/statusz"):
+            body, ctype = (self._statusz() if path == "/statusz"
+                           else self._metrics())
             self._send(200, ctype, body.encode("utf-8"))
+            return
+        routes = {"/timeseries": self._timeseries,
+                  "/dashboard": self._dashboard,
+                  "/incidents": self._incidents,
+                  "/profilez": self._profilez,
+                  "/traces": self._traces}
+        if path in routes:
+            routes[path](parsed)
             return
         if path != "/v1/serving":
             self._send(404, "text/plain", b"not found\n")
@@ -274,6 +314,7 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
                 name = "tfos_node_" + telemetry._sanitize(str(key))
                 text += "# TYPE {} gauge\n{} {}\n".format(
                     name, name, telemetry._fmt_value(value))
+        text += self._cluster_metrics()
         text += "# TYPE tfos_up gauge\ntfos_up 1\n"
         return text, "text/plain; version=0.0.4"
 
@@ -282,10 +323,241 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
         doc = {"node": None if rec is None else rec.node_id,
                "stats": telemetry.node_stats(),
                "metrics": telemetry.metrics_snapshot(),
-               "status": telemetry.get_status(),
+               "status": _bound_status(telemetry.get_status()),
                "spans": telemetry.recent_spans(STATUSZ_SPANS)}
-        doc.update(self._fn("status_fn"))
+        store = self.server.store
+        if store is not None:
+            cluster = {"nodes": store.nodes(),
+                       "stale": store.stale_nodes(),
+                       "goodput": store.goodput.summary()}
+            fleet = {}
+            for fam in store.hist_families():
+                qs = store.fleet_quantiles(fam)
+                if qs:
+                    fleet[fam] = {q: round(v * 1e3, 3) for q, v in
+                                  zip(("p50_ms", "p95_ms", "p99_ms"), qs)}
+            if fleet:
+                cluster["fleet_quantiles"] = fleet
+            if store.slo_monitor is not None:
+                cluster["slo"] = store.slo_monitor.status()
+            doc["cluster"] = cluster
+        doc.update(_bound_status(self._fn("status_fn")))
         return json.dumps(doc, default=str), "application/json"
+
+    def _no_store(self):
+        self._send(503, "application/json",
+                   b'{"error": "no history store attached"}\n')
+
+    def _cluster_metrics(self):
+        """Cluster-aggregated exposition lines from the attached history
+        store: every node's latest value per series as a labeled
+        ``tfos_cluster_*`` gauge, plus fleet-wide histogram percentiles
+        (per-node bucket counts summed before interpolating — a real
+        fleet p95, not an average of per-node p95s)."""
+        store = self.server.store
+        if store is None:
+            return ""
+        lines = []
+        try:
+            for metric in store.metrics():
+                name = "tfos_cluster_" + telemetry._sanitize(str(metric))
+                rows = []
+                for node in store.nodes():
+                    latest = store.latest(metric, node=node)
+                    if latest is not None:
+                        rows.append('{}{{node="{}"}} {}'.format(
+                            name, telemetry._escape_label(node),
+                            telemetry._fmt_value(latest[1])))
+                if rows:
+                    lines.append("# TYPE {} gauge".format(name))
+                    lines.extend(rows)
+            for fam in store.hist_families():
+                qs = store.fleet_quantiles(fam)
+                if not qs:
+                    continue
+                for q, v in zip(("p50", "p95", "p99"), qs):
+                    name = "tfos_cluster_{}_{}".format(
+                        telemetry._sanitize(str(fam)), q)
+                    lines.append("# TYPE {} gauge".format(name))
+                    lines.append("{} {}".format(
+                        name, telemetry._fmt_value(round(v, 6))))
+        except Exception:  # the scrape must survive a racing store
+            logger.debug("cluster metrics rendering failed", exc_info=True)
+        return "\n".join(lines) + "\n" if lines else ""
+
+    def _timeseries(self, parsed):
+        """The JSON query API over the history store: without ``metric``
+        the nodes, metrics and histogram families it holds; with it one
+        series a node over ``window`` seconds, the window's stats and
+        rate, and (for latency percentiles) the histogram's exemplars."""
+        store = self.server.store
+        if store is None:
+            self._no_store()
+            return
+        q = urllib.parse.parse_qs(parsed.query)
+
+        def _arg(name, default=None):
+            return q.get(name, [default])[0]
+
+        metric = _arg("metric")
+        if not metric:
+            doc = {"nodes": store.nodes(), "metrics": store.metrics(),
+                   "hist_families": store.hist_families(),
+                   "stale": store.stale_nodes()}
+            self._send(200, "application/json",
+                       json.dumps(doc).encode("utf-8"))
+            return
+        node = _arg("node")
+        try:
+            window = float(_arg("window", "300"))
+        except ValueError:
+            self._send(400, "application/json",
+                       b'{"error": "window must be a number"}\n')
+            return
+        stale = set(store.stale_nodes())
+        series = []
+        by_node = store.node_points(metric, window=window)
+        for n in sorted(by_node):
+            if node is not None and n != node:
+                continue
+            series.append({"node": n, "stale": n in stale,
+                           "points": [[round(t, 3), v]
+                                      for t, v in by_node[n]]})
+        doc = {"metric": metric, "window_s": window, "series": series,
+               "stats": store.window_stats(metric, node=node,
+                                           window=window)}
+        rate = store.rate(metric, node=node, window=window)
+        if rate is not None:
+            doc["rate_per_s"] = round(rate, 6)
+        # Percentile metrics link to the underlying histogram's
+        # exemplars: the trace ids that landed in each bucket, so a bad
+        # p95 resolves to a concrete request. Local process registry
+        # first (the engine-in-process case); else the exemplars that
+        # rode remote nodes' heartbeat exports into the store.
+        for prefix, fam in (("serve_ttft_ms", "serve_ttft_seconds"),
+                            ("serve_request_ms", "serve_request_seconds"),
+                            ("step_ms", "train_step_seconds")):
+            if metric.startswith(prefix):
+                ex = telemetry.hist_exemplars(fam) or store.exemplars(fam)
+                if ex:
+                    doc["exemplars"] = {"histogram": fam, "buckets": ex}
+                break
+        self._send(200, "application/json",
+                   json.dumps(doc, default=str).encode("utf-8"))
+
+    def _dashboard(self, parsed):
+        store = self.server.store
+        if store is None:
+            self._send(503, "text/plain", b"no history store attached\n")
+            return
+        from tensorflowonspark_tpu_torch import telemetry_store
+
+        html = telemetry_store.render_dashboard(
+            store, cluster_stats=self._fn("cluster_fn"))
+        self._send(200, "text/html; charset=utf-8", html.encode("utf-8"))
+
+    def _incidents(self, parsed):
+        """The incident bundles this process's recorder(s) have written:
+        the root rides ``telemetry.put_status("incident_dir")`` at
+        capture time; each listed entry is its manifest summary."""
+        root = telemetry.get_status().get("incident_dir")
+        doc = {"incident_dir": root, "incidents": []}
+        names = []
+        if root and os.path.isdir(root):
+            try:
+                names = sorted(os.listdir(root))[-INCIDENTS_LISTED:]
+            except OSError:
+                names = []
+        for name in names:
+            mpath = os.path.join(root, name, "manifest.json")
+            if not os.path.isfile(mpath):
+                continue
+            entry = {"name": name}
+            try:
+                with open(mpath) as f:
+                    man = json.load(f)
+                for key in ("reason", "time", "iso", "nodes_captured",
+                            "nodes_missing"):
+                    if key in man:
+                        entry[key] = man[key]
+            except (OSError, ValueError):
+                entry["error"] = "unreadable manifest"
+            doc["incidents"].append(entry)
+        self._send(200, "application/json",
+                   json.dumps(doc, default=str).encode("utf-8"))
+
+    def _profilez(self, parsed):
+        """This process's live collapsed stacks (flamegraph.pl /
+        speedscope text); ``?json=1`` the local digest and baseline;
+        ``?node=N`` a node's heartbeat-delivered digest from the history
+        store, ``?fleet=1`` every node's."""
+        from tensorflowonspark_tpu_torch.telemetry import profiling
+
+        query = urllib.parse.parse_qs(parsed.query)
+        store = self.server.store
+        node = (query.get("node") or [None])[0]
+        if node is not None or query.get("fleet"):
+            if store is None:
+                self._no_store()
+                return
+            if node is not None:
+                doc = {"node": node, "latest": store.profile(node),
+                       "baseline": store.profile(node, which="baseline")}
+                if doc["latest"] is None:
+                    self._send(404, "application/json",
+                               b'{"error": "no profile for node"}\n')
+                    return
+            else:
+                doc = store.profiles()
+            self._send(200, "application/json",
+                       json.dumps(doc, default=str).encode("utf-8"))
+            return
+        sampler = profiling.get_sampler()
+        if sampler is None or not sampler.running():
+            self._send(503, "text/plain",
+                       b"continuous profiler not running\n")
+            return
+        win = sampler.best_window()
+        if query.get("json"):
+            base = sampler.window("baseline")
+            doc = {"digest": profiling.digest(win) if win else None,
+                   "baseline": profiling.digest(base) if base else None,
+                   "duty": round(sampler.duty_cycle(), 5),
+                   "hz": sampler.hz}
+            self._send(200, "application/json",
+                       json.dumps(doc, default=str).encode("utf-8"))
+            return
+        text = profiling.folded_text(win) if win else ""
+        self._send(200, "text/plain; charset=utf-8",
+                   (text + "\n").encode("utf-8"))
+
+    def _traces(self, parsed):
+        """Trace summaries the heartbeat plane delivered: ``?trace=<id>``
+        for one merged summary, otherwise the ``?n=`` slowest in the last
+        ``?window=`` seconds with their segment attribution."""
+        store = self.server.store
+        if store is None:
+            self._no_store()
+            return
+        query = urllib.parse.parse_qs(parsed.query)
+        trace_id = (query.get("trace") or [None])[0]
+        try:
+            n = int((query.get("n") or ["20"])[0])
+            window = float((query.get("window") or ["3600"])[0])
+        except ValueError:
+            self._send(400, "application/json",
+                       b'{"error": "n/window must be numeric"}\n')
+            return
+        if trace_id:
+            doc = store.trace(trace_id)
+            if doc is None:
+                self._send(404, "application/json",
+                           b'{"error": "unknown trace"}\n')
+                return
+        else:
+            doc = {"slowest": store.slowest_traces(n, window=window)}
+        self._send(200, "application/json",
+                   json.dumps(doc, default=str).encode("utf-8"))
 
     def do_POST(self):
         path = urllib.parse.urlparse(self.path).path
@@ -484,15 +756,18 @@ class _ServingHandler(http.server.BaseHTTPRequestHandler):
 class MetricsServer:
     """The serving HTTP plane: ``POST /v1/generate``, ``POST /v1/migrate``
     and ``GET /v1/serving`` over an attached engine or fleet (started with
-    ``engine.start()``), and the node telemetry routes ``/metrics`` and
-    ``/statusz``. Binds loopback by default; ``port=0`` picks a free port
-    (:attr:`port`). Unlike the JAX server it serves no metrics directory,
-    so it takes keyword arguments only. ``status_fn`` and ``stats_fn`` are
-    zero-argument callables returning dicts (the manager-published state
-    and node stats of a FEED-mode compute child)."""
+    ``engine.start()``), the node telemetry routes ``/metrics`` and
+    ``/statusz``, and, over an attached history ``store``, the
+    observability routes of the module docstring. Binds loopback by
+    default; ``port=0`` picks a free port (:attr:`port`). Unlike the JAX
+    server it serves no metrics directory, so it takes keyword arguments
+    only. ``status_fn``, ``stats_fn`` and ``cluster_fn`` are zero-argument
+    callables returning dicts (the manager-published state and node stats
+    of a FEED-mode compute child; ``cluster.cluster_stats``, with which
+    the dashboard greys out stale nodes)."""
 
     def __init__(self, *, host=None, port=0, engine=None, status_fn=None,
-                 stats_fn=None):
+                 stats_fn=None, store=None, cluster_fn=None):
         self._httpd = http.server.ThreadingHTTPServer(
             (host if host is not None else "127.0.0.1", port),
             _ServingHandler)
@@ -500,6 +775,8 @@ class MetricsServer:
         self._httpd.engine = engine
         self._httpd.status_fn = status_fn
         self._httpd.stats_fn = stats_fn
+        self._httpd.store = store
+        self._httpd.cluster_fn = cluster_fn
         self._thread = None
 
     def set_engine(self, engine):
@@ -507,6 +784,14 @@ class MetricsServer:
         ``/v1/migrate`` and ``/v1/serving`` without restarting the HTTP
         plane (a weight reload, or a ``kv_cache_dtype`` change)."""
         self._httpd.engine = engine
+
+    def set_store(self, store, cluster_fn=None):
+        """Attach (or swap) the history store behind ``/timeseries``,
+        ``/dashboard``, ``/traces`` and the cluster-aggregated
+        ``/metrics`` lines."""
+        self._httpd.store = store
+        if cluster_fn is not None:
+            self._httpd.cluster_fn = cluster_fn
 
     @property
     def port(self):

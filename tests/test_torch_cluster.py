@@ -34,6 +34,7 @@ against the JAX ``Trainer``.
 
 import json
 import os
+import time
 import urllib.request
 
 import numpy as np
@@ -41,7 +42,8 @@ import pytest
 import torch
 
 import torch_cluster_programs as progs
-from tensorflowonspark_tpu_torch import backend, cluster, convert, supervisor
+from tensorflowonspark_tpu_torch import (backend, cluster, convert, manager,
+                                         supervisor)
 from tensorflowonspark_tpu_torch.train import checkpoint as ckpt_lib
 
 pytestmark = pytest.mark.watchdog_timeout(120)
@@ -127,14 +129,41 @@ def test_files_mode_and_remote_errors(pool, tmp_path):
     assert [d["forbidden"] for d in docs] == [[], []]
     c = cluster.run(pool, progs.fail_feed, {}, num_executors=2,
                     input_mode=cluster.InputMode.FEED,
-                    reservation_timeout=60)
+                    reservation_timeout=60,
+                    incident_dir=os.path.join(out, "incidents"),
+                    slos=["serve_ttft_ms_p95 < 1e9"])
     try:
         with pytest.raises(RuntimeError, match="boom from node") as err:
             c.inference(backend.Partitioned.from_items(range(8), 2),
                         timeout=60)
         assert "Traceback" in str(err.value)
+        # incident_dir and slos are ported: the recorder is armed (the
+        # straggler flag fires it) and the SLO monitor reports to it; the
+        # crashed nodes' snapshots come from their manager KV.
+        assert c.server.liveness.incident_cb == c.incidents.trigger
+        assert c.history.slo_monitor.recorder is c.incidents
+        # Both node programs have raised (their crash snapshots precede
+        # the error state) before the capture.
+        deadline = time.monotonic() + 30.0
+        for meta in c.cluster_info:
+            mgr = manager.connect(tuple(meta["addr"]),
+                                  bytes.fromhex(meta["authkey"]))
+            while mgr.get("state") != "error" and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+        bundle = c.capture_incident("manual")
+        with open(os.path.join(bundle, "manifest.json")) as f:
+            manifest = json.load(f)
+        assert manifest["nodes_captured"] == ["0", "1"]
+        for eid in (0, 1):
+            with open(os.path.join(bundle, "nodes",
+                                   "node{}.json".format(eid))) as f:
+                snap = json.load(f)
+            assert snap["via"] == "manager_kv"
+            assert "boom from node {}".format(eid) in snap["error"]
     finally:
         c.server.stop()
+        c.history.set_slos(None)
     # Supervision and elastic membership are ported: a policy returns the
     # supervised cluster (nothing launches until a job), and elastic
     # membership keeps the JAX package's FEED-only check.
@@ -143,9 +172,6 @@ def test_files_mode_and_remote_errors(pool, tmp_path):
     assert isinstance(sup, supervisor.SupervisedCluster)
     with pytest.raises(ValueError, match="FEED"):
         cluster.run(pool, progs.fail_feed, {}, elastic=True)
-    for kw in (dict(incident_dir=out), dict(slos=["goodput > 0.5"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            cluster.run(pool, progs.fail_feed, {}, **kw)
 
 
 # -- data-parallel training against the JAX Trainer --------------------------

@@ -7,7 +7,8 @@ check runs in a fresh interpreter: import every module of
 nor ``tensorflowonspark_tpu`` (the exact name or a dotted child — the
 port's own name shares that prefix) may be loaded. A static scan of the
 sources (the package, ``chip_smoke.py`` and the port's
-``scripts/torch_flash_ab.py`` and ``scripts/torch_paged_ab.py``, the
+``scripts/torch_*.py`` (the A/B tools, the chaos CLI and the incident
+report among them), the
 node programs the cluster tests hand to spawned executors, and the decode
 functions the data tests hand to decode workers, and the estimator
 programs the pipeline tests hand to executors) backs it up for
@@ -86,7 +87,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "data.batch_cache", "data.image_preprocessing",
                  "export", "pipeline", "tools.model_export",
                  "tools.inference", "tools.generate",
-                 "tools.reservation_client"):
+                 "tools.reservation_client", "incident",
+                 "telemetry.profiling", "telemetry.attribution",
+                 "train.profiler", "testing.load"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -96,8 +99,10 @@ def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "torch_bf16_routes.py"),
              os.path.join(ROOT, "scripts", "torch_block_ab.py"),
+             os.path.join(ROOT, "scripts", "torch_chaos_run.py"),
              os.path.join(ROOT, "scripts", "torch_flash_ab.py"),
              os.path.join(ROOT, "scripts", "torch_fork_scan.py"),
+             os.path.join(ROOT, "scripts", "torch_incident_report.py"),
              os.path.join(ROOT, "scripts", "torch_paged_ab.py"),
              os.path.join(ROOT, "scripts", "torch_shard_run.py"),
              os.path.join(ROOT, "tests", "torch_cluster_programs.py"),

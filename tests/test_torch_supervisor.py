@@ -7,8 +7,10 @@ package's.
   over the cases of ``tests/test_chaos_supervisor.py``.
 * ``cluster.run``'s argument checks: ``checkpoint_dir`` without a policy,
   elastic outside FEED mode or with ps nodes raise ``ValueError``;
-  ``incident_dir`` and ``slos`` raise naming ROADMAP A12; a launch-time
-  config error fails on the first attempt without burning the budget.
+  ``incident_dir`` arms an incident recorder (straggler flags fire it)
+  and ``slos`` an SLO monitor reporting to it, on a plain cluster and
+  through a supervised one's relaunch arguments; a launch-time config
+  error fails on the first attempt without burning the budget.
 * The supervised matrix on the CPU: ``LocalBackend(1)`` and the port's
   ``testing.programs.supervised_linreg_fun`` (device ``"cpu"``) under
   crash, hang (with dropped heartbeats) and corrupt, held to the
@@ -152,7 +154,23 @@ def test_restart_policy_cases_of_the_jax_suite():
 # -- cluster.run's argument checks ------------------------------------------
 
 
-def test_run_argument_checks():
+class _RegisteringBackend:
+    """A backend whose "executors" only register with the rendezvous
+    server: ``cluster.run`` returns a cluster without any process."""
+
+    num_executors = 1
+
+    def foreach_partition(self, partitions, fn, block=True, **kw):
+        from tensorflowonspark_tpu_torch import reservation
+
+        for part in partitions:
+            client = reservation.Client(tuple(fn.cluster_meta["server_addr"]))
+            client.register({"executor_id": part[0], "host": "127.0.0.1",
+                             "job_name": "worker", "task_index": 0})
+            client.close()
+
+
+def test_run_argument_checks(tmp_path):
     fake = type("B", (object,), {"num_executors": 1})()
     with pytest.raises(ValueError, match="checkpoint_dir"):
         cluster.run(fake, progs.square_feed, checkpoint_dir="/nowhere")
@@ -162,13 +180,34 @@ def test_run_argument_checks():
     with pytest.raises(ValueError, match="ps"):
         cluster.run(fake, progs.square_feed, elastic=True, num_ps=1,
                     input_mode=cluster.InputMode.FEED)
-    with pytest.raises(NotImplementedError, match="A12"):
-        cluster.run(fake, progs.square_feed, incident_dir="/nowhere")
-    with pytest.raises(NotImplementedError, match="A12"):
-        cluster.run(fake, progs.square_feed, slos=["x > 1"])
+    incidents = str(tmp_path / "incidents")
+    c = cluster.run(_RegisteringBackend(), progs.square_feed,
+                    input_mode=cluster.InputMode.FEED, reservation_timeout=30,
+                    incident_dir=incidents, slos=["x > 1"])
+    try:
+        from tensorflowonspark_tpu_torch import incident
+
+        assert isinstance(c.incidents, incident.IncidentRecorder)
+        assert c.incidents.root == incidents
+        assert c.server.liveness.incident_cb == c.incidents.trigger
+        monitor = c.history.slo_monitor
+        assert monitor.recorder is c.incidents
+        assert [s.metric for s in monitor.slos] == ["x"]
+    finally:
+        c.server.stop()
+        c.history.set_slos(None)
+    plain = cluster.run(_RegisteringBackend(), progs.square_feed,
+                        input_mode=cluster.InputMode.FEED,
+                        reservation_timeout=30)
+    plain.server.stop()
+    assert plain.incidents is None and plain.capture_incident() is None
     sup = cluster.run(fake, progs.square_feed, restart_policy=RestartPolicy(),
-                      checkpoint_dir="/nowhere")
+                      checkpoint_dir="/nowhere", incident_dir=incidents,
+                      slos=["x > 1"])
     assert isinstance(sup, supervisor.SupervisedCluster)
+    # Every attempt's cluster.run gets them: each attempt arms its own.
+    assert sup._run_kwargs["incident_dir"] == incidents
+    assert sup._run_kwargs["slos"] == ["x > 1"]
     assert sup.report() is None
     sup.shutdown()
 

@@ -81,12 +81,28 @@ def test_prefetch_depth_and_stall_counters(fresh):
 
 
 def test_profiling_is_not_ported(monkeypatch, tmp_path):
+    """The sampler is ported now: ``configure`` starts it as the JAX
+    package's does (``TFOS_PROFILING`` unset or ``1``), heartbeats carry
+    its digest, ``disable`` stops it, and ``TFOS_PROFILING=0`` opts out."""
+    import time
+
+    from tensorflowonspark_tpu_torch.telemetry import profiling
+
     monkeypatch.setenv("TFOS_PROFILING", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        telemetry.configure(node_id="x")
-    telemetry._reset_for_tests()
-    monkeypatch.delenv("TFOS_PROFILING")
+    monkeypatch.setenv("TFOS_PROFILING_HZ", "200")
     rec = telemetry.configure(node_id="x")
     assert telemetry.enabled() and rec is telemetry.get_recorder()
+    assert profiling.running()
+    deadline = time.monotonic() + 10.0
+    while "profile" not in telemetry.node_stats() and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    prof = telemetry.node_stats()["profile"]
+    assert prof["samples"] >= 1 and prof["top"]
+    telemetry.disable()
+    assert not profiling.running()
     assert "profile" not in telemetry.node_stats()
+    monkeypatch.setenv("TFOS_PROFILING", "0")
+    telemetry.configure(node_id="x")
+    assert not profiling.running()
     telemetry._reset_for_tests()

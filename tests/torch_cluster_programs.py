@@ -70,6 +70,28 @@ def write_square_files(args, ctx):
                             "forbidden": forbidden_modules()})
 
 
+def busy_files(args, ctx):
+    """FILES mode, for a live incident capture: record a ``train/step``
+    span and tick the step gauge every 20 ms until ``args["stop"]``
+    exists. Torch is imported first, as a training program has it by the
+    time a capture asks for a profile window."""
+    import time
+
+    import torch  # noqa: F401
+
+    from tensorflowonspark_tpu_torch import telemetry
+
+    step = 0
+    while not os.path.exists(args["stop"]):
+        t0 = time.perf_counter()
+        sum(range(20000))
+        step += 1
+        telemetry.record_span("train/step", time.perf_counter() - t0,
+                              step=step)
+        telemetry.step_tick(step)
+        time.sleep(0.02)
+
+
 def fail_feed(args, ctx):
     """Raise inside the node program after the first batch."""
     df = ctx.get_data_feed(train_mode=False)
