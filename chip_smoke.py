@@ -225,13 +225,16 @@ calls and fails (non-zero exit) if any phase fails:
                against one rank, bf16 losses falling, each rank holding
                half of every expert weight;
    pipe     — ``pipelined_transformer`` at GPT-2-small width, 4 layers,
-               b8 x s1024, flash route, over two gloo ranks on the card:
-               GPipe (2 stages) and interleaved (4 stages, 2 rounds), 4
-               microbatches each: f32 step 1's loss and gradients against
-               one rank on the same weights (the sequential path), bf16
-               losses falling, B1-B3 launches a rank = microbatches x local
-               layers a step, half of every stage parameter a rank, step
-               ms and collective bytes a rank;
+               b8 x s1024 global, flash route, over four gloo ranks on the
+               card: GPipe (2 stages) and interleaved (4 stages, 2 rounds)
+               under (data 2, pipe 2), and GPipe under (pipe 2, tensor 2),
+               (fsdp 2, pipe 2) and (pipe 2, seq 2), 4 microbatches each:
+               f32 step 1's loss and gradients (rebuilt whole from the
+               shards) against one rank on the same weights (the
+               sequential path), bf16 losses falling, B1-B3 launches a
+               rank = microbatches x local layers a step, each stage
+               parameter's share a rank, step ms and collective bytes a
+               rank;
 7. greedy   — engine streams equal solo ``generate`` bitwise at the toy
                fp32 geometry (horizon 1; and horizon 4 with a joining
                request, prefix sharers, a COW duplicate, a swap and a
@@ -5701,6 +5704,15 @@ def _shard_grads(state, names):
             for n in names}
 
 
+def _full_grads(state, names):
+    """Step 1's gradients of ``names``, whole: rebuilt from every rank's
+    shard where the mesh shards the parameter (collective)."""
+    if state.sharding is None:
+        return _shard_grads(state, names)
+    return {n: state.sharding.full(n, state.params[n].grad.detach())
+            .float().cpu() for n in names}
+
+
 def _norms(grads):
     return {n: float(g.norm()) for n, g in grads.items()}
 
@@ -6080,13 +6092,24 @@ MOE_STEPS = 4
 MOE_SHARD_LM = dict(MOE_LM, num_layers=2)
 MOE_GRAD_PARAMS = ("embed.embedding", "block_1.moe.router.kernel",
                    "block_0.attn.qkv.kernel", "ln_f.scale")
-# The pipe phase: two gloo ranks on the card, ``pipelined_transformer`` at
-# GPT-2-small width, 4 layers, b8 x s1024, flash route, no remat.
+# The pipe phase: four gloo ranks on the card, ``pipelined_transformer``
+# at GPT-2-small width, 4 layers, b8 x s1024 global, flash route, no
+# remat: GPipe (2 stages) and interleaved (4 stages, 2 rounds) under (data
+# 2, pipe 2), and GPipe with the pipe axis beside tensor, fsdp and seq.
 PIPE_LM = dict(GPT2_SMALL, num_layers=4, attention_impl="pallas")
-PIPE_CASES = {"gpipe": dict(num_stages=2, num_microbatches=4),
-              "interleaved": dict(num_stages=4, num_rounds=2,
-                                  num_microbatches=4)}
-PIPE_GRAD_PARAMS = ("embed.embedding", "pos_embed", "ln_f.scale")
+_PIPE_GPIPE = dict(num_stages=2, num_microbatches=4)
+PIPE_CASES = {
+    "gpipe": (dict(data=2, pipe=2), _PIPE_GPIPE),
+    "interleaved": (dict(data=2, pipe=2),
+                    dict(num_stages=4, num_rounds=2, num_microbatches=4)),
+    "pipe2_tensor2": (dict(data=1, pipe=2, tensor=2), _PIPE_GPIPE),
+    "fsdp2_pipe2": (dict(data=1, fsdp=2, pipe=2), _PIPE_GPIPE),
+    "pipe2_seq2": (dict(data=1, pipe=2, seq=2), _PIPE_GPIPE),
+}
+# Step 1's gradients held against one rank, rebuilt whole from the shards.
+PIPE_GRAD_PARAMS = ("embed.embedding", "pos_embed", "ln_f.scale", "qkv",
+                    "down")
+PIPE_WORLD = 4
 AXES_WORLD = 2
 
 
@@ -6165,6 +6188,8 @@ def _mesh_steps(torch, name, kw, mesh_kw, dtype, batch, steps, grads=()):
     out = {"losses": [], "aux": [], "ms": [], "launches": [], "bytes": [],
            "held": {k: p.numel() * p.element_size()
                     for k, p in state.params.items()}}
+    rows = tr.batch_placer.rows(len(batch["x"]))
+    batch = {k: v[rows] for k, v in batch.items()}
     for i in range(steps):
         before = dict(fa.launches)
         coll.reset_traffic()
@@ -6177,7 +6202,7 @@ def _mesh_steps(torch, name, kw, mesh_kw, dtype, batch, steps, grads=()):
                                 for n in fa.launches})
         out["bytes"].append(coll.traffic["bytes"])
         if i == 0:
-            out["grads"] = _shard_grads(state, grads)
+            out["grads"] = _full_grads(state, grads)
             out["norms"] = _norms(out["grads"])
     del tr, state, model
     torch.cuda.empty_cache()
@@ -6203,15 +6228,13 @@ def moe_rank(rank, world, port, outdir):
 def _pipe_rank_cases(torch):
     batch = lm_batch(8, 1024, PIPE_LM["vocab_size"])
     out = {}
-    for case, kw in PIPE_CASES.items():
+    for case, (mesh_kw, kw) in PIPE_CASES.items():
         kw = dict(PIPE_LM, **kw)
         out[case] = {
-            "f32": _mesh_steps(torch, "pipelined_transformer", kw,
-                               dict(data=1, pipe=2), torch.float32, batch,
-                               1, PIPE_GRAD_PARAMS),
-            "bf16": _mesh_steps(torch, "pipelined_transformer", kw,
-                                dict(data=1, pipe=2), torch.bfloat16, batch,
-                                SHARD_STEPS)}
+            "f32": _mesh_steps(torch, "pipelined_transformer", kw, mesh_kw,
+                               torch.float32, batch, 1, PIPE_GRAD_PARAMS),
+            "bf16": _mesh_steps(torch, "pipelined_transformer", kw, mesh_kw,
+                                torch.bfloat16, batch, SHARD_STEPS)}
     return out
 
 
@@ -6244,12 +6267,27 @@ def _falling(label, losses):
             label, losses))
 
 
-def _halved(label, held, full, names):
-    for n in names:
-        if 2 * held[n] != full[n]:
-            raise AssertionError("{}: {} holds {} of {} bytes, not half"
-                                 .format(label, n, held[n], full[n]))
-    return sum(held[n] for n in names), sum(full[n] for n in names)
+def _shared(label, held, full, shares):
+    """Raises unless a rank holds ``1 / shares[n]`` of each parameter
+    ``n``'s bytes; returns the bytes held and whole of them all."""
+    for n, k in shares.items():
+        if k * held[n] != full[n]:
+            raise AssertionError("{}: {} holds {} of {} bytes, not 1/{}"
+                                 .format(label, n, held[n], full[n], k))
+    return sum(held[n] for n in shares), sum(full[n] for n in shares)
+
+
+def _stage_shares(mesh_kw):
+    """How many ways each stage parameter of the pipelined LM splits under
+    ``mesh_kw``: stages over pipe, heads and MLP columns over tensor,
+    ``embed`` over fsdp (the layer norms included)."""
+    from tensorflowonspark_tpu_torch.models import pipelined
+
+    pipe, tensor, fsdp = (mesh_kw.get(a, 1) for a in ("pipe", "tensor",
+                                                      "fsdp"))
+    return {k: pipe * fsdp * (tensor if k in ("qkv", "attn_out", "up",
+                                              "down") else 1)
+            for k in pipelined.STAGE_PARAM_KEYS}
 
 
 class _routing:
@@ -6533,8 +6571,9 @@ def moe_phase(torch, fa, pa, card):
         worst = max(worst, _f32_against("expert=2 rank {}".format(idx),
                                         r["f32"], ref))
         _falling("expert=2 rank {}".format(idx), r["bf16"]["losses"])
-        held, full = _halved("expert=2 rank {}".format(idx),
-                             r["bf16"]["held"], ref["held"], experts)
+        held, full = _shared("expert=2 rank {}".format(idx),
+                             r["bf16"]["held"], ref["held"],
+                             dict.fromkeys(experts, 2))
         want = dict.fromkeys(fa.launches, MOE_SHARD_LM["num_layers"])
         for counts in r["f32"]["launches"] + r["bf16"]["launches"]:
             if counts != want:
@@ -6561,29 +6600,37 @@ def moe_phase(torch, fa, pa, card):
 
 
 def pipe_phase(torch, fa, card):
-    """Phase ``pipe``: two gloo ranks on the card, the pipelined LM at
-    GPT-2-small width and 4 layers, b8 x s1024, GPipe (2 stages) and
-    interleaved (4 stages, 2 rounds), 4 microbatches: f32 step 1 against
-    one rank on the same weights (the sequential path), bf16 losses
-    falling, B1-B3 launches a rank = microbatches x local layers a step,
-    stage bytes a rank half. Returns the ranks' B1-B3 launches."""
+    """Phase ``pipe``: four gloo ranks on the card, the pipelined LM at
+    GPT-2-small width and 4 layers, b8 x s1024 global, 4 microbatches, the
+    flash route: GPipe (2 stages) and interleaved (4 stages, 2 rounds)
+    under (data 2, pipe 2), and GPipe under (pipe 2, tensor 2), (fsdp 2,
+    pipe 2) and (pipe 2, seq 2), where B1-B3 run on a rank's heads, on a
+    rank's rows, and over the whole row gathered from the seq pair. Each
+    case: f32 step 1 against one rank on the same weights (the sequential
+    path), gradients rebuilt whole from the shards; bf16 losses falling;
+    B1-B3 launches a rank = microbatches x local layers a step; each stage
+    parameter's bytes a rank its share. Returns the ranks' B1-B3
+    launches."""
     import tempfile
-
-    from tensorflowonspark_tpu_torch.models import pipelined
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = _run_group(torch, pipe_rank, tmp)
+        ranks = _run_group(torch, pipe_rank, tmp, world=PIPE_WORLD)
     group_s = time.perf_counter() - t0
     batch = lm_batch(8, 1024, PIPE_LM["vocab_size"])
     launches = dict.fromkeys(fa.launches, 0)
     f32_launches = 0
-    for case, kw in PIPE_CASES.items():
+    refs = {}
+    for case, (mesh_kw, kw) in PIPE_CASES.items():
         kw = dict(PIPE_LM, **kw)
-        ref = _mesh_steps(torch, "pipelined_transformer", kw, None,
-                          torch.float32, batch, 1, PIPE_GRAD_PARAMS)
-        local = PIPE_LM["num_layers"] // AXES_WORLD
+        key = tuple(sorted(kw.items()))
+        if key not in refs:
+            refs[key] = _mesh_steps(torch, "pipelined_transformer", kw, None,
+                                    torch.float32, batch, 1,
+                                    PIPE_GRAD_PARAMS)
+        ref = refs[key]
+        local = PIPE_LM["num_layers"] // mesh_kw["pipe"]
         # Each layer runs once a microbatch (parallel/pipeline.py).
         want = dict.fromkeys(fa.launches, kw["num_microbatches"] * local)
         worst = 0.0
@@ -6592,8 +6639,8 @@ def pipe_phase(torch, fa, card):
             label = "pipe {} rank {}".format(case, idx)
             worst = max(worst, _f32_against(label, got["f32"], ref))
             _falling(label, got["bf16"]["losses"])
-            held, full = _halved(label, got["bf16"]["held"], ref["held"],
-                                 pipelined.STAGE_PARAM_KEYS)
+            held, full = _shared(label, got["bf16"]["held"], ref["held"],
+                                 _stage_shares(mesh_kw))
             for counts in got["f32"]["launches"] + got["bf16"]["launches"]:
                 if counts != want:
                     raise AssertionError("{} launched {}; the schedule "
@@ -6604,21 +6651,21 @@ def pipe_phase(torch, fa, card):
             f32_launches += sum(c["flash_fwd"]
                                 for c in got["f32"]["launches"])
         r0 = ranks[0][case]
-        log("pipe   {} {}: GPT-2-small width {} layers b8 s1024, {} "
+        log("pipe   {} {} {}: GPT-2-small width {} layers b8 s1024, {} "
             "microbatches: f32 step 1 loss {:.6f} against one rank {:.6f}, "
             "gradients and norms within {:.2e}; bf16 losses {}; B1-B3 {} a "
             "step a rank; stage bytes a rank {} of {}; step ms a rank {}; "
-            "collective bytes a rank a step {}".format(
-                case, {k: v for k, v in kw.items()
-                       if k in ("num_stages", "num_rounds")},
+            "collective bytes a rank a step {}; on {}".format(
+                case, mesh_kw, {k: v for k, v in kw.items()
+                                if k in ("num_stages", "num_rounds")},
                 PIPE_LM["num_layers"], kw["num_microbatches"],
                 r0["f32"]["losses"][0], ref["losses"][0], worst,
                 ["{:.5f}".format(x) for x in r0["bf16"]["losses"]],
                 want["flash_fwd"], held, full,
                 [["{:.1f}".format(x) for x in r[case]["bf16"]["ms"]]
-                 for r in ranks], r0["bf16"]["bytes"]))
+                 for r in ranks], r0["bf16"]["bytes"], card))
     log("pipe   phase {:.1f} s (ranks {:.1f} s) on {}; B1-B3 launches of "
-        "both ranks {} (each: {} of the f32 kernels, in the f32 steps)"
+        "the four ranks {} (each: {} of the f32 kernels, in the f32 steps)"
         .format(time.perf_counter() - t0, group_s, card, launches,
                 f32_launches))
     return launches

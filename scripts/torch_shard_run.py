@@ -17,7 +17,11 @@ four times, through ``Trainer.train_step`` over
   microbatches: GPipe over 4 stages, and interleaved over 12 stages in 3
   rounds;
 * ``moe_expert``  — (v) ``bench.py``'s ``bench_moe`` model (8 experts,
-  every other layer MoE, flash route) under ``expert=4``, b8 x s1024.
+  every other layer MoE, flash route) under ``expert=4``, b8 x s1024;
+* ``pipe_tensor`` — (vi) ``pipe=2, tensor=2``, ``pipelined_transformer``
+  on the flash route, b8 x s1024, GPipe over 2 stages with 8
+  microbatches: each stage's blocks Megatron's column/row pair on 6 heads
+  and 1536 MLP columns a rank.
 
 For each case every rank records its losses (finite and falling is
 required), its step time by CUDA events, its peak memory, its B1-B3
@@ -81,6 +85,13 @@ CASES = {
                        model=dict(attention_impl="pallas", num_experts=8,
                                   moe_every=2),
                        batch=8, seq=1024),
+    # The vocabulary splits over tensor: its norm is a rank's slab's.
+    "pipe_tensor": dict(mesh=dict(data=1, pipe=2, tensor=2),
+                        name="pipelined_transformer",
+                        model=dict(attention_impl="pallas", num_stages=2,
+                                   num_microbatches=8),
+                        batch=8, seq=1024,
+                        norms=("ln_f.scale", "pos_embed")),
 }
 LR = 3e-4
 # Step 1 against the one-card trainer: the bf16 loss; in f32 the loss and
@@ -98,7 +109,7 @@ CASE_NORM_PARAMS = {
 
 
 def _norm_params(c):
-    return CASE_NORM_PARAMS.get(c.get("name"), NORM_PARAMS)
+    return c.get("norms") or CASE_NORM_PARAMS.get(c.get("name"), NORM_PARAMS)
 
 
 def log(*args):

@@ -20,6 +20,31 @@ The embedding, positions, final norm and tied head are
 :class:`~.transformer.TransformerLM`'s; only :meth:`apply_blocks` differs.
 Decode, GQA and ``segment_ids`` raise, as they do in JAX.
 
+Beside one other model axis (``parallel.mesh`` refuses two), as the JAX
+package's ``shard_map`` runs manual over ``pipe`` with the other axes left
+to XLA:
+
+* ``tensor``: the block is Megatron's column/row pair, as the dense LM's
+  blocks are: ``qkv`` on ``h / t`` heads and ``up`` on ``mlp / t``
+  columns, each behind :func:`~..parallel.collectives.copy_to_group`;
+  ``attn_out`` and ``down`` row-parallel, their partial products summed
+  over the tensor group in f32; the layer norms whole;
+* ``fsdp``: the rank's stage slices (every stage parameter has an
+  ``embed`` axis) are gathered over fsdp once a forward, before the
+  schedule, so no fsdp collective runs inside its steps; the gather's
+  backward sums and scatters their gradients once, after it;
+* ``seq``: each rank runs its chunk of the sequence through the stages,
+  and ``dense`` and ``pallas`` attention attend over the whole row
+  (``ops.attention.gathered_causal_attention``); ``ring``, ``ring_flash``
+  and ``ulysses`` inside a stage raise, as the JAX package raises there;
+* ``expert``: the model holds no expert parameter and the batch does not
+  split over ``expert``, so expert ranks are replicas.
+
+Every rank of a tensor, fsdp or seq group shares its pipe coordinate and so
+runs the same schedule steps: the collectives inside a stage (tensor sums,
+seq gathers, and their transposes, recomputed under ``remat``) are issued
+in one order by every peer.
+
 Initializers follow flax's ``he_normal(in_axis=-2, out_axis=-1)`` on the
 stacked shapes, which counts every leading axis into the fan-in: a block
 kernel's fan-in is its element count over its last dimension (``qkv``
@@ -37,9 +62,10 @@ from torch.utils.checkpoint import checkpoint
 from tensorflowonspark_tpu_torch.initializers import truncated_normal_
 from tensorflowonspark_tpu_torch.models import transformer as transformer_lib
 from tensorflowonspark_tpu_torch.ops import attention as attention_ops
-from tensorflowonspark_tpu_torch.ops import flash_attention
+from tensorflowonspark_tpu_torch.parallel import collectives as coll
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowonspark_tpu_torch.parallel import pipeline as pp
+from tensorflowonspark_tpu_torch.parallel.sharding import weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,26 +87,31 @@ def _layer_norm(x, scale, bias, eps=1e-6):
     return (y * scale + bias).to(x.dtype)
 
 
-def _block_apply(p, x, cfg):
-    """One transformer block, functional (the JAX ``_block_apply``)."""
+def _block_apply(p, x, cfg, attn_group=None, mlp_group=None):
+    """One transformer block, functional (the JAX ``_block_apply``). Under
+    tensor parallelism ``p`` holds the rank's heads and MLP columns, and
+    ``attn_group``/``mlp_group`` are the tensor group of each half."""
     dt = cfg.dtype
     b, s, m = x.shape
     h = p["qkv"].shape[-2]
-    y = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+    y = coll.copy_to_group(_layer_norm(x, p["ln1_scale"], p["ln1_bias"]),
+                           attn_group)
     qkv = (y @ p["qkv"].to(dt).reshape(m, -1)).view(b, s, 3, h, -1)
     if cfg.attention_impl == "pallas":
         # The flash route's head-major layout, as the dense LM's.
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-        out = flash_attention.flash_attention_head_major(q, k, v)
-        out = out.transpose(1, 2)
+        out = attention_ops.head_major_attention(q, k, v).transpose(1, 2)
     else:
         out = attention_ops.causal_attention(
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
             impl=cfg.attention_impl)
-    x = x + out.reshape(b, s, -1) @ p["attn_out"].to(dt).reshape(-1, m)
-    y = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+    x = x + transformer_lib._tp_sum(
+        out.reshape(b, s, -1) @ p["attn_out"].to(dt).reshape(-1, m),
+        attn_group)
+    y = coll.copy_to_group(_layer_norm(x, p["ln2_scale"], p["ln2_bias"]),
+                           mlp_group)
     hid = F.gelu(y @ p["up"].to(dt), approximate="tanh")
-    return x + hid @ p["down"].to(dt)
+    return x + transformer_lib._tp_sum(hid @ p["down"].to(dt), mlp_group)
 
 
 def _stage_shapes(cfg):
@@ -156,19 +187,35 @@ class PipelinedTransformerLM(transformer_lib.TransformerLM):
             axes[key] = ("round", "stage", "layers") + logical
         return axes
 
+    # The dimension of each stacked stage parameter that tensor shards:
+    # its own (heads, mlp) after the leading (round, stage, layers).
+    _TENSOR_DIMS = dict(transformer_lib.TransformerLM._TENSOR_DIMS,
+                        qkv=5, attn_out=3, up=4, down=3)
+    # The tensor group of the block's attention and of its MLP (None: the
+    # whole heads and columns here).
+    _attn_group = _mlp_group = None
+
     def apply_sharding(self, sharding):
-        self._sharding = sharding
-        self._mesh = None if sharding is None else sharding.mesh
+        """The dense LM's layout (embedding, positions, an fsdp gather of
+        each fsdp-sharded parameter, stage parameters included), plus the
+        tensor group of each half of the block."""
+        super().apply_sharding(sharding)
+        self._attn_group = self._mlp_group = None
         if sharding is None:
             return
-        _pipe_degree(self.cfg, sharding.mesh)
-        for name in sharding.sharded_names:
-            axes = {a for spec in sharding.layouts[name].spec for a in spec}
-            if axes - {"pipe"}:
-                raise NotImplementedError(
-                    "{}: the pipelined LM shards its stages over pipe "
-                    "only, not {} (ROADMAP A10c)".format(name,
-                                                         sorted(axes)))
+        cfg = self.cfg
+        _pipe_degree(cfg, sharding.mesh)
+        tensor = sharding.mesh.shape["tensor"]
+        if sharding.tensor_dims("qkv"):
+            if cfg.num_heads % tensor:
+                raise ValueError("tensor={} does not divide the {} attention "
+                                 "heads".format(tensor, cfg.num_heads))
+            self._attn_group = sharding.tensor_group
+        if sharding.tensor_dims("up"):
+            if cfg.mlp_dim % tensor:
+                raise ValueError("tensor={} does not divide mlp_dim "
+                                 "{}".format(tensor, cfg.mlp_dim))
+            self._mlp_group = sharding.tensor_group
 
     def _forward(self, tokens, segment_ids, decode, *args):
         cfg = self.cfg
@@ -187,24 +234,37 @@ class PipelinedTransformerLM(transformer_lib.TransformerLM):
     def apply_blocks(self, x, segment_ids=None, decode=False, pages=None,
                      seq_lens=None, cache=None, verify=False):
         cfg = self.cfg
+        if (cfg.attention_impl in attention_ops._SEQUENCE_PARALLEL
+                and attention_ops.seq_axis_size() > 1):
+            raise NotImplementedError(
+                "attention_impl={!r} inside a pipeline stage under a seq "
+                "axis: the JAX package raises there too; the pipelined LM "
+                "takes 'dense' or 'pallas' under seq".format(
+                    cfg.attention_impl))
         layers = cfg.num_layers // cfg.num_stages
         remat = cfg.remat and torch.is_grad_enabled()
+        groups = (self._attn_group, self._mlp_group)
 
         def stage_fn(params, x):
             for i in range(layers):
                 p_i = {k: a[i] for k, a in params.items()}
                 if remat:
-                    x = checkpoint(_block_apply, p_i, x, cfg,
-                                   use_reentrant=False)
+                    # Every peer recomputes the whole block, collectives
+                    # included, in one order: no early stop.
+                    with torch.utils.checkpoint.set_checkpoint_early_stop(
+                            False):
+                        x = checkpoint(_block_apply, p_i, x, cfg, *groups,
+                                       use_reentrant=False)
                 else:
-                    x = _block_apply(p_i, x, cfg)
+                    x = _block_apply(p_i, x, cfg, *groups)
             return x
 
         # This model's rows as the factored (v, n, g, ...) layout, or the
-        # rank's (v, 1, g, ...) shard of it when axis 1 is sharded.
+        # rank's (v, 1, g, ...) shard of it when axis 1 is sharded; fsdp
+        # shards gathered here, once, outside the schedule's steps.
         g = cfg.num_stages // (
             cfg.num_rounds * _pipe_degree(cfg, mesh_lib.current_mesh()))
-        stage_params = {k: getattr(self, k).unflatten(1, (-1, g))
+        stage_params = {k: weight(self, k).unflatten(1, (-1, g))
                         for k in STAGE_PARAM_KEYS}
         return pp.pipeline(stage_fn, stage_params, x, cfg.num_microbatches,
                            num_rounds=cfg.num_rounds, factored=True)

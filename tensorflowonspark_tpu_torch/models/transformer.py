@@ -43,7 +43,8 @@ cross-entropy. Tensor-group sums run in f32. Under a ``seq`` axis each rank
 holds its chunk of the sequence: positions are offset by the chunk's start
 (or ride ``ring_layout="zigzag"``'s permutation), packed positions are
 derived from the whole row's segment ids, and attention runs the
-sequence-parallel route the config names.
+sequence-parallel route the config names (``dense`` and ``pallas`` over
+the whole row, gathered: ``ops.attention.gathered_causal_attention``).
 """
 
 import dataclasses
@@ -56,7 +57,6 @@ from torch.utils.checkpoint import checkpoint
 from tensorflowonspark_tpu_torch import device_info
 from tensorflowonspark_tpu_torch.initializers import truncated_normal_
 from tensorflowonspark_tpu_torch.ops import attention as attention_ops
-from tensorflowonspark_tpu_torch.ops import flash_attention
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa_ops
 from tensorflowonspark_tpu_torch.parallel import collectives as coll
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
@@ -386,7 +386,7 @@ class Attention(nn.Module):
                     "decode mode does not support segment_ids")
             out = self._decode_step(q, k, v, cache, pages, seq_lens, verify)
         elif head_major:
-            out = flash_attention.flash_attention_head_major(
+            out = attention_ops.head_major_attention(
                 q, k, v, segment_ids=segment_ids)
             return self.out(out, head_major=True)
         else:

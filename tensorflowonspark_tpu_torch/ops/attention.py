@@ -30,6 +30,13 @@ A ring anchors its last received blocks in the output
 every rank runs every ring step's backward exchange, also where its fold
 skipped a block. A seq group of size 1 (or none) falls back to dense
 attention, as the JAX dispatcher does.
+
+``dense`` and ``pallas`` under a seq group of size ``n > 1``
+(:func:`gathered_causal_attention`) attend over the whole row, as XLA's
+partitioner runs the JAX package's dense and flash routes under a seq
+axis: dense gathers K and V and masks causally from the chunk's start;
+the flash route gathers Q, K and V, runs B1-B3 over the whole row and
+keeps the rank's rows (each rank computes the whole row: ``n``-fold work).
 """
 
 import math
@@ -86,15 +93,17 @@ def causal_attention(q, k, v, impl="dense", segment_ids=None,
     and ``"ulysses"`` over ``group`` (default: the ambient mesh's seq
     group). With no seq group, or one of size 1, the sequence-parallel
     routes fall back to dense, as the JAX dispatcher does; a one-rank
-    zigzag permutation is the identity."""
+    zigzag permutation is the identity. Under a larger seq group
+    ``"dense"`` and ``"pallas"`` attend over the whole row
+    (:func:`gathered_causal_attention`)."""
     check_impl(impl, ring_layout)
-    if impl == "dense":
-        return dense_causal_attention(q, k, v, segment_ids=segment_ids)
+    group = group if group is not None else seq_group()
+    if coll.size(group) > 1 and impl in ("dense", "pallas"):
+        return gathered_causal_attention(q, k, v, group, impl, segment_ids)
     if impl == "pallas":
         return flash_attention.flash_causal_attention(
             q, k, v, segment_ids=segment_ids)
-    group = group if group is not None else seq_group()
-    if coll.size(group) == 1:
+    if impl == "dense" or coll.size(group) == 1:
         return dense_causal_attention(q, k, v, segment_ids=segment_ids)
     if impl == "ring":
         return ring_causal_attention(q, k, v, group, segment_ids)
@@ -102,6 +111,51 @@ def causal_attention(q, k, v, impl="dense", segment_ids=None,
         return ulysses_causal_attention(q, k, v, group, segment_ids)
     return ring_flash_attention(q, k, v, group, segment_ids,
                                 layout=ring_layout)
+
+
+def head_major_attention(q, k, v, segment_ids=None, group=None):
+    """The flash route on head-major operands (``q`` (b, h, s, d),
+    ``k``/``v`` (b, h_kv, s, d), the projections' zero-relayout layout),
+    over the whole row under a seq group (default the ambient mesh's) of
+    size > 1."""
+    group = group if group is not None else seq_group()
+    if coll.size(group) > 1:
+        return gathered_causal_attention(q, k, v, group, "pallas",
+                                         segment_ids, head_major=True)
+    return flash_attention.flash_attention_head_major(
+        q, k, v, segment_ids=segment_ids)
+
+
+def gathered_causal_attention(q, k, v, group, impl="dense",
+                              segment_ids=None, head_major=False):
+    """Causal attention over the whole row from this rank's chunk of it,
+    for the routes that ride no ring: ``impl="dense"`` gathers K and V
+    along the sequence over ``group`` (:func:`~.collectives.all_gather`,
+    whose backward reduce-scatters the cotangents) and the segment ids,
+    and attends from the local queries with the causal mask offset by the
+    chunk's start. ``impl="pallas"``: B1-B3 take no query offset, so Q is
+    gathered too, the kernels run over the whole row, and the rank keeps
+    its rows; every rank of the group computes the whole row's attention.
+    ``head_major``: (b, h, s, d) operands (the flash route only)."""
+    idx = coll.rank(group)
+    dim = 2 if head_major else 1
+    s_local = q.shape[dim]
+    row_segments = (None if segment_ids is None
+                    else coll.gather_cat(segment_ids.contiguous(), group, 1))
+    k_row = coll.all_gather(k, group, dim)
+    v_row = coll.all_gather(v, group, dim)
+    if impl == "dense":
+        return dense_causal_attention(q, k_row, v_row, segment_ids,
+                                      kv_segment_ids=row_segments,
+                                      q_offset=idx * s_local)
+    q_row = coll.all_gather(q, group, dim)
+    if head_major:
+        out = flash_attention.flash_attention_head_major(
+            q_row, k_row, v_row, segment_ids=row_segments)
+    else:
+        out = flash_attention.flash_causal_attention(
+            q_row, k_row, v_row, segment_ids=row_segments)
+    return out.narrow(dim, idx * s_local, s_local)
 
 
 def _expand_kv(q, k, v):
@@ -126,21 +180,26 @@ def _segment_mask(q_seg, k_seg):
     return (same & valid)[:, None]
 
 
-def dense_causal_attention(q, k, v, segment_ids=None):
+def dense_causal_attention(q, k, v, segment_ids=None, kv_segment_ids=None,
+                           q_offset=0):
     """Full (S, S) score matrix, f32 softmax.
 
     Scores are computed in the operand dtype and then upcast, masked with
     an explicit ``where`` at ``-1e30``; probabilities are cast back to the
     operand dtype for the PV product — the JAX reference's rounding points.
+    ``q_offset``: the queries' position in the keys' row (a sequence
+    chunk's start), with the keys' own segment ids in ``kv_segment_ids``.
     """
     k, v = _expand_kv(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     s_q, s_k = logits.shape[-2], logits.shape[-1]
     mask = torch.ones((s_q, s_k), dtype=torch.bool,
-                      device=q.device).tril()[None, None]
+                      device=q.device).tril(q_offset)[None, None]
     if segment_ids is not None:
-        mask = mask & _segment_mask(segment_ids, segment_ids)
+        mask = mask & _segment_mask(
+            segment_ids,
+            segment_ids if kv_segment_ids is None else kv_segment_ids)
     logits = torch.where(mask, logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)

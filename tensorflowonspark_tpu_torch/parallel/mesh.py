@@ -20,12 +20,15 @@ Every axis may exceed 1. ``pipe`` carries pipeline parallelism
 (:mod:`.pipeline`, ``models/pipelined.py``) and ``expert`` the MoE LM's
 experts (``models/moe.py``). Compositions the port does not yet hold
 against the JAX package raise ``NotImplementedError`` naming their ROADMAP
-item (:data:`UNCHECKED_COMPOSITIONS`): ``pipe`` and ``expert`` each compose
-with ``data`` only. The logical-axis rules (:data:`DEFAULT_RULES`,
-:func:`use_rules`, :func:`active_rules`) and their resolution
-(:func:`resolve_spec`, size-1 axes dropped) are the JAX package's; where
-JAX turns a spec into a ``NamedSharding``, the port slices each parameter
-to the rank's shard (:mod:`.sharding`).
+item (:data:`UNCHECKED_COMPOSITIONS`, :data:`PIPE_MODEL_AXES`):
+``expert`` composes with ``data`` and ``pipe`` only, and ``pipe`` with
+``data`` and at most one of ``fsdp``, ``seq``, ``tensor`` and ``expert``.
+Each fsdp, seq or tensor group then lies inside one pipe stage: its ranks
+share the pipe coordinate, and so the pipeline's steps. The logical-axis
+rules (:data:`DEFAULT_RULES`, :func:`use_rules`, :func:`active_rules`)
+and their resolution (:func:`resolve_spec`, size-1 axes dropped) are the
+JAX package's; where JAX turns a spec into a ``NamedSharding``, the port
+slices each parameter to the rank's shard (:mod:`.sharding`).
 """
 
 import contextlib
@@ -70,11 +73,12 @@ GROUP_AXES = (
 # Axis pairs that build in the JAX package but that the port has not held
 # against it: each raises, naming the ROADMAP item that would.
 UNCHECKED_COMPOSITIONS = {
-    ("fsdp", "pipe"): "A10c", ("pipe", "seq"): "A10c",
-    ("pipe", "tensor"): "A10c", ("pipe", "expert"): "A10c",
     ("fsdp", "expert"): "A11c", ("expert", "seq"): "A11c",
     ("expert", "tensor"): "A11c",
 }
+# ``pipe`` composes with one of these at a time (each pair is held against
+# the JAX package); beside two or more it raises, naming ROADMAP A10d.
+PIPE_MODEL_AXES = ("fsdp", "expert", "seq", "tensor")
 
 _ambient = threading.local()
 
@@ -198,6 +202,14 @@ class MeshConfig:
 
 def _check_compositions(sizes):
     live = {a for a, n in zip(AXES, sizes) if n > 1}
+    beside = [a for a in PIPE_MODEL_AXES if a in live]
+    if "pipe" in live and len(beside) > 1:
+        raise NotImplementedError(
+            "mesh axis pipe={} beside {}: pipe composes with one of {} at "
+            "a time; more is not held against the JAX package yet (ROADMAP "
+            "A10d)".format(sizes[AXES.index("pipe")], ", ".join(
+                "{}={}".format(a, sizes[AXES.index(a)]) for a in beside),
+                "/".join(PIPE_MODEL_AXES)))
     for (a, b), item in UNCHECKED_COMPOSITIONS.items():
         if a in live and b in live:
             raise NotImplementedError(

@@ -372,7 +372,9 @@ class Trainer:
         over fsdp; the tensor pairs; the ring's exchanges) deliver each
         rank the gradient of the summands it touched; then one SUM
         all-reduce over the ``data x fsdp x seq`` group (``data x seq``
-        for fsdp-gathered shards) sums the gradients, and the losses and
+        for fsdp-gathered shards; never over ``pipe`` or ``expert``, whose
+        ranks hold other stages or experts, or are replicas that computed
+        the same gradient) sums the gradients, and the losses and
         mask sums are summed alike; gradients and loss are divided by
         the global mask sum (``max(., 1)``, or ``1e-6`` under
         ``grad_accum`` as the JAX scan clamps). A rank on a lockstep zero

@@ -5,8 +5,10 @@ Sizes, the wildcard and its errors as the JAX ``MeshConfig``; rank ``r``
 at the coordinate of JAX device ``r`` in ``MeshConfig(...).build(
 jax.devices()[:4])``; spec resolution equal to ``_resolve_spec`` on
 ``DEFAULT_RULES``; each rank's parameter shard and batch rows equal to
-what JAX places on device ``r``; the compositions of ``pipe`` and
-``expert`` not yet held against JAX raise, naming their ROADMAP items.
+what JAX places on device ``r``, the pipelined LM's stage parameters
+under ``pipe`` beside ``tensor`` and ``fsdp`` included; the compositions
+of ``pipe`` and ``expert`` not yet held against JAX raise, naming their
+ROADMAP items.
 Rank coordinates need no process group: a ``ProcessMesh`` built for rank
 ``r`` in one process has no groups but the same geometry.
 """
@@ -73,17 +75,44 @@ def test_mesh_config_sizes_wildcard_and_errors():
 
 @pytest.mark.parametrize("axis,item", [("pipe", "A10"), ("expert", "A11")])
 def test_pipe_and_expert_raise_naming_their_items(axis, item):
-    """``pipe`` and ``expert`` compose with ``data`` only: every other
-    pairing raises, naming the ROADMAP item that would hold it against
-    JAX; alone they need their ranks, as any axis does."""
+    """``expert`` composes with ``data`` and ``pipe`` only: beside fsdp,
+    seq or tensor it raises naming A11c. ``pipe`` composes with ``data``
+    and one of fsdp, seq, tensor and expert (those pairs only need their
+    ranks, as any axis does); beside two of them it raises naming A10d,
+    which the pair checks alone would let through."""
     for other in ("fsdp", "seq", "tensor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP " + item):
-            MeshConfig(data=1, **{axis: 2, other: 2}).build()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        kw = dict(data=1, **{axis: 2, other: 2})
+        if axis == "expert":
+            with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
+                MeshConfig(**kw).build()
+        else:
+            with pytest.raises(ValueError, match="needs 4 devices"):
+                MeshConfig(**kw).build()
+            for data in (2, -1):
+                with pytest.raises(ValueError, match="devices"):
+                    MeshConfig(**dict(kw, data=data)).build()
+            with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
+                MeshConfig(**dict(kw, expert=2)).build()
+    with pytest.raises(ValueError, match="needs 4 devices"):
         MeshConfig(data=1, pipe=2, expert=2).build()
     with pytest.raises(ValueError, match="needs 2 devices"):
         MeshConfig(data=1, **{axis: 2}).build()
     assert MeshConfig(data=1, **{axis: -1}).build().shape[axis] == 1
+
+
+@pytest.mark.parametrize("axes", [("fsdp", "tensor"), ("seq", "tensor"),
+                                  ("fsdp", "seq"), ("tensor", "expert"),
+                                  ("fsdp", "seq", "tensor")])
+def test_pipe_beside_two_model_axes_raises_naming_a10d(axes):
+    kw = dict(data=1, pipe=2, **{a: 2 for a in axes})
+    with pytest.raises(NotImplementedError, match="ROADMAP A10d") as err:
+        MeshConfig(**kw).build()
+    for a in axes:
+        assert "{}=2".format(a) in str(err.value)
+    # The sizes a wildcard resolves to are checked too.
+    with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
+        mesh_lib._check_compositions(MeshConfig(**dict(
+            kw, data=-1)).sizes(2 ** (len(axes) + 1)))
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))
@@ -248,3 +277,51 @@ def test_params_for_mesh_are_the_jax_shards_of_the_flax_params():
                         if s.device.id == r]
             np.testing.assert_array_equal(local[name].numpy(),
                                           np.asarray(shard.data))
+
+
+PIPE_MESHES = {"pipe2_tensor2": dict(data=1, pipe=2, tensor=2),
+               "fsdp2_pipe2": dict(data=1, fsdp=2, pipe=2)}
+
+
+@pytest.mark.parametrize("name", sorted(PIPE_MESHES))
+def test_pipelined_stage_shards_are_the_jax_device_shards(name):
+    """The pipelined LM's parameters under ``pipe`` beside ``tensor`` or
+    ``fsdp``: each stage parameter sharded on two dimensions at once. The
+    JAX layout ``(v, n, g, l, ...)`` (logical ``round, stage, chunk,
+    layers``) merges to the port's ``(v, n*g, l, ...)``; every rank's
+    shard is device ``r``'s, and the shards rebuild the full tensors."""
+    jm, ranks = _meshes(PIPE_MESHES[name])
+    model = factory.get_model("pipelined_transformer", device="cpu",
+                              dtype=torch.float32, num_stages=2,
+                              num_microbatches=2,
+                              **dict(LM_KW, num_layers=4))
+    axes = model.param_axes()
+    layouts = [sharding.ModelSharding(model, mesh) for mesh in ranks]
+    for pname, tensor in model.state_dict().items():
+        logical = axes.get(pname, (None,) * tensor.dim())
+        full = tensor.numpy()
+        if logical[:3] == ("round", "stage", "layers"):
+            n = jm.shape["pipe"]
+            full = full.reshape((full.shape[0], n, full.shape[1] // n)
+                                + full.shape[2:])
+            logical = ("round", "stage", "chunk") + logical[2:]
+        spec = jax_mesh.logical_sharding(jm, logical).spec
+        arr = jax.device_put(jnp.asarray(full), NamedSharding(jm, spec))
+        shards = []
+        for r, lay in enumerate(layouts):
+            (shard,) = [s for s in arr.addressable_shards
+                        if s.device.id == r]
+            got = lay.local(pname, tensor)
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(shard.data).reshape(got.shape))
+            shards.append(got)
+        # ModelSharding.full's placement, rank by rank, without a group.
+        lay = layouts[0].layouts[pname]
+        out = torch.zeros(lay.shape)
+        for r, got in enumerate(shards):
+            index = tuple(
+                slice(ranks[0].index(a, r) * c, (ranks[0].index(a, r) + 1)
+                      * c) if a else slice(None)
+                for a, c in zip(lay.spec, lay.chunk))
+            out[index] = got
+        assert torch.equal(out, tensor), pname

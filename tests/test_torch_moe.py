@@ -7,9 +7,10 @@ expert 0, capacity 3) and with k=1: dispatch bitwise, combine to 1e-6;
 given picks (teacher-forced routing) route as those picks do.
 The LM (2 layers, layer 1 MoE with 4 experts, embed 32, f32): the forward
 of the JAX init and its sown load-balance loss; three AdamW (1e-3) steps
-in one process and under (data 2, expert 2) on four gloo ranks
-(``torch_shard_programs.moe_cases``, once per session) against the JAX
-``Trainer`` on the same mesh, ``metrics["aux_loss"]`` included, to the
+in one process, under (data 2, expert 2) and under (pipe 2, expert 2) on
+four gloo ranks (``torch_shard_programs.moe_cases``, once per session;
+the MoE LM holds no stage axis, so its pipe ranks are replicas, as in
+JAX) against the JAX ``Trainer`` on the same mesh, ``metrics["aux_loss"]`` included, to the
 sharded-trainer file's rules (1e-5; 3 lr where step 1's JAX gradient is
 below 1e-7); eval leaves the aux term out; greedy ``generate`` emits
 exactly JAX's tokens, and the port's engine streams equal solo
@@ -266,8 +267,7 @@ def test_three_adamw_steps_in_one_process_match_jax_trainer():
     assert not any("loss" in k for k in state.model_state)
 
 
-def test_data2_expert2_trains_as_jax_trainer(group):
-    (case,) = progs.MOE_CASES
+def _check_expert_run(group, case):
     want = _jax_run(progs.MOE_CASES[case], 4)
     got = progs.case_result(group["ranks"], case)
     _check_trained(got, want, case)
@@ -280,6 +280,16 @@ def test_data2_expert2_trains_as_jax_trainer(group):
                 assert held * 2 == arr.nbytes, name
             else:
                 assert held == arr.nbytes, name
+
+
+def test_data2_expert2_trains_as_jax_trainer(group):
+    _check_expert_run(group, "data2_expert2")
+
+
+def test_pipe2_expert2_trains_as_jax_trainer(group):
+    """Pipe ranks of the MoE LM are replicas: every rank trains the whole
+    batch and holds half of the experts, as under (data 1, expert 2)."""
+    _check_expert_run(group, "pipe2_expert2")
 
 
 def test_eval_leaves_the_aux_term_out():
@@ -337,7 +347,7 @@ def test_step_saved_under_expert2_restores_and_serves(group):
     """The (data 2, expert 2) run's checkpoint holds the full experts: it
     restores bitwise into one process, and ``restore_variables`` serves
     greedy tokens equal to the restored model's ``generate``."""
-    (case,) = progs.MOE_CASES
+    case = "data2_expert2"
     ranks = progs.case_result(group["ranks"], case)
     mgr = ckpt_lib.CheckpointManager(os.path.join(group["args"]["outdir"],
                                                   "ckpt_" + case))

@@ -19,6 +19,18 @@ rounds in a group of two, against the JAX ``Trainer`` on the same mesh,
 to the sharded-trainer file's rules (1e-5; 3 lr where step 1's JAX
 gradient is below 1e-7). The interleaved run's checkpoint restores in one
 process as it is: the stage layout is the same for every pipe degree.
+
+The pipe axis beside one other model axis, in the four-rank group, each
+against the JAX ``Trainer`` on the same mesh with the dense route, to the
+same rules: (pipe 2, tensor 2) on the dense route and on the flash route
+(B1-B3's plain versions here; the JAX flash route raises under that mesh,
+in ``shard_map``'s check of the ``pallas_call``'s output, so the dense
+route is its reference), (fsdp 2, pipe 2), (pipe 2, seq 2) and (pipe 2,
+expert 2). A rank holds its share of each parameter. The (pipe 2, tensor
+2) step restores bitwise in one process and into (fsdp 2, pipe 2) shards;
+``ring``, ``ring_flash`` and ``ulysses`` raise inside a stage under (pipe
+2, seq 2), as the JAX package raises there ("mismatched varying manual
+axes" from the ring's ``cond``).
 """
 
 import os
@@ -118,9 +130,8 @@ def _port_cfg(model_kw):
                                      **model_kw)
 
 
-def _prepare_for(cases):
+def _prepare_for(cases, case):
     def prepare(outdir):
-        (case,) = cases
         mesh_kw, model_kw = cases[case]
         _, state = _pp_lm_jax(mesh_kw, model_kw,
                               mesh_kw.get("data", 1) * mesh_kw["pipe"])
@@ -136,7 +147,8 @@ def _prepare_for(cases):
 def group(tmp_path_factory):
     return progs.cached_group(tmp_path_factory, "pipeline",
                               progs.PIPELINE_WORLD, "pipeline_cases",
-                              prepare=_prepare_for(progs.PP_TRAIN_CASES))
+                              prepare=_prepare_for(progs.PP_TRAIN_CASES,
+                                                   "data2_pipe2_gpipe"))
 
 
 @pytest.fixture(scope="module")
@@ -145,7 +157,8 @@ def interleaved_group(tmp_path_factory):
                               progs.PP_INTERLEAVED_WORLD,
                               "interleaved_cases",
                               prepare=_prepare_for(
-                                  progs.PP_INTERLEAVED_CASES))
+                                  progs.PP_INTERLEAVED_CASES,
+                                  "pipe2_interleaved"))
 
 
 # -- pipeline() -------------------------------------------------------------------
@@ -283,10 +296,14 @@ def test_pipelined_lm_initializer_counts_stacked_fan_in():
             model(torch.zeros(1, 4, dtype=torch.long), **kw)
 
 
-def _jax_run(mesh_kw, model_kw, devices):
+def _jax_run(mesh_kw, model_kw, devices, init=None):
     """The JAX Trainer's losses, step-1 gradients and final parameters,
-    the trees in the port's layout."""
+    the trees in the port's layout; its init checked equal to ``init``
+    (the port's ``state_dict``) when given."""
     tr, state = _pp_lm_jax(mesh_kw, model_kw, devices)
+    if init is not None:
+        for name, arr in _port_numpy(state.params, model_kw).items():
+            np.testing.assert_array_equal(init[name].numpy(), arr)
     losses, grads1 = [], None
     for batch in progs.pp_lm_batches():
         state, m = tr.train_step(state, batch)
@@ -321,7 +338,7 @@ def _stage_bytes_halved(r, full):
 
 
 def test_gpipe_data2_pipe2_trains_as_jax_trainer(group):
-    (case,) = progs.PP_TRAIN_CASES
+    case = "data2_pipe2_gpipe"
     mesh_kw, model_kw = progs.PP_TRAIN_CASES[case]
     want_losses, grads1, want = _jax_run(mesh_kw, model_kw, 4)
     got = progs.case_result(group["ranks"], case)
@@ -366,3 +383,89 @@ def test_interleaved_step_saved_under_pipe2_restores_in_one_process(
     # The restored state steps on (its moments in the one-process layout).
     state, m = tr.train_step(state, progs.pp_lm_batches(1)[0])
     assert np.isfinite(float(m["loss"]))
+
+
+# -- the pipe axis beside fsdp, tensor, seq and expert ------------------------------
+
+COMPOSED = sorted(c for c in progs.PP_TRAIN_CASES if c != "data2_pipe2_gpipe")
+
+
+@pytest.fixture(scope="module")
+def _jax_composed():
+    """The JAX Trainer's run on each composed mesh with the dense route,
+    made once a module for each mesh (the flash case shares its mesh's)."""
+    return {}
+
+
+def _composed_reference(cache, group, case):
+    mesh_kw, model_kw = progs.PP_TRAIN_CASES[case]
+    key = tuple(sorted(mesh_kw.items()))
+    if key not in cache:
+        init = torch.load(group["args"]["params"], weights_only=True)
+        cache[key] = _jax_run(mesh_kw, dict(model_kw, attention_impl="dense"),
+                              4, init=init)
+    return cache[key]
+
+
+def _shares(mesh_kw):
+    """How many ways each parameter of the pipelined LM splits under
+    ``mesh_kw``: stages over pipe, heads and MLP columns over tensor,
+    ``embed`` over fsdp, the vocabulary over tensor and fsdp."""
+    pipe, tensor, fsdp = (mesh_kw.get(a, 1) for a in ("pipe", "tensor",
+                                                      "fsdp"))
+    shares = {k: pipe * fsdp for k in pipelined.STAGE_PARAM_KEYS}
+    for k in ("qkv", "attn_out", "up", "down"):
+        shares[k] *= tensor
+    shares.update({"embed.embedding": tensor * fsdp, "pos_embed": fsdp,
+                   "ln_f.scale": 1, "ln_f.bias": 1})
+    return shares
+
+
+@pytest.mark.parametrize("case", COMPOSED)
+def test_composed_pipe_trains_as_jax_trainer(group, _jax_composed, case):
+    want_losses, grads1, want = _composed_reference(_jax_composed, group,
+                                                    case)
+    got = progs.case_result(group["ranks"], case)
+    _check_trained(got, want_losses, grads1, want, case)
+    shares = _shares(progs.PP_TRAIN_CASES[case][0])
+    for r in got:
+        for name, arr in got[0]["params"].items():
+            assert r["held"][name] * shares[name] == arr.nbytes, (case, name)
+
+
+def test_step_saved_under_pipe2_tensor2_restores_bitwise(group):
+    """The (pipe 2, tensor 2) run's step restores bitwise in one process
+    and into the (fsdp 2, pipe 2) ranks' shards, its Adam moments too."""
+    case = progs.PP_SAVED_CASE
+    _, model_kw = progs.PP_TRAIN_CASES[case]
+    saved = progs.case_result(group["ranks"], case)[0]["params"]
+    params = torch.load(group["args"]["params"], weights_only=True)
+    tr = trainer.Trainer(progs._pp_lm(model_kw, params),
+                         optimizer=trainer.adamw(progs.TRAIN_LR),
+                         device="cpu")
+    mgr = ckpt_lib.CheckpointManager(os.path.join(
+        group["args"]["outdir"], "ckpt_" + case))
+    state = mgr.restore(tr.init())
+    mgr.close()
+    assert state.step == progs.TRAIN_STEPS
+    for name, p in state.params.items():
+        np.testing.assert_array_equal(p.detach().numpy(), saved[name])
+    moments = state.optimizer.state_dict()["state"]
+    for r in progs.case_result(group["ranks"], "fsdp2_pipe2"):
+        restored = r["restored"]
+        assert restored["step"] == progs.TRAIN_STEPS
+        assert set(restored["params"]) == set(saved)
+        for name, arr in saved.items():
+            np.testing.assert_array_equal(restored["params"][name], arr)
+        assert set(restored["moments"]) == set(moments)
+        for i, per in moments.items():
+            for key in ("exp_avg", "exp_avg_sq"):
+                np.testing.assert_array_equal(restored["moments"][i][key],
+                                              per[key].numpy())
+
+
+@pytest.mark.parametrize("impl", progs.PP_SEQ_ROUTES)
+def test_sequence_parallel_routes_raise_inside_a_stage(group, impl):
+    for r in progs.case_result(group["ranks"], impl):
+        assert r["message"] is not None, impl
+        assert "inside a pipeline stage" in r["message"], r["message"]

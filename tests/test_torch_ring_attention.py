@@ -16,7 +16,11 @@ Cases: ring with segments and GQA (4/2), Ulysses with segments and GQA
 (8/4; each rank needs whole head groups), ring_flash with segments and GQA,
 and ring_flash zigzag with segments (inputs laid out by ``zigzag_layout``
 before they are cut; compared in that layout). Row 1's second document
-crosses chunk boundaries; row 0 ends in padding.
+crosses chunk boundaries; row 0 ends in padding. The dense and flash
+routes with segments and GQA attend over the whole row from each rank's
+chunk: their reference is the JAX function on the whole arrays, what XLA's
+partitioner computes for them under a seq axis (the flash kernels in
+interpret mode there).
 """
 
 import jax
@@ -53,6 +57,15 @@ def reference(request):
     case = request.param
     c = progs.ATTN_CASES[case]
     q, k, v, seg, g = progs.attention_inputs(case, _zigzag)
+    if c["impl"] in ("dense", "pallas"):
+        @jax.jit
+        def whole(q, k, v, seg, g):
+            out, vjp = jax.vjp(lambda q, k, v: jax_attention.causal_attention(
+                q, k, v, impl=c["impl"], segment_ids=seg), q, k, v)
+            return out, vjp(g)
+
+        out, grads = whole(q, k, v, seg, g)
+        return case, np.asarray(out), [np.asarray(x) for x in grads]
     mesh = JaxMeshConfig(data=1, seq=progs.ATTN_WORLD).build(
         jax.devices()[:progs.ATTN_WORLD])
     kw = {}

@@ -436,11 +436,12 @@ def test_unported_arguments_raise_and_the_card_is_the_default():
     model = _port_model()
     with pytest.raises(TypeError, match="MeshConfig"):
         Trainer(model, mesh=object(), device="cpu")
-    # pipe and expert compose with data only so far.
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        Trainer(model, mesh=PortMeshConfig(data=1, pipe=2, tensor=2),
+    # pipe composes with one other model axis at a time, expert with data
+    # and pipe only, so far.
+    with pytest.raises(NotImplementedError, match="ROADMAP A10d"):
+        Trainer(model, mesh=PortMeshConfig(data=1, pipe=2, tensor=2, seq=2),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11c"):
         Trainer(model, mesh=PortMeshConfig(data=1, expert=2, seq=2),
                 device="cpu")
     rules = dict(trainer.mesh_lib.DEFAULT_RULES, mlp=None)

@@ -166,8 +166,11 @@ def _numpy(t):
 # -- attention ------------------------------------------------------------------
 
 ATTN_B, ATTN_S, ATTN_D = 2, 32, 8
-# Four-rank seq meshes; GQA on every route that takes it.
+# Four-rank seq meshes; GQA on every route that takes it. The dense and
+# flash routes attend over the whole row from each rank's chunk.
 ATTN_CASES = {
+    "dense_seg_gqa": dict(impl="dense", h=4, h_kv=2),
+    "pallas_seg_gqa": dict(impl="pallas", h=4, h_kv=2),
     "ring_seg_gqa": dict(impl="ring", h=4, h_kv=2),
     "ulysses_seg_gqa": dict(impl="ulysses", h=8, h_kv=4),
     "ring_flash_seg_gqa": dict(impl="ring_flash", h=4, h_kv=2),
@@ -267,6 +270,9 @@ TRAIN_CASES = {
                                   dict(attention_impl="dense")),
     "data2_tensor2_gqa": (dict(data=2, tensor=2),
                           dict(attention_impl="dense", num_kv_heads=2)),
+    "data2_seq2_dense": (dict(data=2, seq=2), dict(attention_impl="dense")),
+    "data2_seq2_pallas": (dict(data=2, seq=2),
+                          dict(attention_impl="pallas")),
 }
 
 
@@ -467,11 +473,25 @@ PIPELINE_ERRORS = ("not_multiple", "interleaved_stacked",
 PP_LM_KW = dict(vocab_size=64, num_layers=4, num_heads=2, embed_dim=32,
                 mlp_dim=64, max_seq_len=16, remat=False)
 PP_TRAIN_B, PP_TRAIN_S = 8, 16
-# Trainer cases: (mesh, model) over four ranks, and over two.
+# Trainer cases: (mesh, model) over four ranks, and over two. Every case of
+# the four-rank group starts from one init (two stages); the pipe axis
+# beside tensor, fsdp, seq and expert runs GPipe on the dense route, and
+# beside tensor on the flash route too.
+_GPIPE = dict(num_stages=2, num_microbatches=4)
 PP_TRAIN_CASES = {
-    "data2_pipe2_gpipe": (dict(data=2, pipe=2),
-                          dict(num_stages=2, num_microbatches=4)),
+    "data2_pipe2_gpipe": (dict(data=2, pipe=2), _GPIPE),
+    "pipe2_tensor2": (dict(data=1, pipe=2, tensor=2), _GPIPE),
+    "pipe2_tensor2_pallas": (dict(data=1, pipe=2, tensor=2),
+                             dict(_GPIPE, attention_impl="pallas")),
+    "fsdp2_pipe2": (dict(data=1, fsdp=2, pipe=2), _GPIPE),
+    "pipe2_seq2": (dict(data=1, pipe=2, seq=2), _GPIPE),
+    "pipe2_expert2": (dict(data=1, pipe=2, expert=2), _GPIPE),
 }
+# The case whose saved step the fsdp2_pipe2 ranks restore.
+PP_SAVED_CASE = "pipe2_tensor2"
+# The sequence-parallel routes, each refused inside a stage under
+# (pipe 2, seq 2).
+PP_SEQ_ROUTES = ("ring", "ring_flash", "ulysses")
 PP_INTERLEAVED_CASES = {
     "pipe2_interleaved": (dict(data=1, pipe=2),
                           dict(num_stages=4, num_rounds=2,
@@ -608,14 +628,60 @@ def pipeline_cases(rank, world, args):
 
     results.update(_cases(PIPELINE_ERRORS, error))
     params = torch.load(args["params"], weights_only=True)
+    saved = os.path.join(args["outdir"], "ckpt_" + PP_SAVED_CASE)
 
     def train(case):
         mesh_kw, model_kw = PP_TRAIN_CASES[case]
-        return _train_case(lambda p: _pp_lm(model_kw, p), mesh_kw,
-                           pp_lm_batches(), params)
+        out = _train_case(lambda p: _pp_lm(model_kw, p), mesh_kw,
+                          pp_lm_batches(), params,
+                          saved if case == PP_SAVED_CASE else None)
+        if case == "fsdp2_pipe2":
+            out["restored"] = _restored(_pp_lm(model_kw, params), mesh_kw,
+                                        saved)
+        return out
 
     results.update(_cases(PP_TRAIN_CASES, train))
+
+    def seq_route(impl):
+        from tensorflowonspark_tpu_torch.train import trainer
+
+        tr = trainer.Trainer(_pp_lm(dict(_GPIPE, attention_impl=impl),
+                                    params),
+                             mesh=MeshConfig(data=1, pipe=2, seq=2).build(),
+                             device="cpu")
+        state = tr.init()
+        try:
+            tr.train_step(state, pp_lm_batches(1)[0])
+        except NotImplementedError as e:
+            return {"message": str(e)}
+        return {"message": None}
+
+    results.update(_cases(PP_SEQ_ROUTES, seq_route))
     return results
+
+
+def _restored(model, mesh_kw, ckpt):
+    """The step saved under ``ckpt`` restored into ``model`` trained under
+    ``mesh_kw``: its step, and the full parameters and Adam moments the
+    rank's shards rebuild."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.parallel import MeshConfig
+    from tensorflowonspark_tpu_torch.train import checkpoint, trainer
+
+    tr = trainer.Trainer(model, optimizer=trainer.adamw(TRAIN_LR),
+                         mesh=MeshConfig(**mesh_kw).build(), device="cpu")
+    mgr = checkpoint.CheckpointManager(ckpt)
+    state = mgr.restore(tr.init())
+    mgr.close()
+    opt = checkpoint._optimizer_tree(state, state.optimizer.state_dict(),
+                                     state.sharding.full)
+    full = state.sharding.full_state_dict(dict(state.params))
+    return {"step": state.step,
+            "params": {k: _numpy(v) for k, v in full.items()},
+            "moments": {i: {k: _numpy(v) for k, v in per.items()
+                            if isinstance(v, torch.Tensor) and v.dim()}
+                        for i, per in opt["state"].items()}}
 
 
 def interleaved_cases(rank, world, args):
@@ -639,7 +705,9 @@ MOE_LM_KW = dict(vocab_size=64, num_layers=2, num_heads=2, embed_dim=32,
                  remat=False)
 MOE_TRAIN_B, MOE_TRAIN_S = 8, 16
 MOE_WORLD = 4
-MOE_CASES = {"data2_expert2": dict(data=2, expert=2)}
+MOE_CASES = {"data2_expert2": dict(data=2, expert=2),
+             # The MoE LM holds no stage axis: its pipe ranks are replicas.
+             "pipe2_expert2": dict(data=1, pipe=2, expert=2)}
 
 
 def moe_batches(steps=TRAIN_STEPS):
