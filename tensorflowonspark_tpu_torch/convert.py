@@ -13,8 +13,12 @@ torch.Tensor}``:
   top-level stage parameters (``qkv``, ``attn_out``, ``ln*_*``, ``up``,
   ``down``), reshaped from the factored layout of the pipe degree they
   were made under to the port's, which is the same for every degree;
-* ``resnet_params_from_flax(variables, model)`` for the port's ResNets:
-  ``params`` and ``batch_stats`` together, conv kernels HWIO -> OIHW;
+* ``zoo_params_from_flax(variables, model)`` for the port's ResNets and
+  the rest of the zoo (``models/cnn.py``, ``vgg.py``, ``inception.py``,
+  ``wide_deep.py``), whose ``state_dict`` names are the flax paths:
+  ``params`` and ``batch_stats`` together, conv kernels HWIO -> OIHW,
+  dense kernels and embeddings as they are; ``resnet_params_from_flax``
+  is the same function under the name the ResNet slice gave it;
 * ``fused_block_params_from_jax(params)`` for
   ``ops.fused_resnet_block``'s parameter dict, dtype and layout kept;
 * ``dense_params_from_flax(params, model)`` for the port's ``MLP`` and
@@ -142,11 +146,12 @@ def _tensor(arr):
     return torch.from_numpy(arr)
 
 
-def resnet_params_from_flax(variables, model):
+def zoo_params_from_flax(variables, model):
     """The port's ``state_dict`` (f32 CPU tensors, running statistics
-    included) for a flax ResNet's ``{"params": ..., "batch_stats": ...}``;
-    ``model`` is the port's ResNet of the same depth and width. Conv
-    kernels go from flax's HWIO to the port's OIHW."""
+    included) for a flax zoo model's ``{"params": ..., "batch_stats":
+    ...}`` (a model without BatchNorm has no ``batch_stats``); ``model`` is
+    the port's model of the same configuration. Conv kernels go from
+    flax's HWIO to the port's OIHW; every other leaf keeps its layout."""
     flat = {"params/" + k: v for k, v in _flat(variables["params"]).items()}
     flat.update({"batch_stats/" + k: v for k, v in
                  _flat(variables.get("batch_stats", {})).items()})
@@ -154,10 +159,11 @@ def resnet_params_from_flax(variables, model):
     for name, t in model.state_dict().items():
         coll = "batch_stats" if name.endswith((".mean", ".var")) else "params"
         want["{}/{}".format(coll, name.replace(".", "/"))] = (name, t.shape)
-    _check_names(flat, want, "flax ResNet variables and the model")
+    _check_names(flat, want, "flax {} variables and the model".format(
+        type(model).__name__))
     out = {}
     for key, (name, shape) in want.items():
-        arr = np.asarray(flat[key], dtype=np.float32)
+        arr = np.array(flat[key], dtype=np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)           # HWIO -> OIHW
         if arr.shape != tuple(shape):
@@ -165,6 +171,9 @@ def resnet_params_from_flax(variables, model):
                 key, arr.shape, tuple(shape)))
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+resnet_params_from_flax = zoo_params_from_flax
 
 
 def fused_block_params_from_jax(params):

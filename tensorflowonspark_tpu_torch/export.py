@@ -337,6 +337,10 @@ class LoadedModel:
             )
 
         def as_input(v):
+            # A tuple input (wide & deep's (categorical, numeric)) goes to
+            # the forward as a tuple of tensors.
+            if isinstance(v, (tuple, list)):
+                return tuple(as_input(e) for e in v)
             # Already on the device (a DevicePrefetch-ed feed): passed
             # straight into the forward, no round trip through the host.
             if isinstance(v, torch.Tensor):

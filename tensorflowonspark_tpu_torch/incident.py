@@ -402,7 +402,7 @@ class IncidentRecorder:
             return {}
         liveness = self.server.liveness
         snap = liveness.snapshot()
-        crashed = self._crashed()
+        crashed = self.crashed()
         # A node that published its crash snapshot is dying: it cannot
         # answer, and waiting for it would hold an attempt-failure
         # capture (the error reached the driver before the node's last
@@ -426,7 +426,7 @@ class IncidentRecorder:
             logger.warning("snapshot round failed", exc_info=True)
             return {}
 
-    def _crashed(self):
+    def crashed(self):
         """Executor ids (as strings) whose manager KV holds a crash
         snapshot: the node program published it while raising, before
         its error reached any queue or beat."""

@@ -1,11 +1,12 @@
-"""Model registry (port of ``models/factory.py``): the transformer LM, its
-MoE and pipelined variants, the speculative-decoding draft ``gpt2-draft``,
-the ResNet family, the MLP and linear regression; the rest of the zoo
-follows in later slices (ROADMAP A11). ``register`` adds a user model, as
+"""Model registry (port of ``models/factory.py``): every name the JAX
+registry serves — the transformer LM, its MoE and pipelined variants, the
+speculative-decoding draft ``gpt2-draft``, the MLP and linear regression,
+the ResNets, and the zoo of ``models/cnn.py``, ``vgg.py``,
+``inception.py`` and ``wide_deep.py``. ``register`` adds a user model, as
 in the JAX package."""
 
 from tensorflowonspark_tpu_torch.models import (
-    mlp, moe, pipelined, resnet, transformer,
+    cnn, inception, mlp, moe, pipelined, resnet, transformer, vgg, wide_deep,
 )
 
 # The shared speculative-decoding draft geometry: GPT-2-small's stem
@@ -30,6 +31,15 @@ _REGISTRY = {
                                          device=device, seed=seed),
     "mlp": mlp.MLP,
     "linear_regression": mlp.LinearRegression,
+    "lenet": cnn.LeNet,
+    "cifarnet": cnn.CifarNet,
+    "alexnet": cnn.AlexNet,
+    "overfeat": cnn.OverFeat,
+    "inception_v1": inception.InceptionV1,
+    "inception_v2": inception.InceptionV2,
+    "inception_v3": inception.InceptionV3,
+    "inception_v4": inception.InceptionV4,
+    "inception_resnet_v2": inception.InceptionResNetV2,
     "resnet18": resnet.ResNet18,
     "resnet34": resnet.ResNet34,
     "resnet50": resnet.ResNet50,
@@ -38,6 +48,9 @@ _REGISTRY = {
     "resnet50_v2": resnet.ResNet50V2,
     "resnet101_v2": resnet.ResNet101V2,
     "resnet152_v2": resnet.ResNet152V2,
+    "vgg16": vgg.VGG16,
+    "vgg19": vgg.VGG19,
+    "wide_deep": wide_deep.WideDeep,
 }
 
 
@@ -45,7 +58,8 @@ def get_model(name, **kwargs):
     """Construct a registered model; ``device`` (default ``"cuda"``) and
     ``seed`` go to the model, every other keyword to its config (the
     transformers) or constructor (``num_classes``, ``width``, ``dtype``,
-    ``in_features``, ...). Raises with the known names otherwise."""
+    ``image_size``, ``vocab_sizes``, ...). Raises with the known names
+    otherwise."""
     if name not in _REGISTRY:
         raise ValueError(
             "unknown model {!r}; known: {}".format(name, sorted(_REGISTRY)))

@@ -14,23 +14,7 @@ from torch import nn
 
 from tensorflowonspark_tpu_torch import device_info
 from tensorflowonspark_tpu_torch.initializers import truncated_normal_
-
-
-class Dense(nn.Module):
-    """``nn.Dense`` with its compute dtype: input and kernel are cast to
-    ``dtype`` for the product, the parameters stay f32."""
-
-    def __init__(self, in_features, out_features, dtype=torch.float32,
-                 fan_scale=1.0):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
-        self.dtype = dtype
-        self.fan_scale = fan_scale  # 2 for he_normal, 1 for lecun_normal
-
-    def forward(self, x):
-        x = x.to(self.dtype)
-        return x @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+from tensorflowonspark_tpu_torch.models.layers import Dense
 
 
 class _DenseStack(nn.Module):

@@ -10,31 +10,12 @@ paths (``BottleneckBlock_3.Conv_1.kernel``, ``stem_norm.mean``), conv
 kernels stored OIHW (:func:`tensorflowonspark_tpu_torch.convert.
 resnet_params_from_flax` transposes flax's HWIO).
 
-What flax does that torch's own layers do not, and this module does:
-
-* SAME padding. Flax pads ``(total // 2, total - total // 2)``: for a
-  stride-2 conv on an even input that is one pixel more at the bottom and
-  right than at the top and left — (2, 3) for the 7x7 stem on 224 px,
-  (0, 1) for a stride-2 3x3 conv and for the 3x3/2 max pool. Torch's
-  symmetric ``padding=`` gives the same output size but shifts every
-  window by a pixel, so uneven padding goes in explicitly with ``F.pad``;
-  the max pool pads with -inf.
-* :class:`BatchNorm` is flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``,
-  not ``nn.BatchNorm2d``: batch statistics in f32 as ``E[x]`` and the
-  biased ``E[x^2] - E[x]^2`` clipped at 0, for normalising and for the
-  running variance alike (torch keeps an unbiased running variance);
-  ``running = 0.9 * running + 0.1 * batch``; scale and bias f32; the
-  output cast to the model dtype. Under a mesh whose batch axes (``data x
-  fsdp``) exceed 1 the statistics are the global batch's, as the JAX
-  package's are (its batch is one global array): each rank sums ``x`` and
-  ``x^2`` over its rows, the sums and the row count go through one
-  all-reduce over the batch group whose backward is the all-reduce of the
-  cotangents, and every rank moves the running statistics by the same
-  global values.
-* Initial values: he-normal conv kernels and lecun-normal head (both
-  truncated normals, as ``jax.nn.initializers``), the last norm of each v1
-  residual branch with scale zero, the shortcut conv and norm only where
-  the block changes shape.
+The flax layers (SAME padding, ``BatchNorm`` with global-batch statistics
+under a mesh, the f32 ``Dense`` head) are ``models/layers.py``'s. Initial
+values: he-normal conv kernels and lecun-normal head (both truncated
+normals, as ``jax.nn.initializers``), the last norm of each v1 residual
+branch with scale zero, the shortcut conv and norm only where the block
+changes shape.
 
 Modes. ``model.train()`` normalises with the batch statistics and moves
 the running ones once per forward; ``model.eval()`` uses the running ones.
@@ -45,124 +26,14 @@ train mode around a step. The fused bottleneck kernels
 convs too.
 """
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tensorflowonspark_tpu_torch import device_info
-from tensorflowonspark_tpu_torch.parallel import collectives as coll
-from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowonspark_tpu_torch.initializers import truncated_normal_
-
-
-def _same_pads(size, k, stride):
-    """Flax/XLA SAME padding of one spatial dim: ``(lo, hi)``."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _pad_same(x, k, stride, value=0.0):
-    """``x`` (N, C, H, W) padded SAME for a k x k window at ``stride``;
-    returns ``(x, symmetric padding left to the op)``."""
-    ph = _same_pads(x.shape[2], k, stride)
-    pw = _same_pads(x.shape[3], k, stride)
-    if ph[0] == ph[1] == pw[0] == pw[1] and value == 0.0:
-        return x, ph[0]
-    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
-
-
-class Conv(nn.Module):
-    """``nn.Conv(use_bias=False)`` with SAME padding: ``kernel`` (O, I, k,
-    k) f32, operands cast to ``dtype``, output in ``dtype``."""
-
-    def __init__(self, cin, cout, k, stride, dtype):
-        super().__init__()
-        self.k, self.stride, self.dtype = k, stride, dtype
-        self.kernel = nn.Parameter(torch.empty(cout, cin, k, k))
-
-    def forward(self, x):
-        x, pad = _pad_same(x.to(self.dtype), self.k, self.stride)
-        return F.conv2d(x, self.kernel.to(self.dtype), stride=self.stride,
-                        padding=pad)
-
-
-class BatchNorm(nn.Module):
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, param_dtype=f32)`` over
-    the channel axis 1 (see the module docstring). ``scale_init`` is the
-    initial scale (0 for the last norm of a residual branch)."""
-
-    momentum = 0.9
-    eps = 1e-5
-
-    def __init__(self, features, dtype, scale_init=1.0):
-        super().__init__()
-        self.dtype, self.scale_init = dtype, scale_init
-        self.scale = nn.Parameter(torch.full((features,), scale_init))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    def forward(self, x):
-        xf = x.float()
-        group = _batch_group() if self.training else None
-        if group is not None:
-            mean, var = _global_stats(xf, group)
-        elif self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                                  0.0)
-        if self.training:
-            with torch.no_grad():
-                self.mean.copy_(self.momentum * self.mean
-                                + (1 - self.momentum) * mean)
-                self.var.copy_(self.momentum * self.var
-                               + (1 - self.momentum) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        y = (xf - mean[:, None, None]) * mul[:, None, None]
-        return (y + self.bias[:, None, None]).to(self.dtype)
-
-
-def _batch_group():
-    """The ambient mesh's batch group (None without a mesh or at size 1)."""
-    mesh = mesh_lib.current_mesh()
-    if mesh is None:
-        return None
-    (entry,) = mesh_lib.resolve_spec(mesh.shape, ("batch",),
-                                     mesh_lib.active_rules())
-    return mesh.group(*mesh_lib.spec_axes(entry))
-
-
-def _global_stats(xf, group):
-    """Global-batch ``E[x]`` and biased ``E[x^2] - E[x]^2`` (clipped at 0)
-    per channel: the rank's sums and element count, summed over
-    ``group`` by one differentiable all-reduce."""
-    c = xf.shape[1]
-    count = torch.full((1,), float(xf.numel() // c), dtype=torch.float32,
-                       device=xf.device)
-    sums = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
-                      count])
-    sums = coll.all_reduce(sums, group)
-    n = sums[-1]
-    mean = sums[:c] / n
-    return mean, torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
-
-
-class Dense(nn.Module):
-    """f32 ``nn.Dense``: ``kernel`` (in, out) and ``bias``; the input is
-    promoted to f32."""
-
-    def __init__(self, in_features, out_features):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
-
-    def forward(self, x):
-        return x.float() @ self.kernel + self.bias
+from tensorflowonspark_tpu_torch.models import layers
+from tensorflowonspark_tpu_torch.models.layers import BatchNorm, Conv, Dense
 
 
 class BottleneckBlock(nn.Module):
@@ -306,15 +177,11 @@ class _ResNetBase(nn.Module):
         return [m for name, m in self.named_children() if "Block_" in name]
 
     def _head(self, x):
-        # The f32 head on the spatial mean of the dtype activations (jnp.mean
-        # of bf16 sums in f32 and rounds the mean back to bf16).
-        x = x.float().mean(dim=(2, 3)).to(self.dtype)
-        return self.Dense_0(x)
+        return self.Dense_0(layers.spatial_mean(x, self.dtype))
 
     @staticmethod
     def _max_pool(x):
-        x, _ = _pad_same(x, 3, 2, value=-math.inf)
-        return F.max_pool2d(x, 3, 2)
+        return layers.max_pool(x, 3, 2, "SAME")
 
     def _input(self, x):
         # NHWC in; an NCHW-indexed view of the channels-last bytes inside.

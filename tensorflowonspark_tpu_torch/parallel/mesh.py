@@ -384,14 +384,19 @@ class BatchPlacer:
         return slice(self.seq_index * per, (self.seq_index + 1) * per)
 
     def _chunk_leaf(self, x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._chunk_leaf(v) for v in x)
         if self.seq_degree == 1 or getattr(x, "ndim", 0) < 2:
             return x
         return _cut(x, 1, self.chunk(x.shape[1]))
 
     def local(self, batch):
         """This rank's rows and chunk of a global batch (a dict of arrays
-        or tensors, or one array)."""
+        or tensors, or one array; a tuple input, such as wide & deep's
+        ``(categorical, numeric)``, leaf by leaf)."""
         def leaf(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(leaf(v) for v in x)
             if getattr(x, "ndim", 0) < 1:
                 return x
             return self._chunk_leaf(_cut(x, 0, self.rows(x.shape[0])))

@@ -166,6 +166,49 @@ def _capture_incident(cluster, reason, **attrs):
         return None
 
 
+def _unplanned_deaths(cluster):
+    """The liveness ledger's dead nodes, less those an elastic controller
+    retired on purpose (``retire_replica``: silent by policy, never
+    teardown material, even after an escalation)."""
+    dead = cluster.server.liveness.dead()
+    controller = getattr(cluster, "controller", None)
+    if controller is not None:
+        dead = [d for d in dead
+                if d not in getattr(controller, "scaled_down", ())]
+    return dead
+
+
+def _death_reason(snapshot, dead):
+    statuses = {snapshot.get(d, {}).get("status") for d in dead}
+    return "node_hung" if "hung" in statuses else "node_death"
+
+
+def _failure_cause(cluster):
+    """``(reason, nodes)`` for a capture on the attempt's failure path.
+
+    The attempt's exception and the liveness watcher see one death on two
+    threads, and either may see it first. What the bundle says must not
+    depend on which did: a node the liveness ledger holds dead, or one
+    whose manager KV holds the crash snapshot its program published while
+    raising (before its error reached a queue or a beat), makes the
+    capture ``node_death`` (``node_hung``) naming those nodes, as the
+    watcher's would. ``attempt_failure`` names no node: a feeder or
+    shutdown error with every node alive."""
+    try:
+        dead = _unplanned_deaths(cluster)
+        if dead:
+            return (_death_reason(cluster.server.liveness.snapshot(), dead),
+                    [str(d) for d in dead])
+        recorder = getattr(cluster, "incidents", None)
+        crashed = sorted(recorder.crashed()) if recorder is not None else []
+    except Exception:  # a torn-down server: the evidence still gets written
+        logger.warning("failure cause unreadable", exc_info=True)
+        return "attempt_failure", []
+    if crashed:
+        return "node_death", crashed
+    return "attempt_failure", []
+
+
 def _teardown(cluster, grace=5.0):
     """Best-effort fast teardown of a failed cluster.
 
@@ -260,17 +303,9 @@ class _LivenessWatcher(threading.Thread):
 
     def run(self):
         while not self._halt.wait(self.poll):
-            dead = self.cluster.server.liveness.dead()
+            dead = _unplanned_deaths(self.cluster)
             if dead:
                 controller = getattr(self.cluster, "controller", None)
-                if controller is not None:
-                    # An executor departed on purpose (retire_replica) is
-                    # silent by POLICY — never teardown material, even
-                    # after an escalation.
-                    dead = [d for d in dead if d not in
-                            getattr(controller, "scaled_down", ())]
-                    if not dead:
-                        continue
                 if controller is not None and not controller.escalated:
                     # Elastic cluster: the ElasticController owns node
                     # departures (retire + reshape + respawn, no
@@ -288,12 +323,9 @@ class _LivenessWatcher(threading.Thread):
                 # reaps compute children and stops the server — every
                 # ring, stack and KV crash snapshot the capture needs is
                 # about to be destroyed. Synchronous on purpose.
-                statuses = {rec.get("status")
-                            for rec in self.dead.values()}
-                _capture_incident(
-                    self.cluster,
-                    "node_hung" if "hung" in statuses else "node_death",
-                    nodes=",".join(str(d) for d in dead))
+                _capture_incident(self.cluster,
+                                  _death_reason(self.dead, dead),
+                                  nodes=",".join(str(d) for d in dead))
                 self.tracebacks = _teardown(self.cluster, self.grace)
                 return
 
@@ -501,6 +533,10 @@ class JobSupervisor:
         finally:
             if watcher is not None:
                 watcher.stop()
+                # A detection the watcher has begun ends (its capture and
+                # teardown included) before this path decides: one
+                # capture per failure.
+                watcher.join(self.teardown_grace)
             # The watcher already ran the full teardown (states flipped,
             # tracebacks drained, children reaped) when it detected the
             # failure — a second pass would only burn ~10s re-dialing
@@ -508,11 +544,16 @@ class JobSupervisor:
             already_torn = watcher is not None and watcher.dead is not None
             if cluster is not None and not already_torn \
                     and exc_text is not None:
-                # A failure the watcher did NOT see (feeder exception,
+                # A failure the watcher did NOT see first (a node's error
+                # reached the feeder before a beat, a feeder exception, a
                 # shutdown-path error): same rule — evidence before the
-                # teardown below destroys it.
-                _capture_incident(cluster, "attempt_failure",
-                                  attempt=self.attempts)
+                # teardown below destroys it, under the cause the ledger
+                # and the managers show.
+                reason, nodes = _failure_cause(cluster)
+                attrs = {"attempt": self.attempts}
+                if nodes:
+                    attrs["nodes"] = ",".join(nodes)
+                _capture_incident(cluster, reason, **attrs)
             leftovers = _teardown(cluster, self.teardown_grace) \
                 if (cluster is not None and not already_torn) else []
             if owned:

@@ -22,7 +22,14 @@ takes global-batch statistics (``models/resnet.py``). See
 :meth:`Trainer.train_step` for the reduction. A model that sows auxiliary
 losses (the MoE LM's load-balance terms, ``model.pop_aux_losses()``)
 trains on the task loss plus their sum, as the JAX trainer adds the
-``"losses"`` collection; eval leaves them out.
+``"losses"`` collection; eval leaves them out. A batch's ``"x"`` may be a
+tuple of arrays (wide & deep's ``(categorical, numeric)``), placed, split
+into microbatches and handed to the model as a tuple. Dropout draws its
+masks from a generator the step seeds from ``(seed, step)`` (``seed`` is
+``init``'s, 0 by default; under ``grad_accum=k`` microbatch ``i`` of step
+``s`` draws as step ``s * k + i``), as the JAX trainer folds the step into
+its dropout key: a relaunch from a checkpoint draws the same masks. Under a
+mesh every rank draws from the same seed.
 The persistent compile cache is ROADMAP A12; ``donate`` has no meaning
 without XLA buffers.
 """
@@ -38,6 +45,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import device_info, telemetry
+from tensorflowonspark_tpu_torch.models import layers
 from tensorflowonspark_tpu_torch.parallel import collectives as coll
 from tensorflowonspark_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowonspark_tpu_torch.parallel import multihost
@@ -178,6 +186,8 @@ class Trainer:
             raise ValueError("grad_accum must be >= 1")
         self.device = device_info.resolve_device(device)
         self.model = model
+        # The dropout key of the JAX trainer: init(seed=) replaces it.
+        self.dropout_seed = 0
         self.optimizer_factory = optimizer or adam(1e-3)
         self.label_key = label_key
         self.loss_fn = loss_fn or self._cross_entropy
@@ -246,6 +256,8 @@ class Trainer:
             self.model.load_state_dict(params)
         elif seed is not None:
             self.model.reset_parameters(seed)
+        if seed is not None:
+            self.dropout_seed = int(seed)
         self.model.to(self.device)
         if self.mesh.size > 1:
             # Identical replicas: every rank takes rank 0's weights and
@@ -268,11 +280,18 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
+    def _tensors(self, val):
+        """``val`` as tensors on the trainer's device, a tuple leaf by
+        leaf."""
+        if isinstance(val, (tuple, list)):
+            return tuple(self._tensors(v) for v in val)
+        if isinstance(val, torch.Tensor):
+            return val
+        return torch.as_tensor(val, device=self.device)
+
     def _place(self, batch):
         batch = self.batch_placer(batch)
-        return {key: val if isinstance(val, torch.Tensor)
-                else torch.as_tensor(val, device=self.device)
-                for key, val in batch.items()}
+        return {key: self._tensors(val) for key, val in batch.items()}
 
     def _normalize_batch(self, batch):
         """Default the loss mask from ``segment_ids`` when absent: attention
@@ -311,6 +330,11 @@ class Trainer:
             return None
         return torch.stack([t.float() for t in terms]).sum()
 
+    def _seed_dropout(self, draw):
+        """Seed dropout for forward number ``draw`` of this run."""
+        layers.seed_dropout(self.model,
+                            layers.step_seed(self.dropout_seed, draw))
+
     def _backward(self, batch, weight=None, aux_weight=None):
         """Forward and backward of one (micro)batch: back-propagates the
         task loss times ``weight`` plus the sown auxiliary losses times
@@ -340,15 +364,23 @@ class Trainer:
 
     def _microbatches(self, batch):
         k = self.grad_accum
-        bad = [tuple(v.shape) for v in batch.values()
+        leaves = [t for v in batch.values()
+                  for t in (v if isinstance(v, tuple) else (v,))]
+        bad = [tuple(v.shape) for v in leaves
                if v.dim() >= 1 and v.shape[0] % k]
         if bad:
             raise ValueError(
                 "batch dims {} do not divide grad_accum={}".format(bad, k))
+
         # Scalars ride along whole; every other leaf splits on its leading
         # axis into k consecutive slices (the JAX reshape to (k, b // k)).
-        return [{key: v if v.dim() == 0 else v.chunk(k)[i]
-                 for key, v in batch.items()} for i in range(k)]
+        def part(v, i):
+            if isinstance(v, tuple):
+                return tuple(part(t, i) for t in v)
+            return v if v.dim() == 0 else v.chunk(k)[i]
+
+        return [{key: part(v, i) for key, v in batch.items()}
+                for i in range(k)]
 
     def train_step(self, state, batch):
         """One optimizer step on ``batch`` (a dict of arrays or tensors).
@@ -394,9 +426,11 @@ class Trainer:
                 with self._scope():
                     loss, aux = self._sharded_backward(state, batch)
             elif self.grad_accum == 1:
+                self._seed_dropout(state.step)
                 loss, aux = self._backward(batch)
             else:
-                loss, aux = self._accumulate(self._microbatches(batch))
+                loss, aux = self._accumulate(state,
+                                             self._microbatches(batch))
             state.optimizer.step()
         finally:
             self.model.train(was_training)
@@ -420,6 +454,7 @@ class Trainer:
                     if hasattr(self.model, "pop_aux_losses") else None)
         for i, (mb, w) in enumerate(zip(micro, weights)):
             aw = None if global_w is None else global_w[i]
+            self._seed_dropout(state.step * len(micro) + i)
             loss, aux = self._backward(mb, w, aux_weight=aw)
             local_loss = local_loss + loss * w
             local_w = local_w + w
@@ -449,7 +484,7 @@ class Trainer:
                 offset += n
         return sums[0] / total, aux_sum / total
 
-    def _accumulate(self, micro):
+    def _accumulate(self, state, micro):
         """Backward through each microbatch with weight w_i / sum(w): w_i is
         its mask sum (1 without a mask), so uneven masks reproduce the
         full-batch masked mean. Returns the weighted mean task and
@@ -460,7 +495,8 @@ class Trainer:
         total = torch.clamp_min(torch.stack(weights).sum(), 1e-6)
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for mb, w in zip(micro, weights):
+        for i, (mb, w) in enumerate(zip(micro, weights)):
+            self._seed_dropout(state.step * len(micro) + i)
             task, sown = self._backward(mb, w / total)
             loss = loss + task * w
             aux = aux + sown * w
@@ -493,7 +529,7 @@ class Trainer:
         """Model outputs for a raw input array (no loss): over a mesh,
         ``inputs`` are this rank's rows at the full sequence length and
         the outputs its rows and chunk over the whole vocabulary."""
-        x = self.batch_placer(torch.as_tensor(inputs))
+        x = self.batch_placer(self._tensors(inputs))
         if self.input_fn is not None:
             x = self.input_fn(x)
         was_training = self.model.training

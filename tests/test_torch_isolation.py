@@ -89,7 +89,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "tools.inference", "tools.generate",
                  "tools.reservation_client", "incident",
                  "telemetry.profiling", "telemetry.attribution",
-                 "train.profiler", "testing.load"):
+                 "train.profiler", "testing.load", "models.layers",
+                 "models.cnn", "models.vgg", "models.inception",
+                 "models.wide_deep"):
         assert "tensorflowonspark_tpu_torch." + name in doc["imported"]
     loaded = [m for m in doc["loaded"] if _forbidden(m)]
     assert loaded == []
@@ -109,9 +111,10 @@ def _sources():
              os.path.join(ROOT, "tests", "torch_data_programs.py"),
              os.path.join(ROOT, "tests", "torch_ml_programs.py"),
              os.path.join(ROOT, "tests", "torch_shard_programs.py")]
-    for dirpath, _, names in os.walk(PKG):
-        files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith(".py")]
+    for top in (PKG, os.path.join(ROOT, "examples", "torch")):
+        for dirpath, _, names in os.walk(top):
+            files += [os.path.join(dirpath, n) for n in names
+                      if n.endswith(".py")]
     return sorted(files)
 
 

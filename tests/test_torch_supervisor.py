@@ -24,11 +24,17 @@ package's.
   kills rank 0's compute child too, instead of waiting out the process
   group's 300 s timeout; both ranks relaunch from step 2 and end with
   bitwise-equal replicas.
+* The incident reason of a failure whose exception reaches the attempt
+  before the liveness watcher sees the death: the attempt path captures
+  once, under ``node_death``/``node_hung`` naming the node the liveness
+  ledger (or its manager KV's crash snapshot) shows dead, and under
+  ``attempt_failure`` only when every node is alive.
 """
 
 import os
 import random
 import time
+import types
 
 import numpy as np
 import pytest
@@ -412,3 +418,63 @@ def test_reap_waits_for_the_killed_child_to_exit():
     assert node._wait_exited(p.pid, timeout=30)
     assert p.exitcode == -signal.SIGKILL and p.pid not in node._compute_procs
     assert node._wait_exited(p.pid, timeout=30)  # not ours any more
+
+
+# -- the attempt path's incident reason --------------------------------------
+
+
+class _Ledger:
+    """Node 0's liveness status (None: alive)."""
+
+    def __init__(self, status):
+        self.status = status
+
+    def dead(self):
+        return [0] if self.status in ("crashed", "hung") else []
+
+    def snapshot(self):
+        return {0: {"status": self.status or "alive"}}
+
+
+class _FailedCluster:
+    def __init__(self, status, kv_crash):
+        self.server = types.SimpleNamespace(liveness=_Ledger(status))
+        self.incidents = types.SimpleNamespace(
+            crashed=lambda: {"0"} if kv_crash else set())
+        self.captures = []
+
+    def capture_incident(self, reason, **attrs):
+        self.captures.append((reason, attrs))
+
+
+class _BlindWatcher(supervisor._LivenessWatcher):
+    """A watcher that never polls: the attempt's exception is always the
+    first to see the failure."""
+
+    def run(self):
+        return
+
+
+@pytest.mark.parametrize("status,kv_crash,reason,nodes", [
+    ("crashed", False, "node_death", "0"),
+    (None, True, "node_death", "0"),
+    ("hung", False, "node_hung", "0"),
+    (None, False, "attempt_failure", None),
+], ids=["ledger_crashed", "kv_crash_snapshot", "ledger_hung", "all_alive"])
+def test_attempt_path_first_captures_the_cause_once(monkeypatch, status,
+                                                    kv_crash, reason, nodes):
+    failed = _FailedCluster(status, kv_crash)
+    monkeypatch.setattr(cluster, "run", lambda *a, **kw: failed)
+    monkeypatch.setattr(supervisor, "_LivenessWatcher", _BlindWatcher)
+    monkeypatch.setattr(supervisor, "_teardown", lambda c, grace=5.0: [])
+    sup = supervisor.JobSupervisor(object(), progs.square_feed,
+                                   restart_policy=RestartPolicy())
+
+    def job(c):
+        raise RuntimeError("node 0 failed")
+
+    ok, _, record = sup._attempt(job, 5.0)
+    assert not ok and "node 0 failed" in record.error
+    assert len(failed.captures) == 1
+    got, attrs = failed.captures[0]
+    assert got == reason and attrs.get("nodes") == nodes
